@@ -1,0 +1,202 @@
+"""The port's public API (``tpualign_torch.align_score``) end to end on the
+CPU against ``tpualign.align_score``, its refusals, its scoring config and
+oracle against ``tpualign``'s, and its independence from JAX and from the
+JAX package.  Inputs come from numpy with a seed; comparisons are exact."""
+
+import dataclasses
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import tpualign
+from tpualign import config as jconfig
+from tpualign.ops import bitpal as jbp
+from tpualign.ops import oracle
+from tpualign_torch import AlignMode, EngineConfig, ScoringConfig, align_score
+from tpualign_torch.api import resolve_impl
+from tpualign_torch.ops import bitpal as tbp
+from tpualign_torch.ops import oracle as toracle
+
+CPU = EngineConfig(device="cpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _pair(m, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(1, 5, m).astype(np.int8),
+            rng.integers(1, 5, n).astype(np.int8))
+
+
+def test_slice_end_to_end_matches_jax_package():
+    s1, s2 = _pair(2000, 3000, seed=11)
+    assert align_score(s1, s2, engine=CPU) == tpualign.align_score(s1, s2)
+
+
+@pytest.mark.parametrize("impl", ["auto", "bitpal", "oracle"])
+def test_impls_agree(impl):
+    s1, s2 = _pair(120, 77, seed=5)
+    got = align_score(s1, s2, engine=EngineConfig(impl=impl, device="cpu"))
+    assert got == oracle.score(s1, s2)
+
+
+def test_resolve_impl():
+    assert resolve_impl(EngineConfig(), ScoringConfig()) == "bitpal"
+    assert resolve_impl(EngineConfig(), ScoringConfig(match=2, gap=-2)) == "bitpal"
+    assert resolve_impl(EngineConfig(impl="oracle"), ScoringConfig(mode=AlignMode.LOCAL)) == "oracle"
+
+
+def test_headroom_refusal_matches_jax():
+    # g = 1 member with large magnitudes: (0 + 2 * 2**20) * (m + n) >= 2**31
+    # exactly when m + n >= 1024, in both packages
+    cfg = ScoringConfig(match=1 << 20, mismatch=0, gap=-(1 << 20))
+    for m, n in [(600, 424), (1000, 1000)]:
+        with pytest.raises(ValueError, match="int32 headroom"):
+            jbp.score_fn(m, n, cfg, interpret=True)
+        with pytest.raises(ValueError, match="int32 headroom"):
+            tbp.score_fn(m, n, cfg, device="cpu")
+    jbp.score_fn(600, 423, cfg, interpret=True)
+    tbp.score_fn(600, 423, cfg, device="cpu")
+    s1, s2 = _pair(600, 423, seed=2)
+    assert align_score(s1, s2, cfg, CPU) == oracle.score(s1, s2, cfg)
+
+
+@pytest.mark.parametrize(
+    "cfg,item",
+    [
+        (ScoringConfig(match=1, mismatch=0, gap=-2), "item 6"),
+        (ScoringConfig(mode=AlignMode.LOCAL), "item 8"),
+        (ScoringConfig(gap_open=-5, gap_extend=-2), "item 8"),
+        (ScoringConfig(mode=AlignMode.SEMIGLOBAL), "item 8"),
+        (ScoringConfig(matrix=((1, 0), (0, 1))), "item 8"),
+        (ScoringConfig(match=1, mismatch=0, gap=0), "item 8"),
+    ],
+    ids=["g2", "local", "affine", "semiglobal", "matrix", "gap0"],
+)
+@pytest.mark.parametrize("impl", ["auto", "bitpal"])
+def test_unported_configs_raise(cfg, item, impl):
+    s1, s2 = _pair(20, 30, seed=1)
+    with pytest.raises(NotImplementedError, match=item):
+        align_score(s1, s2, cfg, EngineConfig(impl=impl, device="cpu"))
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s1, s2 = _pair(20, 30, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        align_score(s1, s2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tbp.score(s1, s2, device="cuda")
+
+
+def test_engine_config_validates():
+    assert EngineConfig().device == "cuda"
+    with pytest.raises(ValueError, match="unknown impl"):
+        EngineConfig(impl="xla")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        EngineConfig(device="meta")
+
+
+def test_package_imports_and_scores_without_jax():
+    s1, s2 = _pair(40, 25, seed=9)
+    code = (
+        "import sys\n"
+        "for k in [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]:\n"
+        "    del sys.modules[k]\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['tpualign'] = None\n"
+        "import numpy as np\n"
+        "import tpualign_torch\n"
+        "from tpualign_torch import EngineConfig, align_score\n"
+        f"s1 = np.array({s1.tolist()}, np.int8)\n"
+        f"s2 = np.array({s2.tolist()}, np.int8)\n"
+        "print(align_score(s1, s2, engine=EngineConfig(device='cpu')))\n"
+        "print(align_score(s1, s2, engine=EngineConfig('oracle', 'cpu')))\n"
+        "assert not [k for k in sys.modules if k.startswith('jax') and sys.modules[k] is not None]\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert [int(x) for x in out.stdout.split()] == [oracle.score(s1, s2)] * 2
+
+
+def test_scoring_config_fields_match_jax_package():
+    ours = [(f.name, f.default) for f in dataclasses.fields(ScoringConfig)]
+    theirs = [(f.name, f.default) for f in dataclasses.fields(jconfig.ScoringConfig)]
+    assert [n for n, _ in ours] == [n for n, _ in theirs]
+    assert [getattr(d, "value", d) for _, d in ours] == [
+        getattr(d, "value", d) for _, d in theirs]
+    assert [(m.name, m.value) for m in AlignMode] == [
+        (m.name, m.value) for m in jconfig.AlignMode]
+
+
+@pytest.mark.parametrize("mode", list(AlignMode), ids=lambda m: m.name)
+def test_scoring_config_flags_match_jax_package(mode):
+    ours = ScoringConfig(mode=mode, gap_open=-3, gap_extend=-1)
+    theirs = jconfig.ScoringConfig(mode=jconfig.AlignMode(mode.value),
+                                   gap_open=-3, gap_extend=-1)
+    for flag in ("is_local", "is_affine", "has_matrix", "free_start_s1",
+                 "free_start_s2", "free_end_s1", "free_end_s2", "is_ends_free"):
+        assert getattr(ours, flag) == getattr(theirs, flag), flag
+
+
+@pytest.mark.parametrize(
+    "kwargs,exc",
+    [
+        (dict(match=1.0), TypeError),
+        (dict(mode="nw"), TypeError),
+        (dict(matrix=[[1]]), TypeError),
+        (dict(matrix=((1, 0),)), TypeError),
+        (dict(matrix=tuple((0,) * 17 for _ in range(17))), ValueError),
+        (dict(matrix=((1, 0.5), (0, 1))), TypeError),
+        (dict(gap_open=-2), ValueError),
+        (dict(gap_open=1, gap_extend=-1), ValueError),
+        (dict(gap_open=-1, gap_extend=1.0), TypeError),
+    ],
+    ids=["float", "mode", "list-matrix", "ragged", "17-codes", "float-entry",
+         "open-alone", "open-positive", "extend-float"],
+)
+def test_scoring_config_refuses_what_jax_package_refuses(kwargs, exc):
+    with pytest.raises(exc):
+        ScoringConfig(**kwargs)
+    with pytest.raises(exc):
+        jconfig.ScoringConfig(**kwargs)
+
+
+_DNA = ((0, -9, -9, -9, -9), (-9, 2, -1, 0, -1), (-9, -1, 2, -1, 0),
+        (-9, 0, -1, 2, -1), (-9, -1, 0, -1, 2))
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(), dict(match=2, mismatch=-1, gap=-3), dict(match=1, mismatch=0, gap=0),
+     dict(mode="LOCAL", mismatch=-1, gap=-2), dict(mode="SEMIGLOBAL", gap=-2),
+     dict(mode="INFIX", mismatch=-1), dict(matrix=_DNA, gap=-2),
+     dict(matrix=_DNA, mode="LOCAL", gap=-3)],
+    ids=["unit", "2,-1,-3", "gap0", "local", "semiglobal", "infix", "matrix",
+         "matrix-local"],
+)
+@pytest.mark.parametrize("m,n", [(0, 7), (7, 0), (60, 45), (45, 120)])
+def test_oracle_matches_jax_package(kwargs, m, n):
+    mode = kwargs.pop("mode", "GLOBAL")
+    rng = np.random.default_rng(m + 31 * n)
+    s1 = rng.integers(0, 5, m).astype(np.int8)
+    s2 = rng.integers(0, 5, n).astype(np.int8)
+    ours = ScoringConfig(mode=AlignMode[mode], **kwargs)
+    theirs = jconfig.ScoringConfig(mode=jconfig.AlignMode[mode], **kwargs)
+    assert toracle.score(s1, s2, ours) == oracle.score(s1, s2, theirs)
+
+
+def test_oracle_refuses_affine():
+    cfg = ScoringConfig(gap_open=-3, gap_extend=-1)
+    s1, s2 = _pair(10, 12, seed=4)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        align_score(s1, s2, cfg, EngineConfig(impl="oracle", device="cpu"))

@@ -1,0 +1,88 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, under ``tpualign_torch/_build/``
+(git-ignored), named by a hash of the sources and the flags, so an edited
+source builds anew and an unchanged one loads from the cache.  The same
+build-on-first-use pattern as ``tpualign/utils/native.py``, except that a
+failed build raises with the compiler's output instead of reporting the
+library unavailable: a CUDA tensor has no other path to take.
+
+Nothing here runs at import time; the CPU tests import the package without
+a CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+#: ``-Xptxas -v`` keeps each kernel's register, shared-memory and spill
+#: report; :func:`library_path` stores it beside the library as ``.log``
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError(
+        "nvcc not found: set CUDA_HOME or put the CUDA toolkit's bin on PATH"
+    )
+
+
+def library_path() -> str:
+    """Path of the built kernel library, compiling it if the cache misses."""
+    files = sorted(glob.glob(os.path.join(CSRC, "*")))
+    sources = [path for path in files if path.endswith(".cu")]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in files:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    out = os.path.join(BUILD_DIR, f"libtpualign_torch_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+        capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built and loaded once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(library_path())
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.bitpal_fill.argtypes = [vp, vp, i64, i32, i32, i32, vp, vp, vp]
+        lib.bitpal_fill.restype = i32
+        _lib = lib
+    return _lib

@@ -1,0 +1,131 @@
+"""Where the time of the port's main path goes, on one CUDA device.
+
+    python -m tpualign_torch.probe
+
+Prints, each part on lines of its own:
+
+1. the card: name, power limit, and the SM clock and power draw read while
+   the kernel runs at the 64gb shape (126,440 x 127,240, random codes);
+2. the kernel's per-step cost against its geometry: ``bitpal_fill`` at
+   ``mt = 20,000`` for queries of 1 to 16,384 words (1 to 1,024 threads,
+   1 to 16 words per thread), CUDA events, median of 3 after a warm-up;
+3. the score path at the 64gb shape on the host clock, split into match
+   planes, fill and reduction with read-back, for the first call of the
+   process and for a warm one;
+4. device time by kernel for one warm call, from ``torch.profiler``.
+
+Nothing is compared here: ``chip_smoke.py`` checks the kernel.  Exits
+non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .ops import bitpal
+
+PAIR_LENGTHS = (126440, 127240)  # bdna/64gb-{1,2}.bdna
+SWEEP_TEXT = 20000
+SWEEP_ROWS = (64, 2048, 8192, 16384, 32768, 49152, 65536, 127240, 131072,
+              262144, 524288, 1048576)
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _planes(nq: int, mt: int, seed: int):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(1, 5, nq, dtype=np.int8)).cuda()
+    t = torch.from_numpy(rng.integers(1, 5, mt, dtype=np.int8)).cuda()
+    return t, bitpal._eq_planes(q, nq)
+
+
+def _kernel_ms(t, eq, nq: int, runs: int = 3) -> float:
+    times = []
+    for i in range(runs + 1):  # one warm-up
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        bitpal.fill(t, eq, nq)
+        e1.record()
+        e1.synchronize()
+        if i:
+            times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def _host_split(q, t, nq: int, mt: int) -> str:
+    """Match planes, fill and reduction with read-back, each closed by a
+    synchronize, on the host clock."""
+    marks = [time.perf_counter()]
+    eq = bitpal._eq_planes(q, nq)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    b0, b1 = bitpal.fill(t, eq, nq)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    score = int(bitpal._reduce_score(b0, b1, nq, mt))
+    marks.append(time.perf_counter())
+    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return (f"eq planes {ms[0]:.3f} ms, fill {ms[1]:.3f} ms, "
+            f"reduce+readback {ms[2]:.3f} ms, unit score {score}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("probe: torch.cuda.is_available() is false; this needs a CUDA device")
+    print(_smi("name,power.limit"))
+    bitpal.fill(*_planes(64, 1, 0), 64)  # build and load the kernel
+
+    # 3 first: the first reduction of the process pays the lazy CUDA set-up
+    m, n = PAIR_LENGTHS
+    rng = np.random.default_rng(64)
+    s1, s2 = (rng.integers(1, 5, size=k, dtype=np.int8) for k in PAIR_LENGTHS)
+    query, text = (s1, s2) if bitpal._orientation(m, n) else (s2, s1)
+    nq, mt = query.size, text.size
+    q, t = torch.from_numpy(query).cuda(), torch.from_numpy(text).cuda()
+    for which in ("first call", "warm call"):
+        print(f"[host clock, 64gb shape, {which}] {_host_split(q, t, nq, mt)}")
+
+    # 1: clock and draw while 25 fills (about 3 s) are queued on the card
+    eq = bitpal._eq_planes(q, nq)
+    for _ in range(25):
+        bitpal.fill(t, eq, nq)
+    time.sleep(1.0)
+    print(f"[under load] sm clock, power draw: {_smi('clocks.sm,power.draw')}")
+    torch.cuda.synchronize()
+
+    # 2: the sweep
+    for nq_s in SWEEP_ROWS:
+        nw = -(-nq_s // bitpal.WORD)
+        k, threads = bitpal.kernel_geometry(nw)
+        ms = _kernel_ms(*_planes(nq_s, SWEEP_TEXT, nq_s), nq_s)
+        step_ns = ms * 1e6 / (SWEEP_TEXT + threads - 1)
+        print(f"[sweep mt {SWEEP_TEXT}] nq {nq_s:7d} nw {nw:5d} k {k:2d} "
+              f"threads {threads:4d}: {ms:9.3f} ms, {step_ns:8.1f} ns/step, "
+              f"{step_ns / k:6.1f} ns/step/word-per-thread, "
+              f"{nq_s * SWEEP_TEXT / ms / 1e6:7.2f} GCUPS")
+
+    # 4: device time by kernel, one warm score of the 64gb shape
+    fn = bitpal.score_fn(m, n, device="cuda")
+    d1, d2 = torch.from_numpy(s1).cuda(), torch.from_numpy(s2).cuda()
+    int(fn(d1, d2))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        int(fn(d1, d2))
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=6,
+                                    max_name_column_width=48))
+
+
+if __name__ == "__main__":
+    main()
