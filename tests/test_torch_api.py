@@ -1,7 +1,8 @@
 """The port's public API (``tpualign_torch.align_score``) end to end on the
 CPU against ``tpualign.align_score``, its refusals, its scoring config and
 oracle against ``tpualign``'s, and its independence from JAX and from the
-JAX package.  Inputs come from numpy with a seed; comparisons are exact."""
+JAX package (``align_score`` and ``align``).  Inputs come from numpy with a
+seed; comparisons are exact."""
 
 import dataclasses
 
@@ -37,6 +38,13 @@ def test_slice_end_to_end_matches_jax_package():
     assert align_score(s1, s2, engine=CPU) == tpualign.align_score(s1, s2)
 
 
+@pytest.mark.parametrize("gap", [-2, -7])
+def test_g_family_end_to_end_matches_jax_package(gap):
+    s1, s2 = _pair(300, 400, seed=-gap)
+    got = align_score(s1, s2, ScoringConfig(gap=gap), CPU)
+    assert got == tpualign.align_score(s1, s2, jconfig.ScoringConfig(gap=gap))
+
+
 @pytest.mark.parametrize("impl", ["auto", "bitpal", "oracle"])
 def test_impls_agree(impl):
     s1, s2 = _pair(120, 77, seed=5)
@@ -47,6 +55,8 @@ def test_impls_agree(impl):
 def test_resolve_impl():
     assert resolve_impl(EngineConfig(), ScoringConfig()) == "bitpal"
     assert resolve_impl(EngineConfig(), ScoringConfig(match=2, gap=-2)) == "bitpal"
+    assert resolve_impl(EngineConfig(), ScoringConfig(gap=-2)) == "bitpal"
+    assert resolve_impl(EngineConfig(), ScoringConfig(match=3, mismatch=2, gap=-1)) == "bitpal"
     assert resolve_impl(EngineConfig(impl="oracle"), ScoringConfig(mode=AlignMode.LOCAL)) == "oracle"
 
 
@@ -68,14 +78,14 @@ def test_headroom_refusal_matches_jax():
 @pytest.mark.parametrize(
     "cfg,item",
     [
-        (ScoringConfig(match=1, mismatch=0, gap=-2), "item 6"),
+        (ScoringConfig(match=1, mismatch=0, gap=-8), "item 8"),
         (ScoringConfig(mode=AlignMode.LOCAL), "item 8"),
         (ScoringConfig(gap_open=-5, gap_extend=-2), "item 8"),
         (ScoringConfig(mode=AlignMode.SEMIGLOBAL), "item 8"),
         (ScoringConfig(matrix=((1, 0), (0, 1))), "item 8"),
         (ScoringConfig(match=1, mismatch=0, gap=0), "item 8"),
     ],
-    ids=["g2", "local", "affine", "semiglobal", "matrix", "gap0"],
+    ids=["g8", "local", "affine", "semiglobal", "matrix", "gap0"],
 )
 @pytest.mark.parametrize("impl", ["auto", "bitpal"])
 def test_unported_configs_raise(cfg, item, impl):
@@ -117,6 +127,10 @@ def test_package_imports_and_scores_without_jax():
         f"s2 = np.array({s2.tolist()}, np.int8)\n"
         "print(align_score(s1, s2, engine=EngineConfig(device='cpu')))\n"
         "print(align_score(s1, s2, engine=EngineConfig('oracle', 'cpu')))\n"
+        "print(tpualign_torch.align(s1, s2, engine=EngineConfig(device='cpu'))[0])\n"
+        "from tpualign_torch.ops import hirschberg\n"
+        "hirschberg.BASE_CELLS = 64\n"
+        "print(hirschberg.align(s1, s2, device='cpu')[0])\n"
         "assert not [k for k in sys.modules if k.startswith('jax') and sys.modules[k] is not None]\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -125,7 +139,7 @@ def test_package_imports_and_scores_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert [int(x) for x in out.stdout.split()] == [oracle.score(s1, s2)] * 2
+    assert [int(x) for x in out.stdout.split()] == [oracle.score(s1, s2)] * 4
 
 
 def test_scoring_config_fields_match_jax_package():

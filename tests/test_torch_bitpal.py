@@ -30,15 +30,13 @@ def _jax_k1_rows(query, text, lean):
         mt=mt, rows=rows, total=total, unroll=jbp.UNROLL_INTERPRET, nw=nw,
         interpret=True, lean=lean,
     )
-    p0, p1 = tbp.planes_from_jax(np.asarray(b0), np.asarray(b1), nq)
-    return tbp.row_deltas(p0, p1, nq)
+    return tbp.row_deltas(tbp.planes_from_jax([b0, b1], nq), nq)
 
 
 def _plain_rows(query, text):
     nq = query.size
     eq = tbp._eq_planes(torch.from_numpy(query), nq)
-    b0, b1 = tbp.fill_plain(torch.from_numpy(text), eq, nq)
-    return tbp.row_deltas(b0, b1, nq)
+    return tbp.row_deltas(tbp.fill_plain(torch.from_numpy(text), eq, nq), nq)
 
 
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "base"])

@@ -9,11 +9,12 @@ a plain PyTorch version that runs on CPU tensors.
 
 Public API:
 
-- :func:`align_score` — global alignment score of one pair.
+- :func:`align_score` — alignment score of one pair.
+- :func:`align` — score plus aligned strings of one pair.
 - :class:`ScoringConfig`, :class:`EngineConfig`, :class:`AlignMode` — config.
 """
 
-from .api import align_score
+from .api import align, align_score
 from .config import AlignMode, EngineConfig, ScoringConfig
 
-__all__ = ["AlignMode", "EngineConfig", "ScoringConfig", "align_score"]
+__all__ = ["AlignMode", "EngineConfig", "ScoringConfig", "align", "align_score"]

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into one
+Every ``csrc/*.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and the objects link into one
 shared library with a plain C interface, under ``tpualign_torch/_build/``
 (git-ignored), named by a hash of the sources and the flags, so an edited
 source builds anew and an unchanged one loads from the cache.  The same
@@ -30,8 +31,9 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 #: report; :func:`library_path` stores it beside the library as ``.log``
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+BUILD_TIMEOUT_S = 900
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -61,17 +63,38 @@ def library_path() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True, timeout=900,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{proc.stdout}{proc.stderr}"
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    procs = []
+    try:
+        for src, obj in zip(sources, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [proc.communicate(timeout=BUILD_TIMEOUT_S)[0] for proc in procs]
+        failed = [(src, proc.returncode, log)
+                  for src, proc, log in zip(sources, procs, logs) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{src} (exit code {rc}):\n{log}" for src, rc, log in failed))
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", tmp, *objs],
+            capture_output=True, text=True, timeout=BUILD_TIMEOUT_S,
         )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with exit code {link.returncode}:\n"
+                               f"{link.stdout}{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(logs))
     os.replace(tmp, out)
     return out
 
@@ -84,5 +107,10 @@ def load() -> ctypes.CDLL:
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.bitpal_fill.argtypes = [vp, vp, i64, i32, i32, i32, vp, vp, vp]
         lib.bitpal_fill.restype = i32
+        lib.bitpal_gfill.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
+        lib.bitpal_gfill.restype = i32
+        lib.bitpal_capture_fill.argtypes = [
+            vp, vp, i64, i32, i32, i32, i32, vp, i32, vp, vp, vp]
+        lib.bitpal_capture_fill.restype = i32
         _lib = lib
     return _lib

@@ -115,6 +115,12 @@ class ScoringConfig:
     def is_ends_free(self) -> bool:
         return self.mode in (AlignMode.SEMIGLOBAL, AlignMode.INFIX)
 
+    def sub_score(self, a: int, b: int) -> int:
+        """Substitution score of s1-code ``a`` against s2-code ``b``."""
+        if self.matrix is not None:
+            return self.matrix[a][b]
+        return self.match if a == b else self.mismatch
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:

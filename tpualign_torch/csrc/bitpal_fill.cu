@@ -10,8 +10,9 @@
 //                        v(i, mt) as two planes of enc = v + 1
 //
 // Query rows are packed 64 to a word (row 64w+b is bit b of word w).  One
-// column step of a word is the plane algebra of plane_step below; see the
-// derivation in the module docstring of tpualign/ops/bitpal.py.
+// column step of a word is the plane algebra of plane_step in
+// bitpal_step.cuh; see the derivation in the module docstring of
+// tpualign/ops/bitpal.py.
 //
 // Schedule: one thread block.  Thread t owns words [t*K, t*K+K) and keeps
 // their two delta planes in registers.  At step d thread t computes column
@@ -33,32 +34,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bitpal_step.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kAlphabet = 5;
-
-typedef unsigned long long u64;
-
-// One column step of one word.  (b0, b1): the word's vertical-delta planes,
-// updated in place.  (u0, u1): enc of the horizontal delta entering the top
-// row; on return, enc of the h_out leaving the bottom row.  Carries out of
-// bit 63 are dropped: the bottom row's promotion reaches the next word
-// through h_out, not through the add.
-__device__ __forceinline__ void plane_step(u64 E, u64& b0, u64& b1, u64& u0,
-                                           u64& u1) {
-  const u64 vm1 = ~b0 & ~b1;  // v = -1
-  const u64 received = (vm1 + (E & vm1) + (u0 & u1)) ^ vm1;
-  const u64 P = E | (b0 & b1) | received;  // promotion bit
-  const u64 U0 = (P & ~b0) | (~P & b0 & ~b1);
-  const u64 U1 = (P & ~b1) | (~P & vm1);
-  const u64 U0i = (U0 << 1) | u0;
-  const u64 U1i = (U1 << 1) | u1;
-  b0 = U0i ^ P;
-  b1 = ~(U0i ^ U1i) ^ (U0i & P);
-  u0 = U0 >> 63;
-  u1 = U1 >> 63;
-}
+using bitpal::kAlphabet;
+using bitpal::kMaxThreads;
+using bitpal::plane_step;
+using bitpal::u64;
 
 template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -88,7 +71,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
       for (int i = 0; i < K; ++i) {
         const u64 E = (known && w0 + i < nw) ? e[i] : 0;
-        plane_step(E, b0[i], b1[i], u0, u1);
+        u64 U0, U1;  // every row's h_out, unused without captures
+        plane_step(E, b0[i], b1[i], u0, u1, U0, U1);
       }
       hand[d & 1][t] = static_cast<uint8_t>(u0 | (u1 << 1));
     }

@@ -1,11 +1,12 @@
-"""Bit-parallel NW score for the reference's scoring (1, 0, -1), in PyTorch
-and CUDA: the port of ``tpualign/ops/bitpal.py``'s flagship path.
+"""Bit-parallel NW fills for the scoring family (1, 0, -g), g = 1..7, in
+PyTorch and CUDA: the port of ``tpualign/ops/bitpal.py``.
 
 The algorithm is the JAX module's (its docstring derives it): the vertical
-DP deltas ``v = H(i, j) - H(i-1, j)`` lie in {-1, 0, 1, 2} and are carried as
-two bit planes of ``enc = v + 1``; one column step advances a whole word of
+DP deltas ``v = H(i, j) - H(i-1, j)`` lie in ``[-g, 1+g]`` and are carried as
+``B = bit_length(2g+1)`` bit planes of ``enc = v + g`` (two at g = 1, three
+at g = 2..3, four at g = 4..7); one column step advances a whole word of
 query rows with boolean plane algebra and one carry-propagating add; the
-score is ``H(nq, mt) = -mt + sum_i v(i, mt)`` over the final column.
+score is ``H(nq, mt) = -g*mt + sum_i v(i, mt)`` over the final column.
 
 The port's geometry, not the TPU's:
 
@@ -19,9 +20,17 @@ The port's geometry, not the TPU's:
 - Word ``w`` computes column ``d - w`` at step ``d``: a plain wavefront, with
   none of the TPU schedule's stagger, delay lines or lane rolls.
 
-The kernel (``csrc/bitpal_fill.cu``) and its plain version
-(:func:`fill_plain`) share this contract, so they compare word for word;
-:func:`fill` picks between them by the device of its tensors.
+Three kernels, each with a plain version that shares its contract, so
+they compare word for word; each wrapper picks between kernel and plain
+version by the device of its tensors:
+
+- :func:`fill` (``csrc/bitpal_fill.cu``, K1's port): g = 1, final column.
+- :func:`fill_g` (``csrc/bitpal_gfill.cu``, K2's port): any g, final column.
+- :func:`capture_fill` (the same source, K4's port): any g, final column
+  plus the horizontal deltas of chosen DP rows at every column (the rows of
+  H that the k-way Hirschberg split reads).
+
+:func:`fill_g_plain` is the plain version of all three.
 """
 
 from __future__ import annotations
@@ -36,8 +45,7 @@ from ..config import ScoringConfig
 
 WORD = 64  # query rows per int64 word
 ALPHABET = 5  # match planes for codes 0..4 (.bdna: 0 = gap byte, 1..4 = ATGC)
-#: largest reduced gap weight of the (1, 0, -g) family (``tpualign``'s MAX_G);
-#: the port runs g = 1 only so far
+#: largest reduced gap weight of the (1, 0, -g) family (``tpualign``'s MAX_G)
 MAX_G = 7
 #: kernel geometry: one block of up to MAX_THREADS threads, each owning K
 #: consecutive words, K a power of two up to MAX_K (registers per thread)
@@ -118,15 +126,21 @@ def _orientation(m: int, n: int) -> bool:
     return c2 is None or (c1 is not None and c1 <= c2)
 
 
-def _plane_step(E, b0, b1, u0, u1):
-    """One column step of every word at once (tensors of int64 words).
+def n_planes(g: int) -> int:
+    """Delta planes of the (1, 0, -g) family: the bit length of the largest
+    enc, ``2g + 1`` (2 at g = 1, 3 at g = 2..3, 4 at g = 4..7)."""
+    return (2 * g + 1).bit_length()
 
-    ``(b0, b1)``: vertical-delta planes; ``(u0, u1)``: enc of the horizontal
-    delta entering each word's top row.  Returns the new planes and the enc
-    bits of each word's bottom-row ``h_out``.  Same algebra as the kernel's
-    ``plane_step`` and ``tpualign.ops.bitpal._plane_step``; int64 adds wrap
-    and shifts drop bits exactly as uint64 ones do, and ``>> 63`` is masked
-    with ``& 1`` because it is arithmetic on negative words."""
+
+def _plane_step(E, b0, b1, u0, u1):
+    """One g = 1 column step of every word at once (tensors of int64 words).
+
+    ``(b0, b1)``: vertical-delta planes; ``(u0, u1)``: enc bits (0 or 1) of
+    the horizontal delta entering each word's top row.  Returns the new
+    planes and the planes ``(U0, U1)`` of every row's ``h_out`` enc.  Same
+    algebra as the kernels' ``plane_step`` and
+    ``tpualign.ops.bitpal._plane_step``; int64 adds wrap and shifts drop
+    bits exactly as uint64 ones do."""
     vm1 = ~b0 & ~b1  # v = -1
     received = (vm1 + (E & vm1) + (u0 & u1)) ^ vm1
     P = E | (b0 & b1) | received  # promotion bit
@@ -137,7 +151,55 @@ def _plane_step(E, b0, b1, u0, u1):
     U1i = (U1 << 1) | u1
     b0n = U0i ^ P
     b1n = ~(U0i ^ U1i) ^ (U0i & P)
-    return b0n, b1n, (U0 >> 63) & 1, (U1 >> 63) & 1
+    return [b0n, b1n], [U0, U1]
+
+
+def _add_planes(A, Bp):
+    """Bit-sliced ripple add of two plane lists (mod 2^len(A)); the port of
+    ``tpualign.ops.bitpal._add_planes``."""
+    out = []
+    carry = None
+    for b, x in enumerate(A):
+        y = Bp[b] if b < len(Bp) else None
+        if y is None:
+            s_ = x if carry is None else x ^ carry
+            carry = None if carry is None else x & carry
+        else:
+            s_ = x ^ y if carry is None else x ^ y ^ carry
+            carry = x & y if carry is None else (x & y) | (carry & (x ^ y))
+        out.append(s_)
+    return out
+
+
+def _g_plane_step(g, E, V, u):
+    """One (1, 0, -g) column step of every word at once, g >= 2: the port of
+    ``tpualign.ops.bitpal._g_plane_step`` with 64-bit words (every MASK31 is
+    all 64 bits).  ``V``: the B vertical-delta planes; ``u``: enc bits (0 or
+    1) of each word's h_top.  The promotion bit is binary as at g = 1 and
+    propagates through runs of ``enc_v = 0`` by the Myers add, whose carry
+    out of bit 63 is dropped as in K1's port; both outputs are
+    ``enc_out = 2g - enc_in + P``.  Returns the new ``V`` and the planes of
+    every row's h_out enc."""
+    vmax = 2 * g + 1
+    nV = [~v for v in V]
+    enc_is0 = nV[0]
+    for x in nV[1:]:
+        enc_is0 = enc_is0 & x
+    enc_ismax = V[0] if vmax & 1 else nV[0]
+    for b in range(1, len(V)):
+        enc_ismax = enc_ismax & (V[b] if (vmax >> b) & 1 else nV[b])
+    c_in = u[0] if vmax & 1 else ~u[0]  # h_top == vmax
+    for b in range(1, len(V)):
+        c_in = c_in & (u[b] if (vmax >> b) & 1 else ~u[b])
+    S = E | enc_ismax
+    received = (enc_is0 + (E & enc_is0) + (c_in & 1)) ^ enc_is0
+    P = S | received
+    # vmax as planes of all ones (-1) or zeros
+    const = [-1 if (vmax >> b) & 1 else 0 for b in range(len(V))]
+    U = _add_planes(_add_planes(nV, const), [P])  # 2g - enc == vmax + ~enc
+    Ui = [(x << 1) | ub for x, ub in zip(U, u)]
+    Vn = _add_planes(_add_planes([~x for x in Ui], const), [P])
+    return Vn, U
 
 
 def _check_fill_args(text: torch.Tensor, eq: torch.Tensor, nq: int) -> None:
@@ -156,17 +218,43 @@ def _check_fill_args(text: torch.Tensor, eq: torch.Tensor, nq: int) -> None:
         raise ValueError("text and eq must be contiguous")
 
 
-def fill_plain(text: torch.Tensor, eq: torch.Tensor, nq: int):
-    """Plain PyTorch version of the fill (the K1 contract): the final
-    column's vertical-delta planes ``(b0, b1)``, ``enc = v + 1``.
+def _check_g(g: int) -> None:
+    if not isinstance(g, int) or not 1 <= g <= MAX_G:
+        raise ValueError(f"g must be an int in 1..{MAX_G}, got {g!r}")
+
+
+def _check_cap_rows(cap_rows, nq: int) -> list:
+    rows = [int(r) for r in cap_rows]
+    if any(r < 1 or r > nq for r in rows):
+        raise ValueError(f"capture rows must lie in 1..{nq}, got {rows}")
+    if any(a >= b for a, b in zip(rows, rows[1:])):
+        raise ValueError(f"capture rows must be strictly ascending, got {rows}")
+    return rows
+
+
+def fill_g_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
+                 cap_rows=None):
+    """Plain PyTorch version of the (1, 0, -g) fill, the contract of K2
+    (final column) and K4 (final column plus captured rows):
+    ``(planes, caps)``.
 
     ``text``: ``(mt,)`` int8 codes; ``eq``: ``(5, nw)`` int64 match planes
-    (:func:`_eq_planes`).  A vectorised wavefront: step ``d`` runs a few
-    tensor ops over all words, word ``w`` at column ``d - w``, taking its
-    ``h_top`` from the ``h_out`` word ``w - 1`` produced one step earlier.
-    Words outside their columns ``1..mt`` keep their state; the h_out they
-    produce feeds only words that are outside their columns too."""
+    (:func:`_eq_planes`).  ``planes``: the final column's vertical deltas
+    ``v(i, mt)`` as :func:`n_planes` int64 planes of ``enc = v + g``.
+    ``cap_rows``: strictly ascending DP rows ``r`` in ``1..nq``; ``caps`` is
+    ``(len(cap_rows), mt)`` int8 with ``caps[c, j-1]`` the enc (``h + g``)
+    of ``h = H(r, j) - H(r, j-1)`` for ``r = cap_rows[c]`` (``(0, mt)``
+    without ``cap_rows``).  Row ``r`` is bit ``(r-1) % 64`` of the h_out
+    planes of word ``(r-1) // 64``.
+
+    A vectorised wavefront: step ``d`` runs a few tensor ops over all words,
+    word ``w`` at column ``d - w``, taking its ``h_top`` from the ``h_out``
+    word ``w - 1`` produced one step earlier.  Words outside their columns
+    ``1..mt`` keep their state; the h_out they produce feeds only words that
+    are outside their columns too."""
     _check_fill_args(text, eq, nq)
+    _check_g(g)
+    rows = _check_cap_rows([] if cap_rows is None else cap_rows, nq)
     nw, mt = eq.shape[1], text.shape[0]
     dev = eq.device
     codes = text.long()
@@ -182,21 +270,37 @@ def fill_plain(text: torch.Tensor, eq: torch.Tensor, nq: int):
     rev = torch.cat([pad, codes, pad]).flip(0)
     live_rev = torch.cat([off, on, off]).flip(0)
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
-    b0 = torch.zeros(nw, dtype=torch.int64, device=dev)  # column 0: enc 0
-    b1 = torch.zeros_like(b0)
-    h0 = torch.zeros_like(b0)
-    h1 = torch.zeros_like(b0)
+    B = n_planes(g)
+    V = [torch.zeros(nw, dtype=torch.int64, device=dev) for _ in range(B)]
+    h = [torch.zeros(nw, dtype=torch.int64, device=dev) for _ in range(B)]
+    # capture c at step d lands in column d - cw[c] + nw - 2 of caps_pad, so
+    # that every step writes in place without a mask; column j is nw + j - 2
+    J = len(rows)
+    cw = torch.tensor([(r - 1) // WORD for r in rows], dtype=torch.int64, device=dev)
+    cb = torch.tensor([(r - 1) % WORD for r in rows], dtype=torch.int64, device=dev)
+    cidx = torch.arange(J, device=dev)
+    caps_pad = torch.zeros((J, mt + 2 * nw), dtype=torch.int8, device=dev)
     for d in range(1, mt + nw):
         lo = mt + nw - d
         E = eqx.gather(0, rev[lo : lo + nw].unsqueeze(0)).squeeze(0)
         live = live_rev[lo : lo + nw]
-        # word 0's h_top is the top boundary h = gap: enc 0
-        u0 = torch.cat([zero, h0[:-1]])
-        u1 = torch.cat([zero, h1[:-1]])
-        b0n, b1n, h0, h1 = _plane_step(E, b0, b1, u0, u1)
-        b0 = torch.where(live, b0n, b0)
-        b1 = torch.where(live, b1n, b1)
-    return b0, b1
+        # word 0's h_top is the top boundary h = -g: enc 0
+        u = [torch.cat([zero, x[:-1]]) for x in h]
+        Vn, U = _plane_step(E, *V, *u) if g == 1 else _g_plane_step(g, E, V, u)
+        V = [torch.where(live, vn, v) for vn, v in zip(Vn, V)]
+        # >> 63 is arithmetic on negative words: mask it
+        h = [(x >> 63) & 1 for x in U]
+        if J:
+            enc = sum(((U[b][cw] >> cb) & 1) << b for b in range(B))
+            caps_pad[cidx, d - cw + nw - 2] = enc.to(torch.int8)
+    return tuple(V), caps_pad[:, nw - 1 : nw - 1 + mt]
+
+
+def fill_plain(text: torch.Tensor, eq: torch.Tensor, nq: int):
+    """Plain PyTorch version of the fill (the K1 contract): the final
+    column's vertical-delta planes ``(b0, b1)``, ``enc = v + 1``;
+    :func:`fill_g_plain` at g = 1."""
+    return fill_g_plain(text, eq, nq, 1)[0]
 
 
 def fill(text: torch.Tensor, eq: torch.Tensor, nq: int):
@@ -232,6 +336,81 @@ def fill(text: torch.Tensor, eq: torch.Tensor, nq: int):
 fill.launches = 0
 
 
+def _gfill_launch(text, eq, nq: int, g: int, rows):
+    """Launch ``bitpal_gfill`` (``rows`` None) or ``bitpal_capture_fill``
+    on the current stream; returns ``(planes, caps)``."""
+    if text.device.type != "cuda":
+        raise ValueError(f"the fills run on cpu or cuda tensors, got {text.device}")
+    nw, mt = eq.shape[1], text.shape[0]
+    k, threads = kernel_geometry(nw)
+    lib = _build.load()
+    dev = text.device
+    planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
+    J = 0 if rows is None else len(rows)
+    caps = torch.empty((J, mt), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if rows is None:
+            err = lib.bitpal_gfill(
+                text.data_ptr(), eq.data_ptr(), mt, nw, g, k, threads,
+                planes.data_ptr(), stream,
+            )
+        else:
+            rows_t = torch.tensor(rows, dtype=torch.int32).to(dev)
+            err = lib.bitpal_capture_fill(
+                text.data_ptr(), eq.data_ptr(), mt, nw, g, k, threads,
+                rows_t.data_ptr(), J, caps.data_ptr(), planes.data_ptr(), stream,
+            )
+    if err != 0:
+        name = "bitpal_gfill" if rows is None else "bitpal_capture_fill"
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    return planes.unbind(0), caps
+
+
+def fill_g(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int):
+    """The (1, 0, -g) fill's final column (K2's contract) on the device of
+    its tensors: the CUDA kernel ``bitpal_gfill`` (``csrc/bitpal_gfill.cu``)
+    for CUDA tensors, :func:`fill_g_plain` for CPU tensors.  Returns the
+    :func:`n_planes` planes of :func:`fill_g_plain`.
+
+    On CUDA it allocates the outputs, launches on the current stream without
+    synchronising, and counts the launch in ``fill_g.launches``.  A launch
+    the device refuses raises; nothing falls back to the plain version."""
+    _check_fill_args(text, eq, nq)
+    _check_g(g)
+    if text.device.type == "cpu":
+        return fill_g_plain(text, eq, nq, g)[0]
+    planes, _ = _gfill_launch(text, eq, nq, g, None)
+    fill_g.launches += 1
+    return planes
+
+
+fill_g.launches = 0
+
+
+def capture_fill(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
+                 cap_rows):
+    """The (1, 0, -g) fill's final column plus the horizontal deltas of the
+    DP rows ``cap_rows`` at every column (K4's contract), on the device of
+    its tensors: the CUDA kernel ``bitpal_capture_fill``
+    (``csrc/bitpal_gfill.cu``) for CUDA tensors, :func:`fill_g_plain` for
+    CPU tensors.  Returns ``(planes, caps)`` as :func:`fill_g_plain` does.
+
+    On CUDA it launches as :func:`fill_g` does and counts the launch in
+    ``capture_fill.launches``."""
+    _check_fill_args(text, eq, nq)
+    _check_g(g)
+    rows = _check_cap_rows(cap_rows, nq)
+    if text.device.type == "cpu":
+        return fill_g_plain(text, eq, nq, g, rows)
+    result = _gfill_launch(text, eq, nq, g, rows)
+    capture_fill.launches += 1
+    return result
+
+
+capture_fill.launches = 0
+
+
 def _eq_planes(query: torch.Tensor, nq: int) -> torch.Tensor:
     """``(5, nw)`` int64: bit ``b`` of word ``w`` of plane ``c`` set iff
     ``query[64w + b] == c``; rows past ``nq`` are set in no plane."""
@@ -246,20 +425,20 @@ def _eq_planes(query: torch.Tensor, nq: int) -> torch.Tensor:
     return (hits.long() * weights).sum(-1)
 
 
-def row_deltas(b0: torch.Tensor, b1: torch.Tensor, nq: int) -> torch.Tensor:
+def row_deltas(planes, nq: int, g: int = 1) -> torch.Tensor:
     """``(nq,)`` int64: the final column's ``v(i, mt)`` for each query row,
-    ``enc - 1`` read back from the port's 64-row planes."""
-    shifts = torch.arange(WORD, device=b0.device)
-    bit0 = ((b0.unsqueeze(1) >> shifts) & 1).reshape(-1)[:nq]
-    bit1 = ((b1.unsqueeze(1) >> shifts) & 1).reshape(-1)[:nq]
-    return bit0 + 2 * bit1 - 1
+    ``enc - g`` read back from the port's 64-row planes (a sequence of
+    :func:`n_planes` ``(nw,)`` int64 planes)."""
+    shifts = torch.arange(WORD, device=planes[0].device)
+    enc = sum(((p.unsqueeze(1) >> shifts) & 1) << b for b, p in enumerate(planes))
+    return enc.reshape(-1)[:nq] - g
 
 
-def planes_from_jax(b0, b1, nq: int):
-    """The port's ``(nw,)`` int64 planes from K1's: ``tpualign``'s
-    ``(rows, 128)`` int32 planes (numpy), 31 rows per word, word ``w`` at
-    ``(w % rows, w // rows)``; bit 31 of every word and the rows past ``nq``
-    in the last word are ignored."""
+def planes_from_jax(planes, nq: int):
+    """The port's ``(nw,)`` int64 planes from the JAX kernels' (K1, K2 or
+    K4): a sequence of ``tpualign``'s ``(rows, 128)`` int32 planes (numpy),
+    31 rows per word, word ``w`` at ``(w % rows, w // rows)``; bit 31 of
+    every word and the rows past ``nq`` in the last word are ignored."""
     nw = -(-nq // WORD)
 
     def convert(plane):
@@ -272,12 +451,13 @@ def planes_from_jax(b0, b1, nq: int):
         packed = (rows.reshape(nw, WORD) * weights).sum(axis=1, dtype=np.uint64)
         return torch.from_numpy(packed.view(np.int64))
 
-    return convert(b0), convert(b1)
+    return tuple(convert(p) for p in planes)
 
 
-def _reduce_score(b0, b1, nq: int, mt: int) -> torch.Tensor:
-    """Unit-scheme score ``H(nq, mt) = -mt + sum_i v(i, mt)``."""
-    return row_deltas(b0, b1, nq).sum() - mt
+def _reduce_score(planes, nq: int, mt: int, g: int = 1) -> torch.Tensor:
+    """Reduced-scheme score ``H(nq, mt) = -g*mt + sum_i v(i, mt)``, i.e.
+    ``sum enc - g*(mt + nq)``."""
+    return row_deltas(planes, nq, g).sum() - g * mt
 
 
 def _device(device) -> torch.device:
@@ -302,8 +482,8 @@ def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
 
     Refuses what ``tpualign.ops.bitpal.score_fn`` refuses (ValueError for a
     config outside the family or past the int32 headroom rule, kept so both
-    packages refuse the same inputs), and raises NotImplementedError for the
-    g >= 2 members the port does not run yet."""
+    packages refuse the same inputs).  g = 1 runs :func:`fill` (K1's port),
+    g >= 2 :func:`fill_g` (K2's)."""
     fam = family(cfg)
     if fam is None:
         raise ValueError(_NOT_FAMILY)
@@ -312,11 +492,6 @@ def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
     # int64 but refuses the same inputs
     if (abs(cfg.mismatch) + 2 * mult * g) * (m + n) >= 2**31:
         raise ValueError("scoring magnitudes too large for int32 headroom")
-    if g != 1:
-        raise NotImplementedError(
-            f"the (1, 0, -{g}) family is not ported yet: ROADMAP queue 1 "
-            "item 6 (kernel K2)"
-        )
     dev = _device(device)
     if m == 0 or n == 0:
         return lambda s1, s2: torch.tensor(cfg.gap * (m + n), device=dev)
@@ -328,8 +503,9 @@ def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
             raise ValueError(f"score_fn built for lengths ({m}, {n}), got "
                              f"({s1.numel()}, {s2.numel()})")
         query, text = (s1, s2) if s1_is_query else (s2, s1)
-        b0, b1 = fill(text, _eq_planes(query, nq), nq)
-        return _from_unit(cfg, mt + nq, _reduce_score(b0, b1, nq, mt))
+        eq = _eq_planes(query, nq)
+        planes = fill(text, eq, nq) if g == 1 else fill_g(text, eq, nq, g)
+        return _from_unit(cfg, mt + nq, _reduce_score(planes, nq, mt, g))
 
     return fn
 

@@ -12,7 +12,11 @@ Prints, each part on lines of its own:
 3. the score path at the 64gb shape on the host clock, split into match
    planes, fill and reduction with read-back, for the first call of the
    process and for a warm one;
-4. device time by kernel for one warm call, from ``torch.profiler``.
+4. device time by kernel for one warm call, from ``torch.profiler``;
+5. one warm ``align`` of the same pair under ``torch.profiler`` (device
+   activity only): its wall on the host clock beside the device time of
+   each kernel inside it, the device's busy time (the union of its
+   kernels and copies) and its idle share of the wall.
 
 Nothing is compared here: ``chip_smoke.py`` checks the kernel.  Exits
 non-zero without a CUDA device.
@@ -28,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from .ops import bitpal
+from .ops import bitpal, hirschberg
 
 PAIR_LENGTHS = (126440, 127240)  # bdna/64gb-{1,2}.bdna
 SWEEP_TEXT = 20000
@@ -71,14 +75,24 @@ def _host_split(q, t, nq: int, mt: int) -> str:
     eq = bitpal._eq_planes(q, nq)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    b0, b1 = bitpal.fill(t, eq, nq)
+    planes = bitpal.fill(t, eq, nq)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    score = int(bitpal._reduce_score(b0, b1, nq, mt))
+    score = int(bitpal._reduce_score(planes, nq, mt))
     marks.append(time.perf_counter())
     ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     return (f"eq planes {ms[0]:.3f} ms, fill {ms[1]:.3f} ms, "
             f"reduce+readback {ms[2]:.3f} ms, unit score {score}")
+
+
+def _busy_us(spans) -> float:
+    """Length of the union of ``(start, end)`` spans."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 def main() -> None:
@@ -125,6 +139,27 @@ def main() -> None:
         int(fn(d1, d2))
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=6,
                                     max_name_column_width=48))
+
+    # 5: one warm align of the pair, unprofiled (host-clock split), then
+    # once more with the device's activity traced
+    stats = {}
+    hirschberg.align(s1, s2, device="cuda", stats=stats)
+    print(f"[align, warm, host clock] {stats}")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        hirschberg.align(s1, s2, device="cuda")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in on_device:
+        count, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (count + 1, us + e.time_range.elapsed_us())
+    for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"[align, profiled] {count:4d} x {name[:72]}: {us / 1e3:.3f} ms")
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in on_device])
+    print(f"[align, profiled] wall {wall_us / 1e6:.3f} s, {len(on_device)} device "
+          f"events, device busy {busy / 1e6:.3f} s, idle share {1 - busy / wall_us:.4f}")
 
 
 if __name__ == "__main__":
