@@ -1,29 +1,38 @@
 """Smoke run of the PyTorch/CUDA port (``tpualign_torch``) on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``tpualign_torch/csrc`` with ``nvcc``
-(``bitpal_fill``, the K1 port; ``bitpal_gfill`` and ``bitpal_capture_fill``,
-the K2 and K4 ports), holds each against its plain PyTorch version on the
-card at a range of shapes (and the scores and alignments against the port's
-NumPy oracle), then drives the port's paths on a pair of the reference
-corpus's largest shape, 64gb (126,440 x 127,240 bases, 16.09e9 DP cells),
-each with the launch counts set to 0 just before it, and holds each path's
-kernel against its plain version at that path's own shape:
+(``bitpal_gfill``: K1's port at g = 1 and K2's at g >= 2;
+``bitpal_capture_fill``, K4's; ``band_fill``, K6's; ``diag_fill``, K8's),
+holds each against its plain PyTorch version on the card at a range of
+shapes (and the scores and alignments against the port's NumPy oracle),
+then drives the port's paths through its public entry points, each with
+the launch counts set to 0 just before it and read just after, and holds
+each path's kernel against its plain version at that path's shape:
 
-- ``tpualign_torch.align_score`` at the default scoring (K1);
-- ``tpualign_torch.align`` at the default scoring: the bit-parallel
-  Hirschberg split over the capture kernel, then leaf walks on the host
-  (this slice's main path);
-- ``tpualign_torch.align_score`` under ``ScoringConfig(gap=-2)`` (K2).
+- ``tpualign_torch.align_score`` at the default scoring on the 64gb-shape
+  pair (126,440 x 127,240 bases, 16.09e9 DP cells; ``bitpal_gfill``, g = 1);
+- ``tpualign_torch.align`` at the default scoring on that pair: the
+  bit-parallel Hirschberg split over the capture kernel, then leaf walks
+  on the host;
+- ``tpualign_torch.align_score`` under ``ScoringConfig(gap=-2)`` on that
+  pair (``bitpal_gfill``, g = 2);
+- ``tpualign_torch.align_score`` under the CLI's Smith-Waterman scoring
+  (2, -1, -2) on that pair (``band_fill``, this slice's main path);
+- at 20,000 x 20,000, ``align_score`` under a DNA matrix (global),
+  semiglobal, infix, affine (-5, -2) global and local, a positive-mismatch
+  affine local (``band_fill``), and ``impl="pallas"`` global
+  (``diag_fill``).
 
     python3 chip_smoke.py [--corpus DIR]
 
 With ``--corpus`` naming the reference's ``bdna`` directory the 64gb pair is
-read from it and the score must be the reference's 73888; otherwise a random
-pair of that shape (seed 64) is scored and must equal the plain version's
-score on the card.  Each phase prints lines tagged with its name; a failure
-raises and the exit code is non-zero.  The last two lines are the kernels'
-JSON and the device JSON.  Exits non-zero without a CUDA device.  Imports
-nothing of JAX or of the JAX package ``tpualign``.
+read from it and the scores must be the reference's 73888 and the JAX
+package's Smith-Waterman pin 119785; otherwise a random pair of that shape
+(seed 64) is scored and must equal the plain versions' scores on the card.
+Each phase prints lines tagged with its name; a failure raises and the exit
+code is non-zero.  The last two lines are the kernels' JSON and the device
+JSON.  Exits non-zero without a CUDA device.  Imports nothing of JAX or of
+the JAX package ``tpualign``.
 """
 
 from __future__ import annotations
@@ -41,14 +50,18 @@ import numpy as np
 
 PAIR_LENGTHS = (126440, 127240)  # bdna/64gb-{1,2}.bdna
 PAIR_SEED = 64
-KERNEL_SOURCE = "tpualign_torch/csrc/bitpal_fill.cu"
-REPLACES = "tpualign/ops/bitpal.py:283"  # _bitpal_kernel_body_lean
+SW_PIN = 119785  # tpualign/golden.py: the 64gb corpus pair under (2, -1, -2) local
 GKERNEL_SOURCE = "tpualign_torch/csrc/bitpal_gfill.cu"
+REPLACES = "tpualign/ops/bitpal.py:283"  # _bitpal_kernel_body_lean (K1)
 GREPLACES = {
     "bitpal_gfill": "tpualign/ops/bitpal.py:556",  # _g_kernel_body (K2)
     "bitpal_capture_fill": "tpualign/ops/bitpal.py:1038",  # _chunk_kernel_body (K4)
 }
-TIMING_SHAPE = (20000, 20000)  # K2 and K4 kernel and plain times
+BAND_SOURCE = "tpualign_torch/csrc/band_fill.cu"
+BAND_REPLACES = "tpualign/ops/band.py:171"  # _band_kernel_body (K6)
+DIAG_SOURCE = "tpualign_torch/csrc/diag_fill.cu"
+DIAG_REPLACES = "tpualign/ops/pallas_diag.py:201"  # _diag_kernel_body (K8)
+N_INSTANTIATIONS = 30 + 40 + 1  # bitpal_gfill, band_fill, diag_fill
 
 
 def read_bdna(path):
@@ -79,7 +92,7 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(bitpal_g?fill_kernel)I", mangled)
+            base = re.search(r"((?:bitpal_g|band_|diag_)fill_kernel)", mangled)
             args = re.search(r"kernelI(.*?)EEv", mangled)
             targs = re.findall(r"L[ib](\d+)E", args.group(1) + "E") if args else []
             name = f"{base.group(1) if base else mangled}<{','.join(targs)}>"
@@ -120,11 +133,11 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA device")
 
     import tpualign_torch
-    from tpualign_torch import _build
-    from tpualign_torch.config import ScoringConfig
-    from tpualign_torch.ops import bitpal, hirschberg, oracle
+    from tpualign_torch import _build, matrices
+    from tpualign_torch.config import AlignMode, EngineConfig, ScoringConfig
+    from tpualign_torch.ops import band, bitpal, hirschberg, oracle, pallas_diag
 
-    counted = (bitpal.fill, bitpal.fill_g, bitpal.capture_fill)
+    counted = (bitpal.fill_g, bitpal.capture_fill, band.band_fill, pallas_diag.diag_fill)
 
     def reset_counts():
         for fn in counted:
@@ -132,6 +145,10 @@ def main() -> None:
 
     def read_counts():
         return {fn.__name__: fn.launches for fn in counted}
+
+    def only(counts, name):
+        """The run launched ``name`` exactly once and no other kernel."""
+        return counts[name] == 1 and sum(counts.values()) == 1
 
     def cuda_ms(fn, runs=5):
         """Median of ``runs`` CUDA-event times of ``fn()`` after one warm-up;
@@ -148,6 +165,18 @@ def main() -> None:
                 times.append(e0.elapsed_time(e1))
         return statistics.median(times), times, out
 
+    def host_ms(fn):
+        """``(ms, result)`` of one call of ``fn`` on the host clock, closed
+        by a synchronize."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def runs_str(times):
+        return ", ".join(f"{x:.3f}" for x in times)
+
     # phase 1: the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -158,7 +187,7 @@ def main() -> None:
     print(f"[device] {kind} x{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # phase 2: build the kernel from the checkout's sources
+    # phase 2: build the kernels from the checkout's sources
     t0 = time.perf_counter()
     lib_path = _build.library_path()
     _build.load()
@@ -167,13 +196,15 @@ def main() -> None:
         report = ptxas_report(f.read())
     print(f"[build] {os.path.relpath(lib_path)} in {build_s:.1f} s; "
           f"{len(report)} kernel instantiations")
-    for name, regs, spill in report:  # phase (a): -Xptxas -v per instantiation
+    for name, regs, spill in report:  # -Xptxas -v per instantiation
         print(f"[ptxas] {name}: {regs} registers, {spill} bytes spill stores")
-    if len(report) != 5 + 30:
-        raise AssertionError(f"expected 35 kernel instantiations, ptxas reported {len(report)}")
+    if len(report) != N_INSTANTIATIONS:
+        raise AssertionError(f"expected {N_INSTANTIATIONS} kernel instantiations, "
+                             f"ptxas reported {len(report)}")
 
-    # phase 3: kernel against its plain version (planes word for word), the
-    # scores against the oracle (up to 300 x 300, and once at 20k x 20k)
+    # phase 3: K1 (bitpal_gfill at g = 1) against fill_plain (planes word
+    # for word), the scores against the oracle (up to 300 x 300, and once at
+    # 20k x 20k)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
@@ -182,7 +213,7 @@ def main() -> None:
         q = torch.from_numpy(query).to(dev)
         t = torch.from_numpy(text).to(dev)
         eq = bitpal._eq_planes(q, nq)
-        k0, k1 = bitpal.fill(t, eq, nq)
+        k0, k1 = bitpal.fill_g(t, eq, nq, 1)
         p0, p1 = bitpal.fill_plain(t, eq, nq)
         torch.cuda.synchronize()
         if not (torch.equal(k0, p0) and torch.equal(k1, p1)):
@@ -207,70 +238,62 @@ def main() -> None:
                 raise AssertionError(f"kernel score {ks} != oracle {want} at {nq} x {mt}")
             n_oracle += 1
     per_thread = sorted({bitpal.kernel_geometry(-(-nq // bitpal.WORD))[0] for nq, _, _ in shapes})
-    print(f"[kernel vs plain] {len(shapes)} shapes equal word for word "
-          f"(words per thread {per_thread}); {n_oracle} scores equal to the oracle")
+    print(f"[K1 vs plain] bitpal_gfill g = 1: {len(shapes)} shapes equal to fill_plain word "
+          f"for word (words per thread {per_thread}); {n_oracle} scores equal to the oracle")
     a = rng.integers(1, 5, 20000).astype(np.int8)
     b = rng.integers(1, 5, 20000).astype(np.int8)
     got, want = bitpal.score(a, b, device="cuda"), oracle.score(a, b)
     if got != want:
         raise AssertionError(f"20000 x 20000: kernel score {got} != oracle {want}")
-    print(f"[kernel vs oracle] 20000 x 20000 score {got} equal to the oracle's")
+    print(f"[K1 vs oracle] 20000 x 20000 score {got} equal to the oracle's")
 
-    # phase 4: the main path, through the public entry point
+    # phase 4: align_score at the default scoring on the 64gb-shape pair
     s1, s2, source = load_pair(args.corpus)
     m, n = s1.size, s2.size
     reset_counts()
     t0 = time.perf_counter()
     score = tpualign_torch.align_score(s1, s2)
     wall_s = time.perf_counter() - t0
-    launches = bitpal.fill.launches
-    if launches < 1:
-        raise AssertionError("align_score did not launch the bitpal_fill kernel")
+    k1_counts = read_counts()
+    if not only(k1_counts, "fill_g"):
+        raise AssertionError(f"align_score did not run one bitpal_gfill launch: {k1_counts}")
+    launches = k1_counts["fill_g"]
 
-    # the same fill at the main path's shape, plain and kernel, outside the
-    # counted run
-    s1_is_query = bitpal._orientation(m, n)
-    query, text = (s1, s2) if s1_is_query else (s2, s1)
-    nq, mt = query.size, text.size
-    q = torch.from_numpy(query).to(dev)
-    t = torch.from_numpy(text).to(dev)
-    eq = bitpal._eq_planes(q, nq)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p0, p1 = bitpal.fill_plain(t, eq, nq)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    plain_score = int(bitpal._reduce_score((p0, p1), nq, mt))  # unit scoring
+    # the same fill at the path's shape, plain and kernel, outside the
+    # counted run.  At this shape the score puts s2 on the rows, as align
+    # does, so align's root capture fill (below) runs on the same query and
+    # text: one plain fill with the root's rows gives fill_plain's planes
+    # and the captures both holds need
+    if bitpal._orientation(m, n):
+        raise AssertionError(f"the score put s1 on the rows at {m} x {n}")
+    q = torch.from_numpy(s2).to(dev)
+    t = torch.from_numpy(s1).to(dev)
+    eq = bitpal._eq_planes(q, n)
+    root_rows = hirschberg._kway_rows(n)
+    plain_ms, ((p0, p1), root_caps) = host_ms(
+        lambda: bitpal.fill_g_plain(t, eq, n, 1, root_rows))
+    plain_score = int(bitpal._reduce_score((p0, p1), n, m))  # unit scoring
     if args.corpus is not None and score != 73888:
         raise AssertionError(f"64gb corpus score {score} != the reference's 73888")
     if score != plain_score:
         raise AssertionError(f"align_score {score} != fill_plain's {plain_score}")
-    print(f"[main path] align_score = {score} on {m} x {n} ({source}); "
-          f"fill_plain on the card agrees; {launches} kernel launch(es); "
-          f"wall {wall_s:.3f} s")
+    print(f"[main path: align_score g = 1] align_score = {score} on {m} x {n} ({source}); "
+          f"fill_plain on the card agrees; launches {k1_counts}; wall {wall_s:.3f} s")
 
-    # phase 5: the kernel's time at the main path's shape
-    times = []
-    for i in range(6):  # one warm-up, five timed
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        k0, k1 = bitpal.fill(t, eq, nq)
-        e1.record()
-        e1.synchronize()
-        if i:
-            times.append(e0.elapsed_time(e1))
-    ms = statistics.median(times)
-    err = (bitpal.row_deltas((k0, k1), nq) - bitpal.row_deltas((p0, p1), nq)).abs().max()
+    # phase 5: the kernel's time at that shape
+    ms, times, (k0, k1) = cuda_ms(lambda: bitpal.fill_g(t, eq, n, 1))
+    err = (bitpal.row_deltas((k0, k1), n) - bitpal.row_deltas((p0, p1), n)).abs().max()
     max_abs_err = int(err)
     if max_abs_err != 0:
         raise AssertionError(f"timed kernel run differs from fill_plain by {max_abs_err}")
     cells = m * n
-    print(f"[timing] {smi}: bitpal_fill median of 5 {ms:.3f} ms "
-          f"({cells / ms / 1e6:.2f} GCUPS; runs {', '.join(f'{x:.3f}' for x in times)} ms); "
-          f"fill_plain {plain_ms:.1f} ms ({cells / plain_ms / 1e6:.3f} GCUPS)")
+    print(f"[timing] {smi}: bitpal_gfill g = 1 median of 5 {ms:.3f} ms "
+          f"({cells / ms / 1e6:.2f} GCUPS; runs {runs_str(times)} ms); fill_g_plain "
+          f"g = 1 with align's {len(root_rows)} root rows (fill_plain's planes and the "
+          f"captures) {plain_ms:.1f} ms ({cells / plain_ms / 1e6:.3f} GCUPS)")
 
-    k1_shape = f"{nq}x{mt}"
+    k1_shape = f"{n}x{m}"
+    root_plain = ((p0, p1), root_caps)
     del p0, p1, k0, k1
     gk = {name: dict(max_abs_err=0) for name in GREPLACES}
 
@@ -294,8 +317,8 @@ def main() -> None:
         return err
 
     def g_vs_plain(query, text, g, rows):
-        """Phase (b): both g-kernels against fill_g_plain on the same
-        inputs, planes word for word and captures byte for byte."""
+        """Both g-kernels against fill_g_plain on the same inputs, planes
+        word for word and captures byte for byte."""
         nq = query.size
         q = torch.from_numpy(query).to(dev)
         t = torch.from_numpy(text).to(dev)
@@ -333,9 +356,7 @@ def main() -> None:
           f"{sorted(ks)}; {n_caps} captured rows byte for byte; "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # phase (c): 20,000 x 20,000 against the port's oracle
-    a = rng.integers(1, 5, 20000).astype(np.int8)
-    b = rng.integers(1, 5, 20000).astype(np.int8)
+    # 20,000 x 20,000 against the port's oracle
     for g in (2, 7):
         cfg = ScoringConfig(gap=-g)
         got, want = bitpal.score(a, b, cfg, device="cuda"), oracle.score(a, b, cfg)
@@ -353,7 +374,7 @@ def main() -> None:
     print(f"[align vs oracle] 20000 x 20000 alignment valid, score {sc} equal to the "
           f"oracle's; wall {wall:.3f} s")
 
-    # phase (d): the binary split alone, 6,000 x 6,000
+    # the binary split alone, 6,000 x 6,000
     a6, b6 = a[:6000], b[:6000]
     reset_counts()
     sc, a1, a2 = tpualign_torch.align(a6, b6)
@@ -361,18 +382,18 @@ def main() -> None:
     want = oracle.score(a6, b6)
     if not alignment_ok(a6, b6, a1, a2, oracle.BASES) or sc != want:
         raise AssertionError(f"6000 x 6000 alignment invalid or score {sc} != oracle {want}")
-    if counts["fill_g"] < 2 or counts["capture_fill"]:
+    if counts["fill_g"] < 2 or sum(counts.values()) != counts["fill_g"]:
         raise AssertionError(f"6000 x 6000 did not run the binary split alone: {counts}")
     print(f"[align binary split] 6000 x 6000 alignment valid, score {sc} equal to the "
           f"oracle's; launches {counts}")
 
-    # phase (e): this slice's main path, align on the 64gb-shape pair
+    # align on the 64gb-shape pair
     reset_counts()
     t0 = time.perf_counter()
     sc, a1, a2 = tpualign_torch.align(s1, s2)
     align_wall = time.perf_counter() - t0
     align_counts = read_counts()
-    if align_counts["capture_fill"] < 2:
+    if align_counts["capture_fill"] < 2 or align_counts["band_fill"] + align_counts["diag_fill"]:
         raise AssertionError(f"align did not launch bitpal_capture_fill twice: {align_counts}")
     if not alignment_ok(s1, s2, a1, a2, oracle.BASES):
         raise AssertionError("64gb-shape alignment is not valid")
@@ -380,110 +401,262 @@ def main() -> None:
     if not sc == rescored == score:
         raise AssertionError(f"64gb-shape alignment score {sc} (re-scored {rescored}) "
                              f"!= align_score's {score}")
-    print(f"[main path: align] {m} x {n} ({source}): alignment valid, "
+    print(f"[path: align] {m} x {n} ({source}): alignment valid, "
           f"{len(a1)} columns, score {sc} equal to align_score's; launches "
           f"{align_counts}; wall {align_wall:.3f} s")
-    # the same call once more with the split recorded (host clock), and the
-    # root's forward capture fill on its own (CUDA events), held against
-    # fill_g_plain at this shape
+    # the same call once more with the split recorded (host clock), the
+    # root's forward capture fill on its own (CUDA events), and that fill
+    # held against fill_g_plain at the path's shape
     stats = {}
     hirschberg.align(s1, s2, device="cuda", stats=stats)
-    rows = hirschberg._kway_rows(n)
-    q, t = torch.from_numpy(s2).to(dev), torch.from_numpy(s1).to(dev)
-    eq = bitpal._eq_planes(q, n)
-    cap_ms, cap_runs, cap = cuda_ms(lambda: bitpal.capture_fill(t, eq, n, 1, rows))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = bitpal.fill_g_plain(t, eq, n, 1, rows)
-    torch.cuda.synchronize()
-    cap_plain_ms = (time.perf_counter() - t0) * 1e3
-    cap_err = hold_g("bitpal_capture_fill", cap, plain, n, 1, f"{n} x {m}, {len(rows)} rows")
-    gk["bitpal_capture_fill"].update(ms_64gb=cap_ms, plain_ms_64gb=cap_plain_ms,
-                                     max_abs_err_64gb=cap_err)
-    del cap, plain
-    print(f"[main path split] {json.dumps(stats)}; root capture fill {cap_ms:.3f} ms "
-          f"(median of 5, {len(rows)} rows; runs {', '.join(f'{x:.3f}' for x in cap_runs)}); "
-          f"equal to fill_g_plain at {n} x {m} (planes word for word, captures byte for "
-          f"byte, max abs err {cap_err}; plain {cap_plain_ms:.1f} ms)")
+    cap_ms, cap_runs, cap = cuda_ms(lambda: bitpal.capture_fill(t, eq, n, 1, root_rows))
+    cap_err = hold_g("bitpal_capture_fill", cap, root_plain, n, 1,
+                     f"{n} x {m}, {len(root_rows)} rows")
+    gk["bitpal_capture_fill"].update(ms=cap_ms, plain_ms=plain_ms, shape=f"{n}x{m}")
+    del cap, root_plain
+    print(f"[path split] {json.dumps(stats)}; root capture fill {cap_ms:.3f} ms "
+          f"(median of 5, {len(root_rows)} rows; runs {runs_str(cap_runs)}); equal to "
+          f"fill_g_plain at {n} x {m} (planes word for word, captures byte for byte, "
+          f"max abs err {cap_err}; plain {plain_ms:.1f} ms, the g = 1 score's fill)")
 
-    # phase (f): align_score under (1, 0, -2) through K2 at the 64gb shape
+    # align_score under (1, 0, -2) through K2 at the 64gb shape
     cfg2 = ScoringConfig(gap=-2)
     reset_counts()
     t0 = time.perf_counter()
     score2 = tpualign_torch.align_score(s1, s2, cfg2)
     wall2 = time.perf_counter() - t0
     g_counts = read_counts()
-    if g_counts["fill_g"] < 1:
-        raise AssertionError(f"align_score at g = 2 did not launch bitpal_gfill: {g_counts}")
-    s1_is_query = bitpal._orientation(m, n)
-    query, text = (s1, s2) if s1_is_query else (s2, s1)
-    nq, mt = query.size, text.size
-    qg, tg = torch.from_numpy(query).to(dev), torch.from_numpy(text).to(dev)
-    eqg = bitpal._eq_planes(qg, nq)
-    cplanes, _ = bitpal.capture_fill(tg, eqg, nq, 2, [nq])
-    cscore = bitpal._from_unit(cfg2, m + n, int(bitpal._reduce_score(cplanes, nq, mt, 2)))
-    if score2 != cscore:
-        raise AssertionError(f"g = 2 score {score2} != the capture kernel's {cscore}")
-    g_ms, g_runs, gplanes = cuda_ms(lambda: bitpal.fill_g(tg, eqg, nq, 2))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = bitpal.fill_g_plain(tg, eqg, nq, 2)
-    torch.cuda.synchronize()
-    g_plain_ms = (time.perf_counter() - t0) * 1e3
-    g_err = hold_g("bitpal_gfill", (gplanes, None), plain, nq, 2, f"{nq} x {mt}")
-    pscore = bitpal._from_unit(cfg2, m + n, int(bitpal._reduce_score(plain[0], nq, mt, 2)))
-    if score2 != pscore:
-        raise AssertionError(f"g = 2 score {score2} != fill_g_plain's {pscore}")
-    gk["bitpal_gfill"].update(ms_64gb=g_ms, plain_ms_64gb=g_plain_ms, max_abs_err_64gb=g_err)
-    del plain, gplanes
-    print(f"[path: align_score g = 2] {m} x {n}: score {score2} equal to the capture "
-          f"kernel's final column and to fill_g_plain's (planes word for word, max abs "
-          f"err {g_err}; plain {g_plain_ms:.1f} ms); launches {g_counts}; wall {wall2:.3f} s; "
-          f"bitpal_gfill {g_ms:.3f} ms (median of 5; runs "
-          f"{', '.join(f'{x:.3f}' for x in g_runs)}), {m * n / g_ms / 1e6:.2f} GCUPS")
+    if not only(g_counts, "fill_g"):
+        raise AssertionError(f"align_score at g = 2 did not run one bitpal_gfill: {g_counts}")
+    # the g = 1 score's orientation (s2 on the rows), query planes and text
+    cplanes, _ = bitpal.capture_fill(t, eq, n, 2, [n])
+    cscore = bitpal._from_unit(cfg2, m + n, int(bitpal._reduce_score(cplanes, n, m, 2)))
+    g_ms, g_runs, gplanes = cuda_ms(lambda: bitpal.fill_g(t, eq, n, 2))
+    g_plain_ms, plain = host_ms(lambda: bitpal.fill_g_plain(t, eq, n, 2))
+    g_err = hold_g("bitpal_gfill", (gplanes, None), plain, n, 2, f"{n} x {m}")
+    pscore = bitpal._from_unit(cfg2, m + n, int(bitpal._reduce_score(plain[0], n, m, 2)))
+    if not score2 == pscore == cscore:
+        raise AssertionError(f"g = 2 score {score2} != fill_g_plain's {pscore} or the "
+                             f"capture kernel's {cscore}")
+    gk["bitpal_gfill"].update(ms=g_ms, plain_ms=g_plain_ms, shape=f"{n}x{m}")
+    del plain, gplanes, cplanes
+    print(f"[path: align_score g = 2] {m} x {n}: score {score2} equal to fill_g_plain's "
+          f"on the card and to the capture kernel's final column; launches {g_counts}; "
+          f"wall {wall2:.3f} s")
+    print(f"[timing] {smi}: bitpal_gfill g = 2 at {n} x {m}: median of 5 {g_ms:.3f} ms "
+          f"({m * n / g_ms / 1e6:.2f} GCUPS; runs {runs_str(g_runs)} ms); equal to "
+          f"fill_g_plain (planes word for word, max abs err {g_err}; plain "
+          f"{g_plain_ms:.1f} ms)")
 
-    # phase (g): kernel and plain times of K2 and K4 at 20,000 x 20,000
-    nq_t, mt_t = TIMING_SHAPE
-    qt, tt = torch.from_numpy(b).to(dev), torch.from_numpy(a).to(dev)
-    eqt = bitpal._eq_planes(qt, nq_t)
-    rows_t = hirschberg._kway_rows(nq_t)
-    runs = {
-        "bitpal_gfill": (2, None, lambda: bitpal.fill_g(tt, eqt, nq_t, 2)),
-        "bitpal_capture_fill": (1, rows_t,
-                                lambda: bitpal.capture_fill(tt, eqt, nq_t, 1, rows_t)),
-    }
-    for name, (g, rows, launch) in runs.items():
-        kms, kruns, out = cuda_ms(launch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain = bitpal.fill_g_plain(tt, eqt, nq_t, g, rows)
-        torch.cuda.synchronize()
-        pms = (time.perf_counter() - t0) * 1e3
-        hold_g(name, (out, None) if rows is None else out, plain, nq_t, g,
-               f"{nq_t} x {mt_t} (timed run)")
-        gk[name].update(ms=kms, plain_ms=pms)
-        print(f"[timing] {smi}: {name} g = {g} at {nq_t} x {mt_t}"
-              f"{'' if rows is None else f', {len(rows)} captured rows'}: median of 5 "
-              f"{kms:.3f} ms ({nq_t * mt_t / kms / 1e6:.2f} GCUPS; runs "
-              f"{', '.join(f'{x:.3f}' for x in kruns)} ms); fill_g_plain {pms:.1f} ms")
+    # phase (a): band_fill against score_plain, score for score
+    asym = ((3, -1, -2, 0, 1), (-2, 2, -3, -1, 0), (0, -1, 4, -2, -1),
+            (1, 0, -1, 3, -2), (-1, -2, 0, -3, 2))
+    subs = {"pair": None, "dna": matrices.dna(2, -1, -3), "asym5": asym,
+            "iupac": matrices.iupac()}
+    bk = dict(max_abs_err=0)
+
+    def band_case(s1c, s2c, cfg, geometry=None, as_is=False):
+        """``band_fill`` against ``score_plain`` on the kernel arguments that
+        ``band.score_fn`` gives ``(s1c, s2c)`` (``as_is``: ``s1c`` as the
+        text and ``s2c`` as the query, whichever is shorter); returns the
+        plain result."""
+        p = band.plan(s1c.size, s2c.size, cfg)
+        if as_is:
+            p = p._replace(swapped=False, cfg=cfg, ends=band._ends_flags(cfg, False))
+        text, query = (s2c, s1c) if p.swapped else (s1c, s2c)
+        text, query = torch.from_numpy(text).to(dev), torch.from_numpy(query).to(dev)
+        got = int(band.band_fill(text, query, p.cfg, p.ends, geometry))
+        want = int(band.score_plain(text, query, p.cfg, p.ends))
+        if got != want:
+            raise AssertionError(f"band_fill {got} != score_plain {want}: {cfg}, "
+                                 f"{s1c.size} x {s2c.size}, geometry {geometry}")
+        return want
+
+    t0 = time.perf_counter()
+    n_band = 0
+    for mode in AlignMode:
+        for sub_name, mat in subs.items():
+            for gaps in ({}, dict(gap_open=-5, gap_extend=-2)):
+                for swap in (False, True):
+                    kw = dict(match=2, mismatch=-1, gap=-2, mode=mode, **gaps)
+                    if mat is not None:
+                        kw["matrix"] = mat
+                    cfg = ScoringConfig(**kw)
+                    hi = len(mat) if mat is not None else 5
+                    lm, ln = sorted(int(x) for x in rng.integers(1, 700, 2))
+                    lm, ln = (ln, lm) if swap else (lm, ln)
+                    band_case(rng.integers(0, hi, lm).astype(np.int8),
+                              rng.integers(0, hi, ln).astype(np.int8), cfg)
+                    n_band += 1
+    # every instantiation <rows per thread, affine, matrix, local>, three
+    # strips each (R = 32 k rows, the last strip partial)
+    for k in (1, 2, 4, 8, 16):
+        for gaps in ({}, dict(gap_open=-5, gap_extend=-2)):
+            for mat in (None, matrices.dna(2, -1, -3)):
+                for mode in (AlignMode.GLOBAL, AlignMode.LOCAL):
+                    kw = dict(match=2, mismatch=-1, gap=-2, mode=mode, matrix=mat, **gaps)
+                    band_case(rng.integers(0, 5, 96 * k + 50).astype(np.int8),
+                              rng.integers(0, 5, 64 * k + 7).astype(np.int8),
+                              ScoringConfig(**kw), (k, 32))
+                    n_band += 1
+    # strip edges at chosen geometries (R = k * threads rows a strip; the
+    # query is the shorter sequence), a masked local (mismatch > 0), 1-row
+    # and 1-column tables
+    sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+    aff = ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2)
+    masked = ScoringConfig(match=3, mismatch=1, gap=-2, mode=AlignMode.LOCAL)
+    masked_aff = ScoringConfig(match=3, mismatch=1, gap_open=-5, gap_extend=-2,
+                               mode=AlignMode.LOCAL)
+    edge = [(masked_aff, 700, 600, None), (masked_aff, 600, 700, (2, 32)),
+            (masked_aff, 3000, 2500, (8, 96)),(sw, 500, 31, (1, 32)), (sw, 500, 32, (1, 32)), (sw, 500, 33, (1, 32)),
+            (aff, 400, 255, (4, 64)), (aff, 400, 256, (4, 64)), (aff, 400, 257, (4, 64)),
+            (sw, 900, 5000, (16, 32)), (aff, 2000, 1700, (2, 96)),
+            (ScoringConfig(mode=AlignMode.SEMIGLOBAL, gap=-2, matrix=asym), 333, 3000, (2, 64)),
+            (masked, 700, 600, None), (masked, 700, 600, (2, 32)),
+            (sw, 5000, 1, None), (aff, 1, 5000, None), (sw, 1, 1, None),
+            (ScoringConfig(mode=AlignMode.INFIX, gap=-2), 4000, 1, None)]
+    for cfg, lm, ln, geometry in edge:
+        band_case(rng.integers(1, 5, lm).astype(np.int8),
+                  rng.integers(1, 5, ln).astype(np.int8), cfg, geometry)
+        n_band += 1
+    for cfg in (sw, aff, masked, masked_aff, ScoringConfig(mode=AlignMode.SEMIGLOBAL, gap=-2)):
+        band_case(rng.integers(1, 5, 1).astype(np.int8),  # one column, 3000 rows
+                  rng.integers(1, 5, 3000).astype(np.int8), cfg, as_is=True)
+        n_band += 1
+    torch.cuda.synchronize()
+    print(f"[band_fill vs plain] {n_band} cases equal to score_plain (every mode x pair, "
+          f"dna, asym5, iupac x linear, affine, both orientations; all 40 instantiations "
+          f"over several strips; strip edges at R = 32 and 256, multi-strip, masked "
+          f"local linear and affine, 1-row and 1-column tables); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # phase (b): diag_fill against score_plain
+    dk = dict(max_abs_err=0)
+    t0 = time.perf_counter()
+    n_diag = 0
+    for short in (1, 31, 32, 33, 1023, 1024, 1025, 2047, 2048, 3000):
+        for mode in (AlignMode.GLOBAL, AlignMode.LOCAL):
+            cfg = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=mode)
+            long_ = short + int(rng.integers(0, 500))
+            x = rng.integers(0, 5, long_).astype(np.int8)
+            y = rng.integers(0, 5, short).astype(np.int8)
+            s1c, s2c = (x, y) if n_diag % 2 else (y, x)  # both orientations
+            lng, sht = (s1c, s2c) if s1c.size >= s2c.size else (s2c, s1c)
+            lt, st = torch.from_numpy(lng).to(dev), torch.from_numpy(sht).to(dev)
+            got = int(pallas_diag.diag_fill(lt, st, cfg))
+            want = int(pallas_diag.score_plain(lt, st, cfg))
+            if got != want or pallas_diag.score(s1c, s2c, cfg, device="cuda") != want:
+                raise AssertionError(f"diag_fill {got} != score_plain {want}: {cfg}, "
+                                     f"{s1c.size} x {s2c.size}")
+            n_diag += 1
+    print(f"[diag_fill vs plain] {n_diag} cases equal to score_plain (NW and SW, both "
+          f"orientations, 1 to 3000 rows across thread and cell-per-thread edges); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # phase (c): this slice's main path, Smith-Waterman on the 64gb-shape pair
+    cfg_sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+    reset_counts()
+    t0 = time.perf_counter()
+    score_sw = tpualign_torch.align_score(s1, s2, cfg_sw)
+    sw_wall = time.perf_counter() - t0
+    sw_counts = read_counts()
+    if not only(sw_counts, "band_fill"):
+        raise AssertionError(f"SW align_score did not run one band_fill launch: {sw_counts}")
+    p = band.plan(m, n, cfg_sw)
+    text, query = (s2, s1) if p.swapped else (s1, s2)
+    tb, qb = torch.from_numpy(text).to(dev), torch.from_numpy(query).to(dev)
+    sw_plain_ms, sw_plain = host_ms(lambda: int(band.score_plain(tb, qb, p.cfg, p.ends)))
+    if args.corpus is not None and score_sw != SW_PIN:
+        raise AssertionError(f"64gb corpus SW score {score_sw} != the pin {SW_PIN}")
+    if score_sw != sw_plain:
+        raise AssertionError(f"SW align_score {score_sw} != score_plain's {sw_plain}")
+    sw_ms, sw_runs, sw_out = cuda_ms(lambda: band.band_fill(tb, qb, p.cfg, p.ends))
+    bk["max_abs_err"] = max(bk["max_abs_err"], abs(int(sw_out) - sw_plain))
+    if bk["max_abs_err"]:
+        raise AssertionError(f"timed band_fill run differs from score_plain by {bk}")
+    k_sw, threads_sw = band.kernel_geometry(query.size, band.max_k(cfg_sw))
+    print(f"[main path: align_score SW] {m} x {n} ({source}), (2, -1, -2) local: score "
+          f"{score_sw} equal to score_plain's on the card; launches {sw_counts}; wall "
+          f"{sw_wall:.3f} s; geometry k = {k_sw}, {threads_sw} threads, "
+          f"{-(-query.size // (k_sw * threads_sw))} strips")
+    print(f"[timing] {smi}: band_fill SW at {query.size} x {text.size}: median of 5 "
+          f"{sw_ms:.3f} ms ({m * n / sw_ms / 1e6:.2f} GCUPS; runs {runs_str(sw_runs)} ms); "
+          f"score_plain {sw_plain_ms:.1f} ms ({m * n / sw_plain_ms / 1e6:.3f} GCUPS)")
+    bk.update(ms=sw_ms, plain_ms=sw_plain_ms, shape=f"{query.size}x{text.size}")
+
+    # phase (d): further paths at 20,000 x 20,000, each through align_score
+    # and against the plain version
+    further = [
+        ("dna NW", ScoringConfig(matrix=matrices.dna(2, -1, -3), gap=-3), "auto"),
+        ("semiglobal", ScoringConfig(match=2, mismatch=-1, gap=-2,
+                                     mode=AlignMode.SEMIGLOBAL), "auto"),
+        ("infix", ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.INFIX), "auto"),
+        ("affine NW", ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2), "auto"),
+        ("affine SW", ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2,
+                                    mode=AlignMode.LOCAL), "auto"),
+        ("masked affine SW", masked_aff, "auto"),
+        ("pallas NW", ScoringConfig(match=2, mismatch=-1, gap=-2), "pallas"),
+    ]
+    a20, b20 = a, b
+    further_ms = {}
+    for name, cfg, impl in further:
+        reset_counts()
+        got = tpualign_torch.align_score(a20, b20, cfg, EngineConfig(impl=impl))
+        counts = read_counts()
+        kernel = "diag_fill" if impl == "pallas" else "band_fill"
+        if not only(counts, kernel):
+            raise AssertionError(f"{name}: align_score did not run one {kernel}: {counts}")
+        if impl == "pallas":  # pallas_diag.score's orientation: s2 the shorter
+            lng, sht = (a20, b20) if a20.size >= b20.size else (b20, a20)
+            tl, ts = torch.from_numpy(lng).to(dev), torch.from_numpy(sht).to(dev)
+            kms, kruns, out = cuda_ms(lambda: pallas_diag.diag_fill(tl, ts, cfg))
+            pms, want = host_ms(lambda: int(pallas_diag.score_plain(tl, ts, cfg)))
+            err = abs(int(out) - want)
+            dk["max_abs_err"] = max(dk["max_abs_err"], err)
+            dk.update(launches=counts["diag_fill"], ms=kms, plain_ms=pms,
+                      shape=f"{sht.size}x{lng.size}")
+            geometry = f"{pallas_diag.kernel_threads(sht.size)} threads"
+        else:
+            p = band.plan(a20.size, b20.size, cfg)
+            text, query = (b20, a20) if p.swapped else (a20, b20)
+            tt20, tq20 = torch.from_numpy(text).to(dev), torch.from_numpy(query).to(dev)
+            kms, kruns, out = cuda_ms(lambda: band.band_fill(tt20, tq20, p.cfg, p.ends))
+            pms, raw = host_ms(lambda: int(band.score_plain(tt20, tq20, p.cfg, p.ends)))
+            err = abs(int(out) - raw)
+            bk["max_abs_err"] = max(bk["max_abs_err"], err)
+            want = max((raw,) + p.floor)
+            further_ms[name] = (kms, pms)
+            k_b, threads_b = band.kernel_geometry(query.size, band.max_k(cfg))
+            geometry = f"k = {k_b}, {threads_b} threads"
+        if err or got != want:
+            raise AssertionError(f"{name}: align_score {got}, kernel vs plain err {err}, "
+                                 f"plain score {want}")
+        print(f"[path: {name}] {a20.size} x {b20.size}: align_score {got} equal to the plain "
+              f"version's on the card; launches {counts}; {kernel} ({geometry}) median of 5 "
+              f"{kms:.3f} ms ({a20.size * b20.size / kms / 1e6:.2f} GCUPS; runs "
+              f"{runs_str(kruns)}); plain {pms:.1f} ms")
+    bk["ms_20k"] = further_ms
 
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:
             raise AssertionError(f"the port imported {pkg}")
-    glaunches = {"bitpal_gfill": g_counts["fill_g"],
-                 "bitpal_capture_fill": align_counts["capture_fill"]}
     print(json.dumps({"kernels": [{
-        "name": "bitpal_fill", "route": "cuda", "source": KERNEL_SOURCE,
+        "name": "bitpal_gfill_g1", "route": "cuda", "source": GKERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_abs_err,
         "ms": ms, "plain_ms": plain_ms, "shape": k1_shape,
     }] + [{
         "name": name, "route": "cuda", "source": GKERNEL_SOURCE,
-        "replaces": GREPLACES[name], "launches": glaunches[name],
-        "max_abs_err": gk[name]["max_abs_err"], "ms": gk[name]["ms"],
-        "plain_ms": gk[name]["plain_ms"], "shape": f"{nq_t}x{mt_t}",
-        "ms_64gb": gk[name]["ms_64gb"], "plain_ms_64gb": gk[name]["plain_ms_64gb"],
-        "max_abs_err_64gb": gk[name]["max_abs_err_64gb"],
-    } for name in GREPLACES]}))
+        "replaces": GREPLACES[name],
+        "launches": {"bitpal_gfill": g_counts["fill_g"],
+                     "bitpal_capture_fill": align_counts["capture_fill"]}[name],
+        **gk[name],
+    } for name in GREPLACES] + [{
+        "name": "band_fill", "route": "cuda", "source": BAND_SOURCE,
+        "replaces": BAND_REPLACES, "launches": sw_counts["band_fill"], **bk,
+    }, {
+        "name": "diag_fill", "route": "cuda", "source": DIAG_SOURCE,
+        "replaces": DIAG_REPLACES, **dk,
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -1,8 +1,8 @@
 """The port's public API (``tpualign_torch.align_score``) end to end on the
-CPU against ``tpualign.align_score``, its refusals, its scoring config and
-oracle against ``tpualign``'s, and its independence from JAX and from the
-JAX package (``align_score`` and ``align``).  Inputs come from numpy with a
-seed; comparisons are exact."""
+CPU against ``tpualign.align_score``, its engine routing and fallbacks, its
+refusals, its scoring config, matrices and oracle against ``tpualign``'s,
+and its independence from JAX and from the JAX package (``align_score`` and
+``align``).  Inputs come from numpy with a seed; comparisons are exact."""
 
 import dataclasses
 
@@ -16,12 +16,17 @@ import torch
 
 import tpualign
 from tpualign import config as jconfig
+from tpualign import matrices as jmatrices
 from tpualign.ops import bitpal as jbp
 from tpualign.ops import oracle
-from tpualign_torch import AlignMode, EngineConfig, ScoringConfig, align_score
+from tpualign_torch import AlignMode, EngineConfig, ScoringConfig, align, align_score
+from tpualign_torch import api, matrices
 from tpualign_torch.api import resolve_impl
 from tpualign_torch.ops import bitpal as tbp
+from tpualign_torch.ops import band as tband
 from tpualign_torch.ops import oracle as toracle
+from tpualign_torch.ops import pallas_diag as tdiag
+from tpualign_torch.ops import xla as txla
 
 CPU = EngineConfig(device="cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,7 +50,7 @@ def test_g_family_end_to_end_matches_jax_package(gap):
     assert got == tpualign.align_score(s1, s2, jconfig.ScoringConfig(gap=gap))
 
 
-@pytest.mark.parametrize("impl", ["auto", "bitpal", "oracle"])
+@pytest.mark.parametrize("impl", ["auto", "bitpal", "oracle", "band", "pallas", "xla"])
 def test_impls_agree(impl):
     s1, s2 = _pair(120, 77, seed=5)
     got = align_score(s1, s2, engine=EngineConfig(impl=impl, device="cpu"))
@@ -58,6 +63,12 @@ def test_resolve_impl():
     assert resolve_impl(EngineConfig(), ScoringConfig(gap=-2)) == "bitpal"
     assert resolve_impl(EngineConfig(), ScoringConfig(match=3, mismatch=2, gap=-1)) == "bitpal"
     assert resolve_impl(EngineConfig(impl="oracle"), ScoringConfig(mode=AlignMode.LOCAL)) == "oracle"
+    # everything outside the family goes to the band engine, affine included
+    for cfg in (ScoringConfig(gap=-8), ScoringConfig(mode=AlignMode.LOCAL),
+                ScoringConfig(gap_open=-5, gap_extend=-2),
+                ScoringConfig(mode=AlignMode.SEMIGLOBAL), ScoringConfig(gap=0),
+                ScoringConfig(matrix=matrices.dna())):
+        assert resolve_impl(EngineConfig(), cfg) == "band"
 
 
 def test_headroom_refusal_matches_jax():
@@ -78,20 +89,23 @@ def test_headroom_refusal_matches_jax():
 @pytest.mark.parametrize(
     "cfg,item",
     [
-        (ScoringConfig(match=1, mismatch=0, gap=-8), "item 8"),
-        (ScoringConfig(mode=AlignMode.LOCAL), "item 8"),
-        (ScoringConfig(gap_open=-5, gap_extend=-2), "item 8"),
-        (ScoringConfig(mode=AlignMode.SEMIGLOBAL), "item 8"),
-        (ScoringConfig(matrix=((1, 0), (0, 1))), "item 8"),
-        (ScoringConfig(match=1, mismatch=0, gap=0), "item 8"),
+        (ScoringConfig(match=1, mismatch=0, gap=-8), "item 9"),
+        (ScoringConfig(mode=AlignMode.LOCAL), "item 9"),
+        (ScoringConfig(gap_open=-5, gap_extend=-2), "item 10"),
+        (ScoringConfig(mode=AlignMode.SEMIGLOBAL), "item 9"),
+        (ScoringConfig(matrix=((1, 0), (0, 1))), "item 9"),
+        (ScoringConfig(match=1, mismatch=0, gap=0), "item 9"),
     ],
     ids=["g8", "local", "affine", "semiglobal", "matrix", "gap0"],
 )
 @pytest.mark.parametrize("impl", ["auto", "bitpal"])
-def test_unported_configs_raise(cfg, item, impl):
+def test_unported_configs_raise(cfg, item, impl, monkeypatch):
+    """Alignment past the full table outside the family is not ported: it
+    raises naming its ROADMAP item (the scores of these configs are)."""
+    monkeypatch.setattr(api, "FULL_TABLE_CELL_LIMIT", 100)
     s1, s2 = _pair(20, 30, seed=1)
     with pytest.raises(NotImplementedError, match=item):
-        align_score(s1, s2, cfg, EngineConfig(impl=impl, device="cpu"))
+        align(s1, s2, cfg, EngineConfig(impl=impl, device="cpu"))
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -101,12 +115,16 @@ def test_default_device_raises_without_cuda(monkeypatch):
         align_score(s1, s2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tbp.score(s1, s2, device="cuda")
+    # not a refusal: no engine falls back on it
+    for impl in ("auto", "band", "xla", "pallas"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            align_score(s1, s2, ScoringConfig(mode=AlignMode.LOCAL), EngineConfig(impl=impl))
 
 
 def test_engine_config_validates():
     assert EngineConfig().device == "cuda"
     with pytest.raises(ValueError, match="unknown impl"):
-        EngineConfig(impl="xla")
+        EngineConfig(impl="cuda")
     with pytest.raises(ValueError, match="cpu or cuda"):
         EngineConfig(device="meta")
 
@@ -127,6 +145,8 @@ def test_package_imports_and_scores_without_jax():
         f"s2 = np.array({s2.tolist()}, np.int8)\n"
         "print(align_score(s1, s2, engine=EngineConfig(device='cpu')))\n"
         "print(align_score(s1, s2, engine=EngineConfig('oracle', 'cpu')))\n"
+        "for impl in ('band', 'xla', 'pallas'):\n"
+        "    print(align_score(s1, s2, engine=EngineConfig(impl, 'cpu')))\n"
         "print(tpualign_torch.align(s1, s2, engine=EngineConfig(device='cpu'))[0])\n"
         "from tpualign_torch.ops import hirschberg\n"
         "hirschberg.BASE_CELLS = 64\n"
@@ -139,7 +159,7 @@ def test_package_imports_and_scores_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert [int(x) for x in out.stdout.split()] == [oracle.score(s1, s2)] * 4
+    assert [int(x) for x in out.stdout.split()] == [oracle.score(s1, s2)] * 7
 
 
 def test_scoring_config_fields_match_jax_package():
@@ -210,7 +230,163 @@ def test_oracle_matches_jax_package(kwargs, m, n):
 
 
 def test_oracle_refuses_affine():
+    """The oracle scores affine configs; its affine traceback is not ported
+    (item 10), so ``align`` refuses them even on the full table."""
     cfg = ScoringConfig(gap_open=-3, gap_extend=-1)
     s1, s2 = _pair(10, 12, seed=4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        align_score(s1, s2, cfg, EngineConfig(impl="oracle", device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        toracle.traceback(s1, s2, cfg)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        align(s1, s2, cfg, CPU)
+
+
+@pytest.mark.parametrize("mode", list(AlignMode), ids=lambda m: m.name)
+def test_oracle_scores_affine_as_jax_package(mode):
+    """Repaired: ``impl="oracle"`` scored no affine config (it raised)."""
+    kw = dict(match=2, mismatch=-1, gap_open=-5, gap_extend=-2)
+    s1, s2 = _pair(70, 55, seed=12)
+    got = align_score(s1, s2, ScoringConfig(mode=mode, **kw),
+                      EngineConfig(impl="oracle", device="cpu"))
+    want = tpualign.align_score(s1, s2, jconfig.ScoringConfig(
+        mode=jconfig.AlignMode(mode.value), **kw), jconfig.EngineConfig(impl="oracle"))
+    assert got == want
+
+
+def _spy(monkeypatch, module, name):
+    """Record the calls of ``module.name`` and let them through."""
+    calls = []
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append(name)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def test_bitpal_refusal_falls_back_to_pallas(monkeypatch):
+    """Repaired: a ValueError of ``bitpal`` (here the one-block kernel's row
+    limit, patched small) escaped; ``tpualign`` retries on ``pallas``."""
+    monkeypatch.setattr(tbp, "MAX_THREADS", 1)
+    monkeypatch.setattr(tbp, "MAX_K", 1)
+    s1, s2 = _pair(300, 200, seed=13)
+    with pytest.raises(ValueError, match="one-block"):
+        tbp.score(s1, s2, device="cpu")
+    calls = _spy(monkeypatch, tdiag, "score_plain")
+    for impl in ("auto", "bitpal"):
+        got = align_score(s1, s2, engine=EngineConfig(impl=impl, device="cpu"))
+        assert got == oracle.score(s1, s2)
+    assert calls == ["score_plain"] * 2
+
+
+@pytest.mark.parametrize(
+    "cfg,engine",
+    [(ScoringConfig(mode=AlignMode.LOCAL, match=2, mismatch=-1, gap=-2), None),
+     (ScoringConfig(gap=-8), None),
+     (ScoringConfig(gap_open=-5, gap_extend=-2), "xla"),
+     (ScoringConfig(matrix=matrices.dna(2, -1, -3), gap=-2), "xla"),
+     (ScoringConfig(mode=AlignMode.INFIX, gap=-2), "xla")],
+    ids=["local", "g8", "affine", "matrix", "infix"],
+)
+def test_band_refusal_falls_back(cfg, engine, monkeypatch):
+    """``band``'s ValueError goes to ``xla`` for matrix, ends-free or affine
+    configs (``tpualign/api.py:173-194``).  A linear pair-scored config is
+    refused only past the int32 headroom, which ``pallas`` shares, so the
+    error is raised and no other engine runs."""
+    def refuse(*args):
+        raise ValueError("refused")
+
+    monkeypatch.setattr(tband, "_check_cfg", refuse)
+    diag = _spy(monkeypatch, tdiag, "score_plain")
+    rows = _spy(monkeypatch, txla, "score")
+    s1, s2 = _pair(90, 60, seed=14)
+    if engine is None:
+        with pytest.raises(ValueError, match="refused"):
+            align_score(s1, s2, cfg, CPU)
+        assert (diag, rows) == ([], [])
+        return
+    got = align_score(s1, s2, cfg, CPU)
+    assert got == toracle.score(s1, s2, cfg)
+    assert (diag, rows) == ([], ["score"])
+
+
+def test_linear_pair_headroom_refusal_is_shared_with_pallas():
+    """Past the int32 headroom ``band`` and ``pallas`` refuse the same
+    linear pair-scored config, and ``align_score`` raises as ``tpualign``
+    does on a TPU."""
+    cfg = ScoringConfig(match=1 << 20, mismatch=0, gap=-(1 << 20), mode=AlignMode.LOCAL)
+    s1, s2 = _pair(300, 213, seed=15)
+    for mod in (tband, tdiag):
+        with pytest.raises(ValueError, match="int32 headroom"):
+            mod.score(s1, s2, cfg, device="cpu")
+    with pytest.raises(ValueError, match="int32 headroom"):
+        align_score(s1, s2, cfg, CPU)
+
+
+def test_unported_impls_raise():
+    s1, s2 = _pair(20, 30, seed=1)
+    for impl, item in [("bitpal-strips", "item 13"), ("band-strips", "item 13"),
+                       ("strips", "item 13"), ("band-chunked", "item 9")]:
+        with pytest.raises(NotImplementedError, match=item):
+            align_score(s1, s2, engine=EngineConfig(impl=impl, device="cpu"))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(match=2, mismatch=-1, gap=-2, mode="LOCAL"),
+     dict(match=2, mismatch=-1, gap=-3, mode="GLOBAL"),
+     dict(matrix="dna", gap=-3, mode="GLOBAL"),
+     dict(match=2, mismatch=-1, gap=-2, mode="SEMIGLOBAL"),
+     dict(match=2, mismatch=-1, gap=-2, mode="INFIX"),
+     dict(match=2, mismatch=-1, gap_open=-5, gap_extend=-2, mode="GLOBAL"),
+     dict(match=2, mismatch=-1, gap_open=-5, gap_extend=-2, mode="LOCAL"),
+     dict(matrix="iupac", gap_open=-4, gap_extend=-1, mode="SEMIGLOBAL")],
+    ids=["sw", "2,-1,-3", "dna", "semiglobal", "infix", "affine", "affine-local",
+         "iupac-affine-sg"],
+)
+@pytest.mark.parametrize("m,n", [(230, 170), (170, 230)])
+def test_every_config_end_to_end_matches_jax_package(kw, m, n):
+    kw = dict(kw)
+    mode = kw.pop("mode")
+    matrix = kw.pop("matrix", None)
+    hi = 16 if matrix == "iupac" else 5
+    ours = dict(kw, mode=AlignMode[mode])
+    theirs = dict(kw, mode=jconfig.AlignMode[mode])
+    if matrix:
+        ours["matrix"] = getattr(matrices, matrix)()
+        theirs["matrix"] = getattr(jmatrices, matrix)()
+    rng = np.random.default_rng(m * n)
+    s1 = rng.integers(0, hi, m).astype(np.int8)
+    s2 = rng.integers(0, hi, n).astype(np.int8)
+    got = align_score(s1, s2, ScoringConfig(**ours), CPU)
+    assert got == tpualign.align_score(s1, s2, jconfig.ScoringConfig(**theirs))
+
+
+def test_matrices_match_jax_package():
+    for name, args in [("dna", ()), ("dna", (2, -1, -3)), ("dna", (5, 1, -4, -9)),
+                       ("uniform", ()), ("uniform", (3, -2, 7)), ("iupac", ()),
+                       ("iupac", (4, -3))]:
+        assert getattr(matrices, name)(*args) == getattr(jmatrices, name)(*args)
+    for spec in ("dna:2,-1,-3", "iupac:1,-1", "1,0/0,1", "3,-1,-2/-1,3,0/-2,0,3"):
+        assert matrices.parse(spec) == jmatrices.parse(spec)
+    for bad in ("dna:1,2", "iupac:1", "1,0/0"):
+        with pytest.raises(ValueError):
+            matrices.parse(bad)
+        with pytest.raises(ValueError):
+            jmatrices.parse(bad)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(), dict(match=-2, mismatch=3), dict(matrix=_DNA), dict(matrix=((5,),))],
+    ids=["default", "inverted", "matrix", "1x1"],
+)
+def test_sub_bounds_and_with_mode_match_jax_package(kw):
+    ours, theirs = ScoringConfig(**kw), jconfig.ScoringConfig(**kw)
+    assert ours.sub_bounds() == theirs.sub_bounds()
+    for mode in AlignMode:
+        got = ours.with_mode(mode)
+        want = theirs.with_mode(jconfig.AlignMode(mode.value))
+        assert got.mode is mode and got.mode.value == want.mode.value
+        assert got.sub_bounds() == want.sub_bounds() and got.matrix == want.matrix

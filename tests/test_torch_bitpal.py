@@ -49,27 +49,28 @@ def test_fill_plain_matches_jax_k1(nq, mt, lean):
 
 
 def test_fill_wrapper_on_cpu_is_the_plain_version():
+    """K1's contract runs through ``fill_g`` at g = 1 (``bitpal_gfill``)."""
     rng = np.random.default_rng(7)
     query, text = torch.from_numpy(_codes(rng, 150)), torch.from_numpy(_codes(rng, 40))
     eq = tbp._eq_planes(query, 150)
-    before = tbp.fill.launches
-    got = tbp.fill(text, eq, 150)
+    before = tbp.fill_g.launches
+    got = tbp.fill_g(text, eq, 150, 1)
     want = tbp.fill_plain(text, eq, 150)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert tbp.fill.launches == before  # the count is of kernel launches
+    assert tbp.fill_g.launches == before  # the count is of kernel launches
 
 
 def test_fill_wrapper_rejects_bad_arguments():
     text = torch.ones(10, dtype=torch.int8)
     eq = tbp._eq_planes(torch.ones(70, dtype=torch.int8), 70)
     with pytest.raises(ValueError, match="int8"):
-        tbp.fill(text.long(), eq, 70)
+        tbp.fill_g(text.long(), eq, 70, 1)
     with pytest.raises(ValueError, match="shape"):
-        tbp.fill(text, eq, 200)
+        tbp.fill_g(text, eq, 200, 1)
     with pytest.raises(ValueError, match="contiguous"):
-        tbp.fill(torch.ones(20, dtype=torch.int8)[::2], eq, 70)
+        tbp.fill_g(torch.ones(20, dtype=torch.int8)[::2], eq, 70, 1)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        tbp.fill(text.to("meta"), eq.to("meta"), 70)
+        tbp.fill_g(text.to("meta"), eq.to("meta"), 70, 1)
 
 
 @pytest.mark.parametrize(

@@ -1,0 +1,195 @@
+"""Run the port's CUDA kernels on the CPU, for a machine without ``nvcc``.
+
+    python tools/rehearse_kernels.py [--cases N] [--seed S]
+
+Compiles ``tpualign_torch/csrc/band_fill.cu`` and ``diag_fill.cu`` with ``g++`` as
+C++20 through a shim ``cuda_runtime.h``: one ``std::thread`` per CUDA
+thread of the one block, ``__syncthreads`` as a ``std::barrier``, the warp
+shuffles through a slot array between two barriers, ``__shared__`` as
+``static``, the DPX intrinsics as plain max, and each ``<<<1, T, 0, s>>>``
+launch rewritten into a call of the shim's launcher.  The kernels then run
+through ``ctypes`` on CPU buffers over random configs, shapes and strip
+geometries (several strips, partial last strips, every rows-per-thread
+count), and each result is held against the plain version
+(``band.score_plain``, ``pallas_diag.score_plain``).  Prints one line per
+kernel and exits non-zero on the first mismatch.
+
+A rehearsal of the kernels' logic before a card runs them, not a test of
+the CUDA build: what only ``nvcc`` checks (types, intrinsics' signatures,
+launch bounds, register use) shows first on the card.  The build goes to
+``tpualign_torch/_build/rehearse/`` (git-ignored).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from tpualign_torch import _build, matrices  # noqa: E402
+from tpualign_torch.config import AlignMode, ScoringConfig  # noqa: E402
+from tpualign_torch.ops import band, pallas_diag  # noqa: E402
+
+SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cstdint>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__ __restrict
+#define __shared__ static
+
+struct dim3 { unsigned x = 1, y = 1, z = 1; };
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+namespace shim {
+inline thread_local dim3 tid;
+inline dim3 dims;
+inline std::unique_ptr<std::barrier<>> bar;
+inline std::vector<long long> slots(1024);
+
+template <class F> void launch(unsigned threads, F body) {
+  dims.x = threads;
+  bar = std::make_unique<std::barrier<>>(threads);
+  std::vector<std::thread> pool;
+  for (unsigned t = 0; t < threads; ++t) {
+    pool.emplace_back([t, &body] { tid.x = t; body(); });
+  }
+  for (auto& th : pool) th.join();
+}
+}  // namespace shim
+
+#define threadIdx (shim::tid)
+#define blockDim (shim::dims)
+inline void __syncthreads() { shim::bar->arrive_and_wait(); }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
+inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
+
+template <class T> T shuffle(T v, int src_offset) {
+  const int t = threadIdx.x, lane = t & 31, src = lane + src_offset;
+  shim::slots[t] = static_cast<long long>(v);
+  __syncthreads();
+  const T out = (src >= 0 && src < 32) ? static_cast<T>(shim::slots[t + src_offset]) : v;
+  __syncthreads();
+  return out;
+}
+template <class T> T __shfl_up_sync(unsigned, T v, int d) { return shuffle(v, -d); }
+template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, d); }
+"""
+
+LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<1, (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
+SOURCES = ("band_fill.cu", "diag_fill.cu")
+
+
+def build() -> ctypes.CDLL:
+    """Compile the two kernels with g++ through the shim; return the library."""
+    out_dir = os.path.join(_build.BUILD_DIR, "rehearse")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
+        f.write(SHIM)
+    objs = []
+    for name in SOURCES:
+        with open(os.path.join(_build.CSRC, name)) as f:
+            src = LAUNCH.sub(r"shim::launch(\2, [&] { \1(\4); });", f.read())
+        path = os.path.join(out_dir, name + ".cpp")
+        with open(path, "w") as f:
+            f.write(src)
+        objs.append(path)
+    lib = os.path.join(out_dir, "librehearse.so")
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-I", out_dir,
+                    "-o", lib, *objs, "-lpthread"], check=True)
+    dll = ctypes.CDLL(lib)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    dll.band_fill.argtypes = [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, vp, vp]
+    dll.diag_fill.argtypes = [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp]
+    return dll
+
+
+def _band_case(dll, rng, mode, matrix, affine, m, n, geometry):
+    kw = dict(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 2)),
+              gap=int(rng.integers(-4, 0)))
+    if matrix is not None:
+        kw["matrix"] = matrix
+    if affine:
+        kw.update(gap_open=int(rng.integers(-6, 1)), gap_extend=int(rng.integers(-3, 0)))
+    cfg = ScoringConfig(mode=mode, **kw)
+    hi = len(matrix) if matrix is not None else 5
+    text = torch.from_numpy(rng.integers(0, hi, m).astype(np.int8))
+    query = torch.from_numpy(rng.integers(0, hi, n).astype(np.int8))
+    ends = band._ends_flags(cfg, bool(rng.integers(0, 2)))
+    k, threads = geometry or band.kernel_geometry(n, band.max_k(cfg))
+    K = len(matrix) if matrix is not None else 0
+    mat = np.ascontiguousarray(np.asarray(matrix if K else [0], np.int32).reshape(-1))
+    boundary = np.empty(2 * (m + 1), np.int32)
+    out = np.empty(1, np.int32)
+    err = dll.band_fill(text.data_ptr(), m, query.data_ptr(), n, mat.ctypes.data, K,
+                        cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
+                        cfg.gap_extend or 0, band._flags(cfg, ends), k, threads,
+                        boundary.ctypes.data, out.ctypes.data, None)
+    want = int(band.score_plain(text, query, cfg, ends))
+    return err == 0 and int(out[0]) == want, (cfg, ends, m, n, k, threads, int(out[0]), want)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cases", type=int, default=120)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    dll = build()
+    rng = np.random.default_rng(args.seed)
+    asym = ((3, -1, -2, 0, 1), (-2, 2, -3, -1, 0), (0, -1, 4, -2, -1),
+            (1, 0, -1, 3, -2), (-1, -2, 0, -3, 2))
+    mats = [None, matrices.dna(2, -1, -3), asym, matrices.iupac()]
+    geometries = [(1, 32), (2, 32), (4, 32), (8, 32), (16, 32), (1, 64), (2, 96), None]
+    for c in range(args.cases):
+        mode = list(AlignMode)[c % 4]
+        matrix = mats[(c // 4) % 4]
+        affine = bool((c // 16) % 2)
+        geometry = geometries[int(rng.integers(0, len(geometries)))]
+        m, n = (int(x) for x in rng.integers(1, 90, 2))
+        ok, info = _band_case(dll, rng, mode, matrix, affine, m, n, geometry)
+        if not ok:
+            sys.exit(f"band_fill differs from score_plain: {info}")
+    print(f"[rehearse] band_fill equal to score_plain in {args.cases} cases")
+    for c in range(args.cases // 4):
+        cfg = ScoringConfig(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 1)),
+                            gap=int(rng.integers(-4, 1)),
+                            mode=AlignMode.LOCAL if c % 2 else AlignMode.GLOBAL)
+        n, m = sorted(int(x) for x in rng.integers(1, 150, 2))
+        s1 = torch.from_numpy(rng.integers(0, 5, m).astype(np.int8))
+        s2 = torch.from_numpy(rng.integers(0, 5, n).astype(np.int8))
+        threads = pallas_diag.kernel_threads(n)
+        diag = np.empty(3 * (n + 1), np.int32)
+        out = np.empty(1, np.int32)
+        err = dll.diag_fill(s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch,
+                            cfg.gap, int(cfg.is_local), threads, diag.ctypes.data,
+                            out.ctypes.data, None)
+        want = int(pallas_diag.score_plain(s1, s2, cfg))
+        if err or int(out[0]) != want:
+            sys.exit(f"diag_fill differs from score_plain: {cfg} {m} x {n}: "
+                     f"{int(out[0])} != {want}")
+    print(f"[rehearse] diag_fill equal to score_plain in {args.cases // 4} cases")
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,7 @@ a plain PyTorch version that runs on CPU tensors.
 
 Public API:
 
-- :func:`align_score` — alignment score of one pair.
+- :func:`align_score` — alignment score of one pair, any scoring config.
 - :func:`align` — score plus aligned strings of one pair.
 - :class:`ScoringConfig`, :class:`EngineConfig`, :class:`AlignMode` — config.
 """

@@ -105,12 +105,16 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(library_path())
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.bitpal_fill.argtypes = [vp, vp, i64, i32, i32, i32, vp, vp, vp]
-        lib.bitpal_fill.restype = i32
         lib.bitpal_gfill.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
         lib.bitpal_gfill.restype = i32
         lib.bitpal_capture_fill.argtypes = [
             vp, vp, i64, i32, i32, i32, i32, vp, i32, vp, vp, vp]
         lib.bitpal_capture_fill.restype = i32
+        lib.band_fill.argtypes = [
+            vp, i32, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+            vp, vp, vp]
+        lib.band_fill.restype = i32
+        lib.diag_fill.argtypes = [vp, i32, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp]
+        lib.diag_fill.restype = i32
         _lib = lib
     return _lib

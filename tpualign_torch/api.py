@@ -1,10 +1,14 @@
 """Top-level API of the port: the counterpart of ``tpualign/api.py``'s
 ``resolve_impl``, ``align_score`` and ``align``.
 
-The bit-parallel (1, 0, -g) family, g = 1..7, runs on the bit-parallel
-engine; ``impl="oracle"`` scores with the NumPy row scan for any linear-gap
-config, and ``align`` walks the full table for any linear-gap config up to
-``FULL_TABLE_CELL_LIMIT`` cells.  Every other config raises
+``align_score`` serves every ``ScoringConfig`` and routes as ``tpualign``
+does on a TPU: the bit-parallel engine for the (1, 0, -g) family, g = 1..7,
+the band engine for everything else, and the same fallbacks when an engine
+refuses a config or a shape with ValueError.  Every engine runs on
+``engine.device``: its CUDA kernel on a CUDA device, its plain PyTorch
+version on the CPU.  ``align`` walks the full table for any linear-gap
+config up to ``FULL_TABLE_CELL_LIMIT`` cells and runs the bit-parallel
+Hirschberg split above it for the family.  What is not ported raises
 NotImplementedError naming the ROADMAP item that ports it; nothing runs
 quietly on another engine or device.
 """
@@ -15,27 +19,12 @@ from typing import Tuple
 
 import numpy as np
 
-from .config import EngineConfig, ScoringConfig
-from .ops import bitpal, hirschberg, oracle
+from .config import UNPORTED_IMPLS, EngineConfig, ScoringConfig
+from .ops import band, bitpal, hirschberg, oracle, pallas_diag, xla
 
 #: ``align`` walks the exact full table up to this many DP cells (as
 #: ``tpualign.api.FULL_TABLE_CELL_LIMIT``), and bisects above it
 FULL_TABLE_CELL_LIMIT = 16 * 1024 * 1024
-
-
-def _unported(scoring: ScoringConfig) -> str:
-    if scoring.is_affine:
-        what = "affine (Gotoh) gaps"
-    elif scoring.is_local:
-        what = "local (Smith-Waterman) scoring"
-    elif scoring.has_matrix:
-        what = "substitution-matrix scoring"
-    elif scoring.is_ends_free:
-        what = f"{scoring.mode.name.lower()} (ends-free) scoring"
-    else:
-        what = "linear-gap scoring outside the (1, 0, -g) family"
-    return (f"{what} is not ported yet: ROADMAP queue 1 item 8 "
-            "(general-scoring score, kernel K6)")
 
 
 def _unported_align(scoring: ScoringConfig) -> str:
@@ -53,15 +42,16 @@ def _unported_align(scoring: ScoringConfig) -> str:
 
 
 def resolve_impl(engine: EngineConfig, scoring: ScoringConfig) -> str:
-    """The engine for ``engine.impl`` and ``scoring``: ``oracle`` when asked
-    for, else ``bitpal``, which the port runs for the (1, 0, -g) family,
-    g = 1..7; any other config raises NotImplementedError (its engine is
-    not ported)."""
-    if engine.impl == "oracle":
-        return "oracle"
-    if bitpal.family(scoring) is None:
-        raise NotImplementedError(_unported(scoring))
-    return "bitpal"
+    """The engine for ``engine.impl`` and ``scoring``: a named engine as it
+    is; ``auto`` gives ``bitpal`` for the (1, 0, -g) family, g = 1..7, and
+    ``band`` for every other config, affine included (``tpualign``'s rule
+    on a TPU).  The sharded engines raise NotImplementedError."""
+    if engine.impl in UNPORTED_IMPLS:
+        raise NotImplementedError(
+            f"impl={engine.impl!r} is not ported yet: {UNPORTED_IMPLS[engine.impl]}")
+    if engine.impl != "auto":
+        return engine.impl
+    return "bitpal" if bitpal.family(scoring) is not None else "band"
 
 
 def align_score(
@@ -70,11 +60,35 @@ def align_score(
     scoring: ScoringConfig = ScoringConfig(),
     engine: EngineConfig = EngineConfig(),
 ) -> int:
-    """Alignment score of ``s1`` vs ``s2`` (``.bdna`` codes), with the
-    semantics of ``tpualign.align_score``.  Runs on ``engine.device``."""
-    if resolve_impl(engine, scoring) == "oracle":
+    """Alignment score of ``s1`` (columns) vs ``s2`` (rows) as ``.bdna``
+    codes, with the semantics of ``tpualign.align_score``.  Runs on
+    ``engine.device``.
+
+    Falls back as ``tpualign/api.py:162-203`` does, and only on the
+    ValueError by which an engine refuses a config or a shape: ``bitpal``
+    to ``pallas``; ``band`` to ``xla`` for matrix, ends-free or affine
+    configs.  ``band`` refuses a linear pair-scored config only past the
+    int32 headroom, where ``pallas`` refuses it too, so that error is
+    raised."""
+    impl = resolve_impl(engine, scoring)
+    dev = engine.device
+    if impl == "oracle":
         return oracle.score(s1, s2, scoring)
-    return bitpal.score(s1, s2, scoring, device=engine.device)
+    if impl == "bitpal":
+        try:
+            return bitpal.score(s1, s2, scoring, device=dev)
+        except ValueError:  # outside the family or the one-block kernel
+            impl = "pallas"
+    if impl == "band":
+        try:
+            return band.score(s1, s2, scoring, device=dev)
+        except ValueError:  # past the int32 headroom
+            if not (scoring.has_matrix or scoring.is_ends_free or scoring.is_affine):
+                raise
+            impl = "xla"
+    if impl == "xla":
+        return xla.score(s1, s2, scoring, device=dev)
+    return pallas_diag.score(s1, s2, scoring, device=dev)
 
 
 def align(

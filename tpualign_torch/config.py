@@ -17,8 +17,19 @@ import torch
 
 __all__ = ["AlignMode", "EngineConfig", "ScoringConfig"]
 
+#: the engines of ``tpualign``'s ``EngineConfig`` that the port runs;
 #: ``auto`` resolves by scoring config (:func:`tpualign_torch.api.resolve_impl`)
-IMPLS = ("auto", "bitpal", "oracle")
+IMPLS = ("auto", "bitpal", "band", "pallas", "xla", "oracle")
+
+#: ``tpualign``'s other engines, accepted by name and refused by
+#: :func:`tpualign_torch.api.resolve_impl` with the ROADMAP item that ports
+#: them
+UNPORTED_IMPLS = {
+    "band-chunked": "ROADMAP queue 1 item 9 (its scan is kernel K7)",
+    "bitpal-strips": "ROADMAP queue 1 item 13 (sharded pipelines)",
+    "band-strips": "ROADMAP queue 1 item 13 (sharded pipelines)",
+    "strips": "ROADMAP queue 1 item 13 (sharded pipelines)",
+}
 
 
 class AlignMode(enum.Enum):
@@ -121,14 +132,29 @@ class ScoringConfig:
             return self.matrix[a][b]
         return self.match if a == b else self.mismatch
 
+    def sub_bounds(self) -> tuple:
+        """(min, max) substitution score over the alphabet."""
+        if self.matrix is not None:
+            return (min(min(r) for r in self.matrix),
+                    max(max(r) for r in self.matrix))
+        return (min(self.match, self.mismatch),
+                max(self.match, self.mismatch))
+
+    def with_mode(self, mode: AlignMode) -> "ScoringConfig":
+        return dataclasses.replace(self, mode=mode)
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Execution strategy of the port.
 
-    ``impl``: ``auto``, ``bitpal`` (the bit-parallel engine, CUDA kernel on a
-    CUDA device, its plain PyTorch version on the CPU) or ``oracle`` (the
-    NumPy row scan, :mod:`tpualign_torch.ops.oracle`).
+    ``impl``: ``auto``; ``bitpal`` (the bit-parallel (1, 0, -g) engine),
+    ``band`` (the general-scoring strip engine) or ``pallas`` (the flat
+    anti-diagonal engine), each a CUDA kernel on a CUDA device and its
+    plain PyTorch version on the CPU; ``xla`` (the PyTorch row scan on the
+    device) or ``oracle`` (the NumPy row scan on the host).  The names are
+    ``tpualign``'s; :data:`UNPORTED_IMPLS` are accepted and refused when
+    resolved.
 
     ``device``: a torch device string.  The default is ``"cuda"``, and a run
     with it on a machine without CUDA raises: nothing falls back to the CPU
@@ -139,7 +165,8 @@ class EngineConfig:
     device: str = "cuda"
 
     def __post_init__(self) -> None:
-        if self.impl not in IMPLS:
-            raise ValueError(f"unknown impl {self.impl!r}; expected one of {IMPLS}")
+        if self.impl not in IMPLS and self.impl not in UNPORTED_IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}; expected one of "
+                             f"{IMPLS + tuple(UNPORTED_IMPLS)}")
         if torch.device(self.device).type not in ("cpu", "cuda"):
             raise ValueError(f"device must be a cpu or cuda device, got {self.device!r}")

@@ -1,7 +1,9 @@
 // Bit-parallel Needleman-Wunsch fill for the scoring family (1, 0, -g),
 // g = 1..7, with optional per-row captures of the horizontal deltas.
 //
-// Replaces two TPU kernels of tpualign/ops/bitpal.py:
+// Replaces three TPU kernels of tpualign/ops/bitpal.py:
+//   _bitpal_kernel_body_lean (K1, and its twin _bitpal_kernel_body): the
+//                             g = 1 fill, final column only;
 //   _g_kernel_body      (K2): the (1, 0, -g) fill, final column only;
 //   _chunk_kernel_body  (K4): the g-family fill that also streams the
 //                             horizontal deltas of chosen DP rows, which the
@@ -26,8 +28,8 @@
 // in tpualign/ops/bitpal.py's module docstring and _g_plane_step); one
 // carry-propagating add resolves it for 64 rows at once through runs of
 // enc_v = 0, and both new deltas are then enc_out = 2g - enc_in + P,
-// bit-sliced adds over the B planes.  At g = 1 the kernel runs K1's
-// two-plane step (bitpal_step.cuh) instead.
+// bit-sliced adds over the B planes.  At g = 1 (B = 2) the kernel runs the
+// two-plane step of K1 (plane_step) instead.
 //
 // The TPU kernel K4 also carries its state in and out, takes word 0's h_top
 // from an upstream stream and captures a tail row for the sharded pipeline;
@@ -36,33 +38,55 @@
 // row can be captured, since every row's h_out is at hand in the U planes,
 // and entry j-1 of a capture stream is column j.
 //
-// Schedule: K1's (bitpal_fill.cu).  One thread block; thread t owns words
+// Query rows are packed 64 to a word (row 64w+b is bit b of word w).
+// Schedule: one thread block; thread t owns words
 // [t*K, t*K+K), keeps their B delta planes in registers, computes column
 // j = d - t at step d for all of its words, and hands the B-bit h_out of its
 // last word to thread t+1 through a parity double buffer in shared memory;
 // one __syncthreads() per step.  A capture is written by the thread that
 // owns its row's word, one int8 store per live column.
 //
-// What bounds it: as K1, one SM issues every word step (about twice K1's
-// integer ops at B = 3..4) plus a block-wide barrier per step; the other
-// SMs idle.  At K = 16 words per thread the B planes no longer fit the 64
-// registers a thread has under 1024 threads and spill.  Later work: K1's
-// (multi-block wavefront, warp-shuffle hand-offs), and staging the capture
-// bytes in shared memory for wide stores.
+// What bounds it: one SM issues every word step (about 25 64-bit integer
+// ops at g = 1, twice that at B = 3..4) plus a block-wide barrier per step;
+// the other SMs idle.  At K = 16 words per thread the B planes no longer
+// fit the 64 registers a thread has under 1024 threads and spill.  Later
+// work: a multi-block wavefront (blocks own word bands and hand the band's
+// bottom h_out stream to the next block through global memory with flags),
+// warp-shuffle hand-offs, and staging the capture bytes in shared memory
+// for wide stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "bitpal_step.cuh"
-
 namespace {
 
-using bitpal::kAlphabet;
-using bitpal::kMaxThreads;
-using bitpal::plane_step;
-using bitpal::u64;
+typedef unsigned long long u64;
 
+constexpr int kMaxThreads = 1024;
+constexpr int kAlphabet = 5;
 constexpr int kMaxG = 7;
+
+// One g = 1 column step of one word.  (b0, b1): the word's vertical-delta
+// planes (enc = v + 1), updated in place.  (u0, u1): enc of the horizontal
+// delta entering the top row; on return, enc of the h_out leaving the
+// bottom row.  (U0, U1): on return, enc of the h_out of every row of the
+// word, the horizontal delta H(i, j) - H(i, j-1) that a capture reads.
+// Carries out of bit 63 are dropped: the bottom row's promotion reaches the
+// next word through h_out, not through the add.
+__device__ __forceinline__ void plane_step(u64 E, u64& b0, u64& b1, u64& u0,
+                                           u64& u1, u64& U0, u64& U1) {
+  const u64 vm1 = ~b0 & ~b1;  // v = -1
+  const u64 received = (vm1 + (E & vm1) + (u0 & u1)) ^ vm1;
+  const u64 P = E | (b0 & b1) | received;  // promotion bit
+  U0 = (P & ~b0) | (~P & b0 & ~b1);
+  U1 = (P & ~b1) | (~P & vm1);
+  const u64 U0i = (U0 << 1) | u0;
+  const u64 U1i = (U1 << 1) | u1;
+  b0 = U0i ^ P;
+  b1 = ~(U0i ^ U1i) ^ (U0i & P);
+  u0 = U0 >> 63;
+  u1 = U1 >> 63;
+}
 
 // x += c (mod 2^B), c a constant given as B planes of all ones or zeros.
 template <int B>
@@ -250,7 +274,7 @@ int launch(int g, int k, int threads, void* stream, const Args& a) {
 
 }  // namespace
 
-// K2's contract: launches the fill on `stream` with `threads` threads of k
+// K1's (g = 1) and K2's contract: launches the fill on `stream` with `threads` threads of k
 // words each (threads * k >= nw, threads <= 1024, k in {1, 2, 4, 8, 16});
 // writes the B final planes to `planes` (B, nw).  Returns the cudaError_t of
 // the launch; the fill itself runs asynchronously.

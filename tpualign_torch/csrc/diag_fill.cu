@@ -1,0 +1,106 @@
+// Flat anti-diagonal score: pair scoring, linear gaps, global or local.
+//
+// Replaces the TPU kernel tpualign/ops/pallas_diag.py:_diag_kernel_body
+// (K8).  Contract, the same as score_plain in
+// tpualign_torch/ops/pallas_diag.py:
+//
+//   in:  s1   (m,)  int8 codes, across the columns (the longer sequence)
+//        s2   (n,)  int8 codes, down the rows (the diagonal axis, n <= m)
+//   out: out  (1,)  int32: H(n, m) (global), or the max over every cell
+//                   and 0 (local)
+//   scratch: diag (3, n+1) int32, three rotating diagonals
+//
+// Recurrence (serial.cpp:23-31): H(i, j) = max(H(i-1, j-1) + s, H(i-1, j)
+// + gap, H(i, j-1) + gap), boundaries H(0, j) = j*gap, H(i, 0) = i*gap (0
+// under local, which also floors every cell at 0).
+//
+// Schedule: one thread block; element k of diagonal d is cell (i = k,
+// j = d - k), and thread r computes the elements k = r, r + T, r + 2T, ...
+// of each diagonal that lie in the table.  A cell reads diagonal d-1 at k-1
+// (up) and k (left) and diagonal d-2 at k-1 (diag), all in global memory,
+// and s1[d-1-k] straight from global memory (the TPU kernel's rolled,
+// staged window of s1 has no counterpart).  Three buffers rotate, one
+// __syncthreads() per diagonal, no length cap.
+//
+// What bounds it: one SM walks n + m diagonals, each a barrier plus up to
+// n cells of three dependent loads from L1/L2; the other SMs idle.  Later
+// work: keep the diagonals in shared memory for n up to ~18k, and a tiled
+// wavefront over many blocks.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxThreads = 1024;
+
+__global__ void __launch_bounds__(kMaxThreads)
+    diag_fill_kernel(const int8_t* __restrict__ s1, int m,
+                     const int8_t* __restrict__ s2, int n, int match,
+                     int mismatch, int gap, bool local,
+                     int32_t* __restrict__ diag, int32_t* __restrict__ out) {
+  __shared__ int32_t red[kMaxThreads / 32];
+  const int r = threadIdx.x;
+  const int T = blockDim.x;
+  const int stride = n + 1;
+  int32_t best = 0;
+  if (r == 0) diag[0] = 0;  // diagonal 0: H(0, 0)
+  __syncthreads();
+  for (int d = 1; d <= n + m; ++d) {
+    int32_t* d0 = diag + (d % 3) * stride;
+    const int32_t* d1 = diag + ((d + 2) % 3) * stride;
+    const int32_t* d2 = diag + ((d + 1) % 3) * stride;
+    const int klo = max(0, d - m);
+    const int khi = min(d, n);
+    for (int k = klo + ((r - klo % T) + T) % T; k <= khi; k += T) {
+      int32_t v;
+      if (k == 0 || k == d) {  // H(0, d) or H(d, 0)
+        v = local ? 0 : d * gap;
+      } else {
+        const int32_t s = s1[d - 1 - k] == s2[k - 1] ? match : mismatch;
+        v = __viaddmax_s32(max(d1[k - 1], d1[k]), gap, d2[k - 1] + s);
+        if (local) {
+          v = max(v, 0);
+          best = max(best, v);
+        }
+      }
+      d0[k] = v;
+    }
+    __syncthreads();
+  }
+  if (local) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      best = max(best, __shfl_down_sync(0xffffffffu, best, off));
+    }
+    if ((r & 31) == 0) red[r >> 5] = best;
+    __syncthreads();
+    if (r == 0) {
+      for (int w = 1; w < T / 32; ++w) best = max(best, red[w]);
+      *out = best;
+    }
+  } else if (r == 0) {
+    *out = diag[((n + m) % 3) * stride + n];
+  }
+}
+
+}  // namespace
+
+// Launches the diagonal fill on `stream` with `threads` threads (a multiple
+// of 32, at most 1024); n <= m.  `diag` is (3, n+1) int32 scratch; the
+// score lands in out[0].  Returns the cudaError_t of the launch; the fill
+// itself runs asynchronously.
+extern "C" int diag_fill(const void* s1, int m, const void* s2, int n,
+                         int match, int mismatch, int gap, int local,
+                         int threads, void* diag, void* out, void* stream) {
+  if (n < 1 || m < n || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  diag_fill_kernel<<<1, threads, 0, s>>>(
+      static_cast<const int8_t*>(s1), m, static_cast<const int8_t*>(s2), n,
+      match, mismatch, gap, local != 0, static_cast<int32_t*>(diag),
+      static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,4 +1,7 @@
-"""Engines of the port: ``bitpal``, the bit-parallel (1, 0, -g) fills (CUDA
-kernels and their plain PyTorch versions); ``hirschberg``, alignment by
-divide and conquer over those fills; ``oracle``, the NumPy row scan and
+"""Engines of the port: ``bitpal``, the bit-parallel (1, 0, -g) fills;
+``band``, the general-scoring strip score; ``pallas_diag``, the flat
+anti-diagonal score (CUDA kernels and their plain PyTorch versions);
+``xla``, the PyTorch row scan (the portable engine and the plain version of
+``band`` and ``pallas_diag``); ``hirschberg``, alignment by divide and
+conquer over the bit-parallel fills; ``oracle``, the NumPy row scan and
 full-table traceback."""

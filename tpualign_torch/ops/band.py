@@ -1,0 +1,263 @@
+"""General-scoring score in row strips, in PyTorch and CUDA: the port of
+``tpualign/ops/band.py`` (``score_fn``, ``_band_call``).
+
+Any ``ScoringConfig``: linear or affine (Gotoh) gaps, pair scoring or a
+substitution matrix of up to 16 codes, global, local (Smith-Waterman),
+semiglobal and infix modes.  The kernel (``csrc/band_fill.cu``, K6's port)
+fills the table in strips of ``R = k * threads`` rows, one thread block,
+each thread owning ``k`` consecutive rows, and couples the strips through
+one boundary row ``H(i0, 0..m)`` (plus the F row under affine gaps) in
+global memory at any length.  Its contract, shared by :func:`band_fill` and
+:func:`score_plain`:
+
+- ``text`` (m,) int8 runs across the columns, ``query`` (n,) int8 down the
+  rows; ``cfg`` is the config in kernel coordinates (its matrix transposed
+  when the orientation swaps) and ``ends`` the kernel-coordinate flags
+  ``(zr, zc, er, ec)`` of :func:`_ends_flags`;
+- the result is one int: local, the max over every cell with
+  ``1 <= j <= m`` (and 0); with ``er`` and/or ``ec``, the max over row n
+  (``j`` in 1..m) and/or column m (``i`` in 1..n); otherwise ``H(n, m)``.
+
+The host adds the closed-form boundary cells H(n, 0) and H(0, m)
+(:func:`score_fn`).  What the TPU kernel carries for its own sake is gone:
+the SMEM boundary caps and the orientation rule built on them, the float32
+value path, the 4-bit text pack, the column-major strip layout, the 2-step
+stagger, the pend rings and the sentinel pad codes.  Values are int32; the
+int32 headroom rule of ``_check_cfg`` stays.  Masked and unmasked local
+scoring are one path, so positive-mismatch local affine configs, which the
+TPU kernel refuses, run here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from .. import _build
+from ..config import ScoringConfig
+from . import xla
+from .bitpal import _device
+
+#: kernel geometry: one block of up to MAX_THREADS threads (a multiple of
+#: WARP), each owning k consecutive rows of a strip, k a power of two up to
+#: MAX_K (registers per thread); local affine gaps carry E and the masked
+#: running max beside H and spill 208-220 bytes at 16 rows a thread, which
+#: made them slower there than at 8 on the H100 (PERF.md), so they stop at
+#: MAX_K_LOCAL_AFFINE (global affine spills 24-56 bytes and is faster at 16)
+MAX_THREADS = 1024
+MAX_K = 16
+MAX_K_LOCAL_AFFINE = 8
+WARP = 32
+
+#: flag bits of the kernel's ``flags`` argument
+LOCAL, AFFINE, ZERO_ROW, ZERO_COL, END_ROW, END_COL = 1, 2, 4, 8, 16, 32
+
+
+def kernel_geometry(n: int, max_k: int = MAX_K) -> Tuple[int, int]:
+    """``(k, threads)`` for ``n`` rows: as few strips as the block allows
+    (each at most ``MAX_THREADS * max_k`` rows), cut evenly, then the
+    fewest rows per thread that fit, threads rounded up to whole warps."""
+    n_strips = -(-n // (MAX_THREADS * max_k))
+    rows = -(-n // n_strips)
+    k = 1
+    while k * MAX_THREADS < rows:
+        k *= 2
+    warps = -(-rows // (k * WARP))
+    return k, warps * WARP
+
+
+def max_k(cfg: ScoringConfig) -> int:
+    """The most rows a thread takes under ``cfg`` (see ``MAX_K``)."""
+    return MAX_K_LOCAL_AFFINE if (cfg.is_affine and cfg.is_local) else MAX_K
+
+
+def _wmax(cfg: ScoringConfig) -> int:
+    """Largest per-step value change (the int32 headroom bound)."""
+    if cfg.has_matrix:
+        lo, hi = cfg.sub_bounds()
+        sub_mag = max(abs(lo), abs(hi), 1)
+    else:
+        sub_mag = max(abs(cfg.match), abs(cfg.mismatch), 1)
+    if cfg.is_affine:
+        return max(sub_mag, abs(cfg.gap_open) + abs(cfg.gap_extend))
+    return max(sub_mag, abs(cfg.gap))
+
+
+def _ends_flags(cfg: ScoringConfig, swapped: bool):
+    """Kernel-coordinate ends-free flags ``(zr, zc, er, ec)``.
+
+    ``zr``: boundary row H(0, :) = 0; ``zc``: column H(:, 0) = 0; ``er``:
+    score maxes over the last DP row; ``ec``: over the last column.
+    Swapping the orientation transposes the table, exchanging row flags
+    with column flags."""
+    if not cfg.is_ends_free:
+        return (False, False, False, False)
+    zr, zc = cfg.free_start_s1, cfg.free_start_s2
+    er, ec = cfg.free_end_s1, cfg.free_end_s2
+    if swapped:
+        zr, zc, er, ec = zc, zr, ec, er
+    return (zr, zc, er, ec)
+
+
+def _check_cfg(cfg: ScoringConfig, total: int) -> None:
+    """ValueError past the int32 headroom, as ``tpualign.ops.band._check_cfg``.
+    Its refusal of positive-mismatch local affine configs guards the TPU
+    kernel's unmasked running max; this kernel's max covers live cells only,
+    so it serves them."""
+    if total * _wmax(cfg) > 2**29:
+        raise ValueError("scoring magnitudes too large for int32 headroom")
+
+
+def _empty_score(m: int, n: int, cfg: ScoringConfig) -> int:
+    """Closed-form score when either sequence is empty."""
+    if cfg.is_local or m + n == 0:
+        return 0
+    if cfg.is_ends_free:
+        if n == 0:  # s1 runs against nothing: skippable iff an s1 end is free
+            return 0 if (cfg.free_start_s1 or cfg.free_end_s1) else xla.gap_run(cfg, m)
+        return 0 if (cfg.free_start_s2 or cfg.free_end_s2) else xla.gap_run(cfg, n)
+    return xla.gap_run(cfg, m + n)
+
+
+def _flags(cfg: ScoringConfig, ends) -> int:
+    zr, zc, er, ec = ends
+    return ((LOCAL if cfg.is_local else 0) | (AFFINE if cfg.is_affine else 0)
+            | (ZERO_ROW if zr else 0) | (ZERO_COL if zc else 0)
+            | (END_ROW if er else 0) | (END_COL if ec else 0))
+
+
+def score_plain(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
+                ends) -> torch.Tensor:
+    """Plain PyTorch version of the band kernel: its arguments and result
+    (module docstring) by the row scan of :func:`tpualign_torch.ops.xla.rows_scan`,
+    as a 0-d int64 tensor on the tensors' device."""
+    xla.check_pair(text, query, ("text", "query"))
+    zr, zc, er, ec = ends
+    local = cfg.is_local
+    h, best, col = xla.rows_scan(
+        text, query, cfg, zero_row=local or zr, zero_col=local or zc,
+        want_best=local, want_col=ec and not local,
+    )
+    if local:
+        return best.clamp(min=0)
+    if er or ec:
+        parts = ([h[1:].max()] if er else []) + ([col.max()] if ec else [])
+        return torch.stack(parts).max()
+    return h[-1]
+
+
+def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
+              ends, geometry: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The band kernel's result (module docstring) on the device of its
+    tensors: the CUDA kernel ``band_fill`` (``csrc/band_fill.cu``) for CUDA
+    tensors, :func:`score_plain` for CPU tensors; a 0-d int64 tensor.
+
+    ``geometry``: ``(k, threads)`` rows per thread (1, 2, 4, 8 or 16) and
+    threads (a multiple of 32 up to 1024); default :func:`kernel_geometry`
+    with ``k`` at most :func:`max_k`.
+    It sets the strip height ``k * threads`` and never the result.  On CUDA
+    the wrapper allocates the boundary rows and the output, launches on the
+    current stream without synchronising, and counts the launch in
+    ``band_fill.launches``.  A launch the device refuses raises; nothing
+    falls back to the plain version."""
+    xla.check_pair(text, query, ("text", "query"))
+    if text.device.type == "cpu":
+        return score_plain(text, query, cfg, ends)
+    if text.device.type != "cuda":
+        raise ValueError(f"band_fill runs on cpu or cuda tensors, got {text.device}")
+    m, n = text.numel(), query.numel()
+    k, threads = geometry or kernel_geometry(n, max_k(cfg))
+    dev = text.device
+    lib = _build.load()
+    K = len(cfg.matrix) if cfg.has_matrix else 0
+    matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
+    boundary = torch.empty((2, m + 1), dtype=torch.int32, device=dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.band_fill(
+            text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
+            cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
+            cfg.gap_extend or 0, _flags(cfg, ends), k, threads,
+            boundary.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"band_fill launch failed with CUDA error {err}")
+    band_fill.launches += 1
+    return out[0].long()
+
+
+band_fill.launches = 0
+
+
+class Plan(NamedTuple):
+    """How :func:`score_fn` runs one shape: ``swapped`` puts ``s2`` on the
+    text axis (columns); ``cfg`` and ``ends`` are in kernel coordinates;
+    ``floor`` holds the closed-form boundary cells the score maxes over."""
+
+    swapped: bool
+    cfg: ScoringConfig
+    ends: Tuple[bool, bool, bool, bool]
+    floor: Tuple[int, ...]
+
+
+def plan(m: int, n: int, cfg: ScoringConfig) -> Plan:
+    """The kernel's orientation, config and flags for ``len(s1) = m``,
+    ``len(s2) = n`` (both non-empty).  The strips run across the shorter
+    sequence (ties keep ``s2`` on the rows), so a swap puts ``s2`` on the
+    columns and transposes an asymmetric matrix and the ends-free flags."""
+    swapped = n > m
+    mb, ns = (n, m) if swapped else (m, n)
+    ends = _ends_flags(cfg, swapped)
+    kcfg = cfg
+    if swapped and cfg.has_matrix:
+        # the kernel scores matrix[text char][row char]; swapping puts s2 on
+        # the text axis, so an asymmetric matrix must transpose
+        kcfg = dataclasses.replace(cfg, matrix=tuple(zip(*cfg.matrix)))
+    zr, zc, er, ec = ends
+    # the kernel's maxes cover j in [1, m] / i in [1, n]; the j = 0 / i = 0
+    # boundary cells are closed-form (affine: one open + extend run)
+    floor = ()
+    if er:  # H(n, 0)
+        floor += (0 if zc else xla.gap_run(cfg, ns),)
+    if ec:  # H(0, m)
+        floor += (0 if zr else xla.gap_run(cfg, mb),)
+    return Plan(swapped, kcfg, ends, floor)
+
+
+def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
+    """``(s1, s2) -> score`` for fixed lengths ``m = len(s1)`` (columns),
+    ``n = len(s2)`` (rows): takes int8 code tensors on ``device`` and
+    returns the score as a 0-d int64 tensor there, without synchronising.
+    Refuses what ``tpualign.ops.band.score_fn`` refuses (ValueError); runs
+    :func:`band_fill` as :func:`plan` says."""
+    _check_cfg(cfg, m + n)
+    dev = _device(device)
+    if m == 0 or n == 0:
+        base = _empty_score(m, n, cfg)
+        return lambda s1, s2: torch.tensor(base, device=dev)
+    p = plan(m, n, cfg)
+
+    def fn(s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+        if (s1.numel(), s2.numel()) != (m, n):
+            raise ValueError(f"score_fn built for lengths ({m}, {n}), got "
+                             f"({s1.numel()}, {s2.numel()})")
+        text, query = (s2, s1) if p.swapped else (s1, s2)
+        res = band_fill(text, query, p.cfg, p.ends)
+        return res.clamp(min=max(p.floor)) if p.floor else res
+
+    return fn
+
+
+def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
+    """Alignment score of two code sequences on ``device`` (``"cuda"`` runs
+    the kernel, ``"cpu"`` the plain version); the counterpart of
+    ``tpualign.ops.band.score``."""
+    s1, s2 = xla.int8_codes(s1), xla.int8_codes(s2)
+    t1, t2 = torch.from_numpy(s1), torch.from_numpy(s2)
+    xla.check_codes(t1, t2, cfg)
+    dev = _device(device)
+    fn = score_fn(s1.size, s2.size, cfg, device=dev)
+    return int(fn(t1.to(dev), t2.to(dev)))

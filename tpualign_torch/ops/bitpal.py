@@ -20,17 +20,18 @@ The port's geometry, not the TPU's:
 - Word ``w`` computes column ``d - w`` at step ``d``: a plain wavefront, with
   none of the TPU schedule's stagger, delay lines or lane rolls.
 
-Three kernels, each with a plain version that shares its contract, so
-they compare word for word; each wrapper picks between kernel and plain
-version by the device of its tensors:
+Two kernels of one source (``csrc/bitpal_gfill.cu``), each with a plain
+version that shares its contract, so they compare word for word; each
+wrapper picks between kernel and plain version by the device of its
+tensors:
 
-- :func:`fill` (``csrc/bitpal_fill.cu``, K1's port): g = 1, final column.
-- :func:`fill_g` (``csrc/bitpal_gfill.cu``, K2's port): any g, final column.
-- :func:`capture_fill` (the same source, K4's port): any g, final column
-  plus the horizontal deltas of chosen DP rows at every column (the rows of
-  H that the k-way Hirschberg split reads).
+- :func:`fill_g` (K1's port at g = 1, K2's at g >= 2): final column.
+- :func:`capture_fill` (K4's port): any g, final column plus the
+  horizontal deltas of chosen DP rows at every column (the rows of H that
+  the k-way Hirschberg split reads).
 
-:func:`fill_g_plain` is the plain version of all three.
+:func:`fill_g_plain` is the plain version of both, :func:`fill_plain` it at
+g = 1 (K1's contract).
 """
 
 from __future__ import annotations
@@ -303,39 +304,6 @@ def fill_plain(text: torch.Tensor, eq: torch.Tensor, nq: int):
     return fill_g_plain(text, eq, nq, 1)[0]
 
 
-def fill(text: torch.Tensor, eq: torch.Tensor, nq: int):
-    """The fill on the device of its tensors: the CUDA kernel
-    (``csrc/bitpal_fill.cu``) for CUDA tensors, :func:`fill_plain` for CPU
-    tensors.  Same arguments and result as :func:`fill_plain`.
-
-    On CUDA it allocates the outputs, launches on the current stream without
-    synchronising, and counts the launch in ``fill.launches``.  A launch the
-    device refuses raises; nothing falls back to the plain version."""
-    _check_fill_args(text, eq, nq)
-    if text.device.type == "cpu":
-        return fill_plain(text, eq, nq)
-    if text.device.type != "cuda":
-        raise ValueError(f"fill runs on cpu or cuda tensors, got {text.device}")
-    nw, mt = eq.shape[1], text.shape[0]
-    k, threads = kernel_geometry(nw)
-    lib = _build.load()
-    b0 = torch.empty(nw, dtype=torch.int64, device=text.device)
-    b1 = torch.empty_like(b0)
-    with torch.cuda.device(text.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bitpal_fill(
-            text.data_ptr(), eq.data_ptr(), mt, nw, k, threads,
-            b0.data_ptr(), b1.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bitpal_fill launch failed with CUDA error {err}")
-    fill.launches += 1
-    return b0, b1
-
-
-fill.launches = 0
-
-
 def _gfill_launch(text, eq, nq: int, g: int, rows):
     """Launch ``bitpal_gfill`` (``rows`` None) or ``bitpal_capture_fill``
     on the current stream; returns ``(planes, caps)``."""
@@ -368,8 +336,9 @@ def _gfill_launch(text, eq, nq: int, g: int, rows):
 
 
 def fill_g(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int):
-    """The (1, 0, -g) fill's final column (K2's contract) on the device of
-    its tensors: the CUDA kernel ``bitpal_gfill`` (``csrc/bitpal_gfill.cu``)
+    """The (1, 0, -g) fill's final column (K1's contract at g = 1, K2's at
+    g >= 2) on the device of its tensors: the CUDA kernel ``bitpal_gfill``
+    (``csrc/bitpal_gfill.cu``)
     for CUDA tensors, :func:`fill_g_plain` for CPU tensors.  Returns the
     :func:`n_planes` planes of :func:`fill_g_plain`.
 
@@ -482,8 +451,7 @@ def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
 
     Refuses what ``tpualign.ops.bitpal.score_fn`` refuses (ValueError for a
     config outside the family or past the int32 headroom rule, kept so both
-    packages refuse the same inputs).  g = 1 runs :func:`fill` (K1's port),
-    g >= 2 :func:`fill_g` (K2's)."""
+    packages refuse the same inputs).  Every g runs :func:`fill_g`."""
     fam = family(cfg)
     if fam is None:
         raise ValueError(_NOT_FAMILY)
@@ -504,7 +472,7 @@ def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
                              f"({s1.numel()}, {s2.numel()})")
         query, text = (s1, s2) if s1_is_query else (s2, s1)
         eq = _eq_planes(query, nq)
-        planes = fill(text, eq, nq) if g == 1 else fill_g(text, eq, nq, g)
+        planes = fill_g(text, eq, nq, g)
         return _from_unit(cfg, mt + nq, _reduce_score(planes, nq, mt, g))
 
     return fn

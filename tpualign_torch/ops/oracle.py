@@ -1,14 +1,16 @@
 """Plain NumPy score and traceback, the port's oracle: a row scan of the
-DP table under linear gaps, in every mode (global, local, semiglobal,
-infix) and with a substitution matrix, and the full-table traceback with
-the reference's diag > up > left tie order.  The same semantics as
+DP table under linear and affine (Gotoh) gaps, in every mode (global,
+local, semiglobal, infix) and with a substitution matrix, and the
+full-table traceback (linear gaps) with the reference's diag > up > left
+tie order.  The same semantics as
 ``tpualign.ops.oracle`` (``tests/test_torch_api.py`` and
 ``tests/test_torch_traceback.py`` hold the two to each other), independent
 of the bit-parallel engine it checks.
 
 ``s1`` runs across the columns and ``s2`` down the rows.  With linear gap
 ``g`` the in-row left dependency unrolls to
-``H[i][j] = j*g + cummax_{k<=j}(T[k] - k*g)``, a ``np.maximum.accumulate``.
+``H[i][j] = j*g + cummax_{k<=j}(T[k] - k*g)``, a ``np.maximum.accumulate``;
+the affine row resolves its in-row gap the same way (:func:`_affine_row`).
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from ..config import ScoringConfig
 #: is the gap byte ``-``, 1..4 are ``ATGC``, 5..15 the IUPAC ambiguity codes
 BASES = "-ATGCRYSWKMBDHVN"
 
-_AFFINE = ("the oracle's affine (Gotoh) {} is not ported yet: ROADMAP queue 1 "
-           "item 12 (portable engines)")
+#: -inf stand-in for the affine gap matrices, far from int64 limits
+NEG = -(np.int64(1) << np.int64(62))
 
 
 def _sub_row(s1: np.ndarray, base: int, cfg: ScoringConfig) -> np.ndarray:
@@ -38,17 +40,58 @@ def _sub_row(s1: np.ndarray, base: int, cfg: ScoringConfig) -> np.ndarray:
     return np.where(s1 == base, np.int64(cfg.match), np.int64(cfg.mismatch))
 
 
+def _affine_row(H, F, sub, i, jext, open_, ext, local, zero_col=False):
+    """One Gotoh row: returns (H_new, F_new) given the previous row.
+
+    ``F`` (vertical gap) is elementwise; the in-row ``E`` (horizontal gap)
+    dependency unrolls -- with ``open <= 0`` a gap reopened from a
+    gap-ended cell never beats extending, so
+    ``E[j] = open + j*ext + cummax_{k<j}(T[k] - k*ext)`` over the gap-free
+    candidates ``T`` alone.  The port of ``tpualign.ops.oracle._affine_row``.
+    """
+    M = H.size - 1
+    Fn = np.maximum(H + open_, F) + ext
+    T = np.empty(M + 1, dtype=np.int64)
+    T[0] = 0 if (local or zero_col) else open_ + i * ext
+    np.maximum(H[:-1] + sub, Fn[1:], out=T[1:])
+    if local:
+        np.maximum(T, 0, out=T)
+    C = np.maximum.accumulate(T - jext)
+    E = np.concatenate(([NEG], C[:-1])) + open_ + jext
+    return np.maximum(T, E), Fn
+
+
+def _affine_top(M: int, cfg: ScoringConfig, zero_row: bool):
+    """Row 0 of an affine table, ``(H, F, jext)``: H(0, j) = open + j*ext
+    (0 at j = 0, or everywhere under a free start) and F(0, :) = -inf."""
+    open_, ext = np.int64(cfg.gap_open), np.int64(cfg.gap_extend)
+    jext = np.arange(M + 1, dtype=np.int64) * ext
+    H = np.zeros(M + 1, dtype=np.int64)
+    if not zero_row:
+        H[1:] = open_ + jext[1:]
+    return H, np.full(M + 1, NEG, dtype=np.int64), jext
+
+
 def score(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> int:
-    """Alignment score in O(len(s1)) memory.  Affine gaps raise
-    NotImplementedError (not ported yet)."""
-    if cfg.is_affine:
-        raise NotImplementedError(_AFFINE.format("score"))
+    """Alignment score in O(len(s1)) memory, linear or affine gaps."""
     s1 = np.asarray(s1, dtype=np.int64)
     s2 = np.asarray(s2, dtype=np.int64)
     g = np.int64(cfg.gap)
     local = cfg.is_local
     zero_col = local or cfg.free_start_s2  # H(i, 0) = 0
     zero_row = local or cfg.free_start_s1  # H(0, j) = 0
+    if cfg.is_affine:
+        H, F, jext = _affine_top(s1.size, cfg, zero_row)
+        best = np.int64(0)
+        best_col = H[-1]  # running max over the last column (ends-free)
+        for i in range(1, s2.size + 1):
+            sub = _sub_row(s1, int(s2[i - 1]), cfg)
+            H, F = _affine_row(H, F, sub, i, jext, cfg.gap_open,
+                               cfg.gap_extend, local, zero_col=zero_col)
+            if local:
+                best = max(best, H.max())
+            best_col = max(best_col, H[-1])
+        return _extract(H, best, best_col, cfg)
     jg = np.arange(s1.size + 1, dtype=np.int64) * g
     H = np.zeros_like(jg) if zero_row else jg.copy()
     best = np.int64(0)
@@ -63,7 +106,13 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> int:
         if local:
             best = max(best, H.max())
         best_col = max(best_col, H[-1])
-    if local:
+    return _extract(H, best, best_col, cfg)
+
+
+def _extract(H, best, best_col, cfg: ScoringConfig) -> int:
+    """The score from the last row ``H``, the running max ``best`` (local)
+    and the last column's max ``best_col`` (ends-free)."""
+    if cfg.is_local:
         return int(best)
     if cfg.free_end_s1:
         row_best = H.max()
@@ -72,11 +121,9 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> int:
 
 
 def score_table(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> np.ndarray:
-    """Full ``(N+1, M+1)`` int32 DP table, linear gaps (the port of
-    ``tpualign.ops.oracle.score_table``).  O(N*M) memory: small inputs only.
-    Affine gaps raise NotImplementedError (not ported yet)."""
-    if cfg.is_affine:
-        raise NotImplementedError(_AFFINE.format("table"))
+    """Full ``(N+1, M+1)`` int32 DP table (H), linear or affine gaps (the
+    port of ``tpualign.ops.oracle.score_table``).  O(N*M) memory: small
+    inputs only."""
     s1 = np.asarray(s1, dtype=np.int64)
     s2 = np.asarray(s2, dtype=np.int64)
     M, N = s1.size, s2.size
@@ -85,6 +132,13 @@ def score_table(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> np.ndarray:
     zero_col = local or cfg.free_start_s2  # H(i, 0) = 0
     zero_row = local or cfg.free_start_s1  # H(0, j) = 0
     H = np.zeros((N + 1, M + 1), dtype=np.int64)
+    if cfg.is_affine:
+        H[0], F, jext = _affine_top(M, cfg, zero_row)
+        for i in range(1, N + 1):
+            sub = _sub_row(s1, int(s2[i - 1]), cfg)
+            H[i], F = _affine_row(H[i - 1], F, sub, i, jext, cfg.gap_open,
+                                  cfg.gap_extend, local, zero_col=zero_col)
+        return H.astype(np.int32)
     jg = np.arange(M + 1, dtype=np.int64) * g
     if not zero_row:
         H[0, :] = jg
@@ -113,10 +167,13 @@ def traceback(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> Tuple[int, str, s
     (semiglobal/infix) start at the maximum boundary cell, last row first,
     then last column, first occurrence, and stop when a free start is
     reached; like SW, the returned strings cover only the aligned core.
-    Affine gaps raise NotImplementedError (not ported yet).
+    Affine gaps raise NotImplementedError: their walk (three tables) comes
+    with affine alignment.
     """
     if cfg.is_affine:
-        raise NotImplementedError(_AFFINE.format("traceback"))
+        raise NotImplementedError(
+            "the oracle's affine (Gotoh) traceback is not ported yet: ROADMAP "
+            "queue 1 item 10 (affine alignment)")
     s1 = np.asarray(s1, dtype=np.int64)
     s2 = np.asarray(s2, dtype=np.int64)
     H = score_table(s1, s2, cfg).astype(np.int64)

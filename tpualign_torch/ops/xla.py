@@ -1,0 +1,205 @@
+"""Row-scan scorer in plain PyTorch on the device of its tensors: the port of
+``tpualign/ops/xla.py:score``.  It holds no XLA; the module keeps its
+counterpart's name so that a reader finds one from the other.
+
+It is the port's portable engine (``impl="xla"``), any scoring config, and
+the one plain PyTorch version that the band and diagonal kernels are held
+against (:func:`tpualign_torch.ops.band.score_plain`,
+:func:`tpualign_torch.ops.pallas_diag.score_plain`).
+
+``text`` runs across the columns (length m) and ``query`` down the rows
+(length n).  One DP row is a handful of tensor ops over the whole row: the
+in-row left dependency ``H[j] = max(T[j], H[j-1] + g)`` unrolls to
+``H = j*g + cummax(T - j*g)`` (``torch.cummax`` in place of
+``associative_scan``), and under affine gaps the horizontal gap ``E``
+resolves by the same scan over the gap-free candidates (valid because
+``gap_open <= 0``, see ``ops/oracle.py:_affine_row``).  Values are int64,
+exact for any config; the query's codes are read to the host once, so the
+row loop never waits on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import AlignMode, ScoringConfig
+from .bitpal import _device
+
+#: -inf stand-in for the affine gap rows: far below any score, and far from
+#: int64's limits after a few gap charges
+NEG = -(2**40)
+
+
+def _profile(text: torch.Tensor, codes: list, cfg: ScoringConfig):
+    """``(table, row_of)``: ``table[row_of[b]]`` is the substitution row of
+    query code ``b`` against every text column (int64, on the text's
+    device)."""
+    dev = text.device
+    t = text.long()
+    if cfg.has_matrix:
+        mat = torch.tensor(cfg.matrix, dtype=torch.int64, device=dev)
+        return mat.t()[:, t], {c: c for c in range(len(cfg.matrix))}
+    uniq = sorted(set(codes))
+    u = torch.tensor(uniq, dtype=torch.int64, device=dev)
+    table = torch.where(t[None, :] == u[:, None], cfg.match, cfg.mismatch)
+    return table, {c: r for r, c in enumerate(uniq)}
+
+
+def gap_run(cfg: ScoringConfig, length: int) -> int:
+    """Score of one all-gap run of ``length`` (> 0) cells."""
+    if cfg.is_affine:
+        return cfg.gap_open + cfg.gap_extend * length
+    return cfg.gap * length
+
+
+def int8_codes(seq) -> np.ndarray:
+    """A 1-D code sequence as a contiguous int8 array (ValueError if a code
+    does not fit), the form the band and diagonal kernels read."""
+    a = np.asarray(seq)
+    if a.ndim != 1:
+        raise ValueError(f"sequence must be 1-D, got shape {a.shape}")
+    if a.size and (a.min() < -128 or a.max() > 127):
+        raise ValueError("sequence codes must fit int8")
+    return np.ascontiguousarray(a, dtype=np.int8)
+
+
+def check_pair(a: torch.Tensor, b: torch.Tensor, names: Tuple[str, str]) -> None:
+    """ValueError unless ``a`` and ``b`` are non-empty contiguous 1-D int8
+    tensors on one device (the kernels' code arguments)."""
+    for name, t in zip(names, (a, b)):
+        if t.dtype != torch.int8 or t.dim() != 1 or t.numel() == 0:
+            raise ValueError(f"{name} must be a non-empty 1-D int8 tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if a.device != b.device:
+        raise ValueError(f"{names[0]} on {a.device} but {names[1]} on {b.device}")
+
+
+def check_codes(s1, s2, cfg: ScoringConfig) -> None:
+    """Matrix configs score codes ``0..K-1`` only: ValueError otherwise, as
+    ``tpualign.ops.oracle`` refuses them (a gather past the matrix would
+    fault on the device)."""
+    if not cfg.has_matrix:
+        return
+    K = len(cfg.matrix)
+    for s in (s1, s2):
+        if s.numel() and (int(s.min()) < 0 or int(s.max()) >= K):
+            raise ValueError("sequence codes outside the matrix alphabet")
+
+
+def rows_scan(
+    text: torch.Tensor,
+    query: torch.Tensor,
+    cfg: ScoringConfig,
+    *,
+    zero_row: bool,
+    zero_col: bool,
+    want_best: bool = False,
+    want_col: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Fill the table of ``text`` (columns) against ``query`` (rows), both
+    non-empty code tensors on one device, one row at a time.
+
+    ``zero_row``: H(0, j) = 0 (else the gap charges of ``cfg``);
+    ``zero_col``: H(i, 0) = 0.  Local mode (``cfg.is_local``) adds the zero
+    floor.  Returns ``(h_last, best, col)``: the last row H(n, 0..m);
+    with ``want_best`` the max over every row 1..n (else None); with
+    ``want_col`` the last column H(1..n, m) (else None)."""
+    dev = text.device
+    m = text.numel()
+    codes = query.tolist()
+    table, row_of = _profile(text, codes, cfg)
+    local = cfg.is_local
+    j = torch.arange(m + 1, dtype=torch.int64, device=dev)
+    best = torch.full((m + 1,), NEG, dtype=torch.int64, device=dev) if want_best else None
+    col = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_col else None
+    t = torch.empty(m + 1, dtype=torch.int64, device=dev)
+    if cfg.is_affine:
+        open_, ext = cfg.gap_open, cfg.gap_extend
+        jext = j * ext
+        open_jext = jext + open_
+        h = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+        if not zero_row:
+            h[1:] = open_jext[1:]
+        f = torch.full((m + 1,), NEG, dtype=torch.int64, device=dev)
+        e = torch.empty(m + 1, dtype=torch.int64, device=dev)
+        e[0] = NEG
+        for i, b in enumerate(codes, start=1):
+            f = torch.maximum(h + open_, f).add_(ext)
+            torch.maximum(h[:-1] + table[row_of[b]], f[1:], out=t[1:])
+            if local:
+                t.clamp_(min=0)
+            t[0] = 0 if (local or zero_col) else open_ + i * ext
+            c = torch.cummax(t - jext, 0).values
+            torch.add(c[:-1], open_jext[1:], out=e[1:])
+            h = torch.maximum(t, e)
+            if want_best:
+                torch.maximum(best, h, out=best)
+            if want_col:
+                col[i - 1] = h[-1]
+        return h, None if best is None else best.max(), col
+    g = cfg.gap
+    jg = j * g
+    h = torch.zeros(m + 1, dtype=torch.int64, device=dev) if zero_row else jg.clone()
+    for i, b in enumerate(codes, start=1):
+        torch.maximum(h[:-1] + table[row_of[b]], h[1:] + g, out=t[1:])
+        if local:
+            t.clamp_(min=0)
+        t[0] = 0 if (local or zero_col) else i * g
+        h = torch.cummax(t - jg, 0).values.add_(jg)
+        if want_best:
+            torch.maximum(best, h, out=best)
+        if want_col:
+            col[i - 1] = h[-1]
+    return h, None if best is None else best.max(), col
+
+
+def _empty_score(m: int, n: int, cfg: ScoringConfig) -> int:
+    """``tpualign.ops.xla.score``'s rule when either sequence is empty."""
+    if cfg.is_local or cfg.mode is AlignMode.SEMIGLOBAL:
+        return 0
+    # infix: an empty query aligns for free; an empty text forces an
+    # all-gap alignment of the query
+    length = n if cfg.mode is AlignMode.INFIX else m + n
+    return gap_run(cfg, length) if length else 0
+
+
+def score_tensors(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig) -> torch.Tensor:
+    """Score of two non-empty code tensors on one device, as a 0-d int64
+    tensor there: ``s1`` across the columns, ``s2`` down the rows."""
+    zero_row = cfg.is_local or cfg.free_start_s1
+    zero_col = cfg.is_local or cfg.free_start_s2
+    h, best, col = rows_scan(
+        s1, s2, cfg, zero_row=zero_row, zero_col=zero_col,
+        want_best=cfg.is_local, want_col=cfg.free_end_s2,
+    )
+    if cfg.is_local:
+        return best.clamp(min=0)
+    if cfg.free_end_s1:
+        ans = h.max()
+        if cfg.free_end_s2:
+            # last column: rows 1..n from the scan, row 0 is H(0, m)
+            h0m = 0 if zero_row else gap_run(cfg, s1.numel())
+            ans = torch.maximum(ans, col.max()).clamp(min=h0m)
+        return ans
+    return h[-1]
+
+
+def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
+    """Alignment score of two code sequences by the row scan on ``device``
+    (``"cuda"`` or ``"cpu"``); the counterpart of ``tpualign.ops.xla.score``."""
+    a = np.asarray(s1)
+    b = np.asarray(s2)
+    if a.ndim != 1 or b.ndim != 1:
+        raise ValueError("sequences must be 1-D")
+    dev = _device(device)
+    t1 = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+    t2 = torch.from_numpy(np.ascontiguousarray(b, dtype=np.int64))
+    check_codes(t1, t2, cfg)
+    if a.size == 0 or b.size == 0:
+        return _empty_score(a.size, b.size, cfg)
+    return int(score_tensors(t1.to(dev), t2.to(dev), cfg))

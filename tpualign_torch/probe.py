@@ -6,9 +6,10 @@ Prints, each part on lines of its own:
 
 1. the card: name, power limit, and the SM clock and power draw read while
    the kernel runs at the 64gb shape (126,440 x 127,240, random codes);
-2. the kernel's per-step cost against its geometry: ``bitpal_fill`` at
-   ``mt = 20,000`` for queries of 1 to 16,384 words (1 to 1,024 threads,
-   1 to 16 words per thread), CUDA events, median of 3 after a warm-up;
+2. the kernel's per-step cost against its geometry: ``bitpal_gfill`` at
+   g = 1 (K1's port) at ``mt = 20,000`` for queries of 1 to 16,384 words
+   (1 to 1,024 threads, 1 to 16 words per thread), CUDA events, median of
+   3 after a warm-up;
 3. the score path at the 64gb shape on the host clock, split into match
    planes, fill and reduction with read-back, for the first call of the
    process and for a warm one;
@@ -16,7 +17,9 @@ Prints, each part on lines of its own:
 5. one warm ``align`` of the same pair under ``torch.profiler`` (device
    activity only): its wall on the host clock beside the device time of
    each kernel inside it, the device's busy time (the union of its
-   kernels and copies) and its idle share of the wall.
+   kernels and copies) and its idle share of the wall;
+6. the same for one warm ``align_score`` of the pair under the
+   Smith-Waterman scoring (2, -1, -2) (``band_fill``).
 
 Nothing is compared here: ``chip_smoke.py`` checks the kernel.  Exits
 non-zero without a CUDA device.
@@ -32,6 +35,8 @@ import time
 import numpy as np
 import torch
 
+from . import align_score
+from .config import AlignMode, ScoringConfig
 from .ops import bitpal, hirschberg
 
 PAIR_LENGTHS = (126440, 127240)  # bdna/64gb-{1,2}.bdna
@@ -60,7 +65,7 @@ def _kernel_ms(t, eq, nq: int, runs: int = 3) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        bitpal.fill(t, eq, nq)
+        bitpal.fill_g(t, eq, nq, 1)
         e1.record()
         e1.synchronize()
         if i:
@@ -75,7 +80,7 @@ def _host_split(q, t, nq: int, mt: int) -> str:
     eq = bitpal._eq_planes(q, nq)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    planes = bitpal.fill(t, eq, nq)
+    planes = bitpal.fill_g(t, eq, nq, 1)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
     score = int(bitpal._reduce_score(planes, nq, mt))
@@ -99,7 +104,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("probe: torch.cuda.is_available() is false; this needs a CUDA device")
     print(_smi("name,power.limit"))
-    bitpal.fill(*_planes(64, 1, 0), 64)  # build and load the kernel
+    bitpal.fill_g(*_planes(64, 1, 0), 64, 1)  # build and load the kernel
 
     # 3 first: the first reduction of the process pays the lazy CUDA set-up
     m, n = PAIR_LENGTHS
@@ -114,7 +119,7 @@ def main() -> None:
     # 1: clock and draw while 25 fills (about 3 s) are queued on the card
     eq = bitpal._eq_planes(q, nq)
     for _ in range(25):
-        bitpal.fill(t, eq, nq)
+        bitpal.fill_g(t, eq, nq, 1)
     time.sleep(1.0)
     print(f"[under load] sm clock, power draw: {_smi('clocks.sm,power.draw')}")
     torch.cuda.synchronize()
@@ -145,9 +150,20 @@ def main() -> None:
     stats = {}
     hirschberg.align(s1, s2, device="cuda", stats=stats)
     print(f"[align, warm, host clock] {stats}")
+    _traced("align", lambda: hirschberg.align(s1, s2, device="cuda"))
+
+    # 6: one warm Smith-Waterman score of the pair, traced
+    sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+    align_score(s1, s2, sw)
+    _traced("align_score SW", lambda: align_score(s1, s2, sw))
+
+
+def _traced(tag: str, call) -> None:
+    """Run ``call`` once with the device's activity traced; print device
+    time by kernel, the busy union and the idle share of the wall."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        hirschberg.align(s1, s2, device="cuda")
+        call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -156,9 +172,9 @@ def main() -> None:
         count, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (count + 1, us + e.time_range.elapsed_us())
     for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
-        print(f"[align, profiled] {count:4d} x {name[:72]}: {us / 1e3:.3f} ms")
+        print(f"[{tag}, profiled] {count:4d} x {name[:72]}: {us / 1e3:.3f} ms")
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in on_device])
-    print(f"[align, profiled] wall {wall_us / 1e6:.3f} s, {len(on_device)} device "
+    print(f"[{tag}, profiled] wall {wall_us / 1e6:.3f} s, {len(on_device)} device "
           f"events, device busy {busy / 1e6:.3f} s, idle share {1 - busy / wall_us:.4f}")
 
 
