@@ -2,12 +2,13 @@
 
 Builds the port's CUDA kernels from ``tpualign_torch/csrc`` with ``nvcc``
 (``bitpal_gfill``: K1's port at g = 1 and K2's at g >= 2;
-``bitpal_capture_fill``, K4's; ``band_fill``, K6's; ``diag_fill``, K8's),
-holds each against its plain PyTorch version on the card at a range of
-shapes (and the scores and alignments against the port's NumPy oracle),
-then drives the port's paths through its public entry points, each with
-the launch counts set to 0 just before it and read just after, and holds
-each path's kernel against its plain version at that path's shape:
+``bitpal_capture_fill``, K4's; ``band_fill``, K6's; ``band_capture_fill``,
+K7's; ``diag_fill``, K8's), holds each against its plain PyTorch version on
+the card at a range of shapes (and the scores and alignments against the
+port's NumPy oracle), then drives the port's paths through its public
+entry points, each with the launch counts set to 0 just before it and read
+just after, and holds each path's kernel against its plain version at that
+path's shape:
 
 - ``tpualign_torch.align_score`` at the default scoring on the 64gb-shape
   pair (126,440 x 127,240 bases, 16.09e9 DP cells; ``bitpal_gfill``, g = 1);
@@ -17,11 +18,16 @@ each path's kernel against its plain version at that path's shape:
 - ``tpualign_torch.align_score`` under ``ScoringConfig(gap=-2)`` on that
   pair (``bitpal_gfill``, g = 2);
 - ``tpualign_torch.align_score`` under the CLI's Smith-Waterman scoring
-  (2, -1, -2) on that pair (``band_fill``, this slice's main path);
+  (2, -1, -2) on that pair (``band_fill``);
+- ``tpualign_torch.align`` under that scoring on that pair (this slice's
+  main path): the locate, the anchored start locate and the core's split,
+  all over ``band_capture_fill``, then leaf walks on the host;
 - at 20,000 x 20,000, ``align_score`` under a DNA matrix (global),
   semiglobal, infix, affine (-5, -2) global and local, a positive-mismatch
   affine local (``band_fill``), and ``impl="pallas"`` global
-  (``diag_fill``).
+  (``diag_fill``); ``align`` under the DNA matrix, semiglobal, infix, SW,
+  positive-mismatch SW, ``impl="pallas"`` and a family config that the
+  bit-parallel split refuses (``band_capture_fill``).
 
     python3 chip_smoke.py [--corpus DIR]
 
@@ -38,6 +44,7 @@ the JAX package ``tpualign``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -61,7 +68,13 @@ BAND_SOURCE = "tpualign_torch/csrc/band_fill.cu"
 BAND_REPLACES = "tpualign/ops/band.py:171"  # _band_kernel_body (K6)
 DIAG_SOURCE = "tpualign_torch/csrc/diag_fill.cu"
 DIAG_REPLACES = "tpualign/ops/pallas_diag.py:201"  # _diag_kernel_body (K8)
-N_INSTANTIATIONS = 30 + 40 + 1  # bitpal_gfill, band_fill, diag_fill
+CAPTURE_REPLACES = "tpualign/ops/band_align.py:103"  # _strip_kernel_body (K7)
+N_INSTANTIATIONS = 30 + 40 + 40 + 1  # bitpal_gfill, band_fill, band_capture_fill, diag_fill
+#: the least time of a kernel's work: bytes over the HBM rate, operations
+#: over the table's rate for 32-bit operations outside the tensor cores
+#: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
+HBM_BYTES_S = 3.35e12
+OPS_S = 67e12
 
 
 def read_bdna(path):
@@ -121,6 +134,34 @@ def alignment_ok(s1, s2, a1, a2, bases):
             and not ((b1 == gap) & (b2 == gap)).any())
 
 
+def core_ok(s1, s2, a1, a2, bases):
+    """A local or ends-free alignment: the aligned strings are two columns
+    of equal length, no column holds two gaps, and, gaps stripped, each is
+    a substring of its sequence (codes 1..4)."""
+    gap = ord("-")
+    b1 = np.frombuffer(a1.encode(), np.uint8)
+    b2 = np.frombuffer(a2.encode(), np.uint8)
+    t1 = "".join(bases[c] for c in s1)
+    t2 = "".join(bases[c] for c in s2)
+    return (len(a1) == len(a2) and not ((b1 == gap) & (b2 == gap)).any()
+            and a1.replace("-", "") in t1 and a2.replace("-", "") in t2)
+
+
+def bound(nbytes, ops):
+    """``(bound_ms, bound_by)``: the larger of the bytes' time at the HBM
+    rate and the operations' time at the card's rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes > by_ops else (by_ops, "operations")
+
+
+def band_ops(cfg, cells, cell=False):
+    """Integer operations of the strip recurrence over ``cells`` cells:
+    linear H = max(diag + s, max(up, left) + g) is 4, affine (E, F and
+    H) 9, the local floor 1 more, a located cell's compare 1 more."""
+    per = (9 if cfg.is_affine else 4) + (1 if cfg.is_local else 0) + (1 if cell else 0)
+    return per * cells
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--corpus", default=None,
@@ -137,14 +178,16 @@ def main() -> None:
     from tpualign_torch.config import AlignMode, EngineConfig, ScoringConfig
     from tpualign_torch.ops import band, bitpal, hirschberg, oracle, pallas_diag
 
-    counted = (bitpal.fill_g, bitpal.capture_fill, band.band_fill, pallas_diag.diag_fill)
+    counted = {"fill_g": bitpal.fill_g, "capture_fill": bitpal.capture_fill,
+               "band_fill": band.band_fill, "diag_fill": pallas_diag.diag_fill,
+               "band_capture_fill": band.capture_fill}
 
     def reset_counts():
-        for fn in counted:
+        for fn in counted.values():
             fn.launches = 0
 
     def read_counts():
-        return {fn.__name__: fn.launches for fn in counted}
+        return {name: fn.launches for name, fn in counted.items()}
 
     def only(counts, name):
         """The run launched ``name`` exactly once and no other kernel."""
@@ -387,13 +430,15 @@ def main() -> None:
     print(f"[align binary split] 6000 x 6000 alignment valid, score {sc} equal to the "
           f"oracle's; launches {counts}")
 
-    # align on the 64gb-shape pair
+    # align on the 64gb-shape pair, its split recorded (host clock)
     reset_counts()
+    stats = {}
     t0 = time.perf_counter()
-    sc, a1, a2 = tpualign_torch.align(s1, s2)
+    sc, a1, a2 = tpualign_torch.align(s1, s2, stats=stats)
     align_wall = time.perf_counter() - t0
     align_counts = read_counts()
-    if align_counts["capture_fill"] < 2 or align_counts["band_fill"] + align_counts["diag_fill"]:
+    band_kernels = ("band_fill", "diag_fill", "band_capture_fill")
+    if align_counts["capture_fill"] < 2 or sum(align_counts[k] for k in band_kernels):
         raise AssertionError(f"align did not launch bitpal_capture_fill twice: {align_counts}")
     if not alignment_ok(s1, s2, a1, a2, oracle.BASES):
         raise AssertionError("64gb-shape alignment is not valid")
@@ -404,11 +449,8 @@ def main() -> None:
     print(f"[path: align] {m} x {n} ({source}): alignment valid, "
           f"{len(a1)} columns, score {sc} equal to align_score's; launches "
           f"{align_counts}; wall {align_wall:.3f} s")
-    # the same call once more with the split recorded (host clock), the
-    # root's forward capture fill on its own (CUDA events), and that fill
-    # held against fill_g_plain at the path's shape
-    stats = {}
-    hirschberg.align(s1, s2, device="cuda", stats=stats)
+    # the root's forward capture fill on its own (CUDA events), held
+    # against fill_g_plain at the path's shape
     cap_ms, cap_runs, cap = cuda_ms(lambda: bitpal.capture_fill(t, eq, n, 1, root_rows))
     cap_err = hold_g("bitpal_capture_fill", cap, root_plain, n, 1,
                      f"{n} x {m}, {len(root_rows)} rows")
@@ -553,7 +595,73 @@ def main() -> None:
           f"orientations, 1 to 3000 rows across thread and cell-per-thread edges); "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # phase (c): this slice's main path, Smith-Waterman on the 64gb-shape pair
+    # phase (a2): band_capture_fill against capture_plain, word for word:
+    # every instantiation <rows per thread, matrix, local> over three strips
+    # (R = 32 k rows, the last strip partial) with rows captured at the strip
+    # edges, zero boundaries, both extraction sets (the located cell and the
+    # last row and column), matrices of 5 and 16 codes, 1-row and 1-column
+    # tables
+    ck = dict(max_abs_err=0)
+
+    def hold_capture(got, want, where):
+        """A capture kernel's result against ``capture_plain``'s on the same
+        inputs, every part word for word; records the largest difference."""
+        torch.cuda.synchronize()
+        err = 0
+        for name, g, w in zip(band.Capture._fields, got, want):
+            if (g is None) != (w is None):
+                raise AssertionError(f"band_capture_fill {name} missing at {where}")
+            if g is None:
+                continue
+            if g.shape != w.shape:
+                raise AssertionError(f"band_capture_fill {name} shape {tuple(g.shape)} != "
+                                     f"{tuple(w.shape)} at {where}")
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
+        if err:
+            raise AssertionError(f"band_capture_fill differs from capture_plain at {where} "
+                                 f"(max abs err {err})")
+        ck["max_abs_err"] = max(ck["max_abs_err"], err)
+
+    def capture_case(text, query, cfg, rows, geometry=None, cell=True, **flags):
+        t, q = torch.from_numpy(text).to(dev), torch.from_numpy(query).to(dev)
+        got = band.capture_fill(t, q, cfg, rows, geometry=geometry, col=True, cell=cell, **flags)
+        want = band.capture_plain(t, q, cfg, rows, col=True, cell=cell, **flags)
+        hold_capture(got, want, f"{cfg}, {text.size} x {query.size}, rows {rows}, "
+                                f"geometry {geometry}, {flags}")
+
+    t0 = time.perf_counter()
+    n_cap = 0
+    for k, mat, mode, cell in itertools.product(
+            (1, 2, 4, 8, 16), (None, matrices.dna(2, -1, -3), matrices.iupac()),
+            (AlignMode.GLOBAL, AlignMode.LOCAL), (True, False)):
+        cfg = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=mode, matrix=mat)
+        hi = 16 if mat is not None and len(mat) == 16 else 5
+        R, nq = 32 * k, 64 * k + 7
+        rows = sorted({1, R - 1, R, R + 1, 2 * R, nq - 1, nq} - {0})
+        flags = {} if mode is AlignMode.LOCAL else dict(zero_row=n_cap % 3 == 0,
+                                                        zero_col=n_cap % 2 == 0)
+        capture_case(rng.integers(0, hi, 96 * k + 50).astype(np.int8),
+                     rng.integers(0, hi, nq).astype(np.int8), cfg, rows, (k, 32),
+                     cell, **flags)
+        n_cap += 1
+    for cfg, lm, ln, rows, geometry in [
+            (sw, 5000, 1, [1], None), (sw, 1, 3000, [1, 1500, 3000], None),
+            (ScoringConfig(gap=-2), 1, 1, [1], None), (masked, 700, 600, [300, 600], None),
+            (ScoringConfig(match=2, mismatch=-1, gap=-2), 3000, 2500, [1023, 1024, 1025, 2500],
+             (4, 256)),
+            (ScoringConfig(matrix=asym, gap=-2, mode=AlignMode.LOCAL), 900, 5000,
+             [511, 512, 513, 4999], (16, 32))]:
+        capture_case(rng.integers(1, 5, lm).astype(np.int8), rng.integers(1, 5, ln).astype(np.int8),
+                     cfg, rows, geometry)
+        n_cap += 1
+    print(f"[band_capture_fill vs plain] {n_cap} cases equal to capture_plain word for word "
+          f"(all 40 instantiations over three strips with rows at the strip edges, zero "
+          f"boundaries, DNA and IUPAC matrices, masked local, 1-row and 1-column tables; "
+          f"captured rows, last row, last column, located cell); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # phase (c): Smith-Waterman on the 64gb-shape pair, align_score (band_fill)
     cfg_sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
     reset_counts()
     t0 = time.perf_counter()
@@ -562,27 +670,102 @@ def main() -> None:
     sw_counts = read_counts()
     if not only(sw_counts, "band_fill"):
         raise AssertionError(f"SW align_score did not run one band_fill launch: {sw_counts}")
+    # one plain fill in align's orientation (s1 across the columns, s2 down
+    # the rows) holds both kernels: the value of its located cell is the SW
+    # score (band_fill's, in either orientation), the cell the forward
+    # locate's (band_capture_fill)
+    t1d, q2d = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
+    sw_plain_ms, sw_plain = host_ms(lambda: band.capture_plain(t1d, q2d, cfg_sw, cell=True))
+    plain_cell = sw_plain.cell.tolist()
+    if args.corpus is not None and score_sw != SW_PIN:
+        raise AssertionError(f"64gb corpus SW score {score_sw} != the pin {SW_PIN}")
+    if score_sw != plain_cell[0]:
+        raise AssertionError(f"SW align_score {score_sw} != capture_plain's {plain_cell}")
     p = band.plan(m, n, cfg_sw)
     text, query = (s2, s1) if p.swapped else (s1, s2)
     tb, qb = torch.from_numpy(text).to(dev), torch.from_numpy(query).to(dev)
-    sw_plain_ms, sw_plain = host_ms(lambda: int(band.score_plain(tb, qb, p.cfg, p.ends)))
-    if args.corpus is not None and score_sw != SW_PIN:
-        raise AssertionError(f"64gb corpus SW score {score_sw} != the pin {SW_PIN}")
-    if score_sw != sw_plain:
-        raise AssertionError(f"SW align_score {score_sw} != score_plain's {sw_plain}")
-    sw_ms, sw_runs, sw_out = cuda_ms(lambda: band.band_fill(tb, qb, p.cfg, p.ends))
-    bk["max_abs_err"] = max(bk["max_abs_err"], abs(int(sw_out) - sw_plain))
+    sw_ms, sw_runs, sw_out = cuda_ms(lambda: band.band_fill(tb, qb, p.cfg, p.ends), runs=3)
+    as_align = int(band.band_fill(t1d, q2d, cfg_sw, band._ends_flags(cfg_sw, False)))
+    bk["max_abs_err"] = max(bk["max_abs_err"], abs(int(sw_out) - plain_cell[0]),
+                            abs(as_align - plain_cell[0]))
     if bk["max_abs_err"]:
-        raise AssertionError(f"timed band_fill run differs from score_plain by {bk}")
+        raise AssertionError(f"band_fill differs from the plain SW score: {bk}")
     k_sw, threads_sw = band.kernel_geometry(query.size, band.max_k(cfg_sw))
-    print(f"[main path: align_score SW] {m} x {n} ({source}), (2, -1, -2) local: score "
-          f"{score_sw} equal to score_plain's on the card; launches {sw_counts}; wall "
-          f"{sw_wall:.3f} s; geometry k = {k_sw}, {threads_sw} threads, "
-          f"{-(-query.size // (k_sw * threads_sw))} strips")
-    print(f"[timing] {smi}: band_fill SW at {query.size} x {text.size}: median of 5 "
+    print(f"[path: align_score SW] {m} x {n} ({source}), (2, -1, -2) local: score "
+          f"{score_sw} equal to capture_plain's on the card (band_fill in both "
+          f"orientations); launches {sw_counts}; wall {sw_wall:.3f} s; geometry k = {k_sw}, "
+          f"{threads_sw} threads, {-(-query.size // (k_sw * threads_sw))} strips")
+    print(f"[timing] {smi}: band_fill SW at {query.size} x {text.size}: median of 3 "
           f"{sw_ms:.3f} ms ({m * n / sw_ms / 1e6:.2f} GCUPS; runs {runs_str(sw_runs)} ms); "
-          f"score_plain {sw_plain_ms:.1f} ms ({m * n / sw_plain_ms / 1e6:.3f} GCUPS)")
+          f"capture_plain with the located cell {sw_plain_ms:.1f} ms "
+          f"({m * n / sw_plain_ms / 1e6:.3f} GCUPS)")
     bk.update(ms=sw_ms, plain_ms=sw_plain_ms, shape=f"{query.size}x{text.size}")
+    loc_ms, loc_runs, loc = cuda_ms(lambda: band.capture_fill(t1d, q2d, cfg_sw, cell=True),
+                                    runs=3)
+    hold_capture(loc, sw_plain, f"the SW locate at {n} x {m}")
+    del sw_plain, loc
+
+    # phase (e): this slice's main path, align under Smith-Waterman on the
+    # 64gb-shape pair: the locate, the anchored start locate, the core's
+    # split over band_capture_fill, the leaf walks
+    reset_counts()
+    sw_stats = {}
+    t0 = time.perf_counter()
+    sc, a1, a2 = tpualign_torch.align(s1, s2, cfg_sw, stats=sw_stats)
+    sw_align_wall = time.perf_counter() - t0
+    sw_align_counts = read_counts()
+    n_cap_launch = sw_align_counts["band_capture_fill"]
+    if n_cap_launch < 3 or sum(sw_align_counts.values()) != n_cap_launch:
+        raise AssertionError(f"SW align did not run band_capture_fill alone: {sw_align_counts}")
+    if not core_ok(s1, s2, a1, a2, oracle.BASES):
+        raise AssertionError("64gb-shape SW alignment is not valid")
+    rescored = oracle.alignment_score(a1, a2, cfg_sw)
+    if not sc == rescored == score_sw:
+        raise AssertionError(f"64gb-shape SW alignment score {sc} (re-scored {rescored}) "
+                             f"!= align_score's {score_sw}")
+    print(f"[main path: align SW] {m} x {n} ({source}), (2, -1, -2) local: alignment valid, "
+          f"{len(a1)} columns, score {sc} equal to align_score's; launches "
+          f"{sw_align_counts}; wall {sw_align_wall:.3f} s")
+    del a1, a2
+    if sw_stats["route"] != "core" or tuple(sw_stats["end"]) != tuple(plain_cell[1:]):
+        raise AssertionError(f"SW align took {sw_stats}, the plain locate {plain_cell}")
+    (i_end, j_end), (i0, j0) = sw_stats["end"], sw_stats["start"]
+    gsw = cfg_sw.with_mode(AlignMode.GLOBAL)
+    rt = torch.from_numpy(s1[:j_end][::-1].copy()).to(dev)
+    rq = torch.from_numpy(s2[:i_end][::-1].copy()).to(dev)
+    anc_ms, anc_runs, _ = cuda_ms(lambda: band.capture_fill(rt, rq, gsw, cell=True), runs=3)
+    del rt, rq
+    # the core's root capture fill, held against capture_plain at its shape
+    # (the global instantiation the anchored locate and the core share)
+    ct = torch.from_numpy(s1[j0:j_end].copy()).to(dev)
+    cq = torch.from_numpy(s2[i0:i_end].copy()).to(dev)
+    core_rows = hirschberg._kway_rows(i_end - i0)
+    core_plain_ms, core_plain = host_ms(
+        lambda: band.capture_plain(ct, cq, gsw, core_rows, cell=True))
+    core_ms, core_runs, core_k = cuda_ms(
+        lambda: band.capture_fill(ct, cq, gsw, core_rows, cell=True), runs=3)
+    hold_capture(core_k, core_plain, f"the SW core's root, {cq.numel()} x {ct.numel()}, "
+                                     f"{len(core_rows)} rows")
+    del core_k
+    # the root's fill as the path runs it (captures, no located cell: the
+    # instantiation of the root's forward and reverse fills), held against
+    # the same plain fill without its cell
+    bare_ms, bare_runs, bare = cuda_ms(lambda: band.capture_fill(ct, cq, gsw, core_rows), runs=3)
+    hold_capture(bare, core_plain._replace(cell=None),
+                 f"the SW core's root as the path fills it, {cq.numel()} x {ct.numel()}, "
+                 f"{len(core_rows)} rows")
+    del core_plain, bare, ct, cq
+    print(f"[path split: align SW] {json.dumps(sw_stats)}")
+    print(f"[timing] {smi}: band_capture_fill at the 64gb shape, median of 3: SW locate "
+          f"{loc_ms:.3f} ms (runs {runs_str(loc_runs)}); anchored start locate "
+          f"{i_end} x {j_end} {anc_ms:.3f} ms (runs {runs_str(anc_runs)}); the core's root "
+          f"fill, {len(core_rows)} rows, {bare_ms:.3f} ms (runs {runs_str(bare_runs)}), "
+          f"with the located cell {core_ms:.3f} ms (runs {runs_str(core_runs)}), both equal "
+          f"to capture_plain word for word (plain {core_plain_ms:.1f} ms); the SW locate equal "
+          f"to capture_plain's (plain {sw_plain_ms:.1f} ms)")
+    ck.update(ms=loc_ms, plain_ms=sw_plain_ms, shape=f"{n}x{m}", anchored_ms=anc_ms,
+              core_root_ms=bare_ms, core_root_cell_ms=core_ms,
+              core_root_plain_ms=core_plain_ms)
 
     # phase (d): further paths at 20,000 x 20,000, each through align_score
     # and against the plain version
@@ -637,25 +820,99 @@ def main() -> None:
               f"{runs_str(kruns)}); plain {pms:.1f} ms")
     bk["ms_20k"] = further_ms
 
+    # phase (f): align at 20,000 x 20,000 past the family, each through
+    # band_capture_fill alone, valid, and scoring the port's oracle's optimum
+    aligns = [
+        ("dna NW", ScoringConfig(matrix=matrices.dna(2, -1, -3), gap=-3), "auto"),
+        ("semiglobal", ScoringConfig(match=2, mismatch=-1, gap=-2,
+                                     mode=AlignMode.SEMIGLOBAL), "auto"),
+        ("infix", ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.INFIX), "auto"),
+        ("SW", cfg_sw, "auto"),
+        ("positive-mismatch SW", masked, "auto"),
+        ("pallas NW", ScoringConfig(match=2, mismatch=-1, gap=-2), "pallas"),
+        ("family past the bit-parallel block", ScoringConfig(), "auto"),
+    ]
+    for name, cfg, impl in aligns:
+        max_rows = hirschberg.MAX_QUERY_ROWS
+        if name.startswith("family"):  # hirschberg refuses it: the band split takes it
+            hirschberg.MAX_QUERY_ROWS = b20.size - 1
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            sc, a1, a2 = tpualign_torch.align(a20, b20, cfg, EngineConfig(impl=impl))
+        finally:
+            hirschberg.MAX_QUERY_ROWS = max_rows
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if counts["band_capture_fill"] < 2 or sum(counts.values()) != counts["band_capture_fill"]:
+            raise AssertionError(f"{name}: align did not run band_capture_fill alone: {counts}")
+        whole = not (cfg.is_local or cfg.is_ends_free)
+        valid = (alignment_ok(a20, b20, a1, a2, oracle.BASES) if whole
+                 else core_ok(a20, b20, a1, a2, oracle.BASES))
+        want = oracle.score(a20, b20, cfg)
+        if not valid or not sc == oracle.alignment_score(a1, a2, cfg) == want:
+            raise AssertionError(f"{name}: 20k alignment valid {valid}, score {sc}, oracle {want}")
+        print(f"[path: align {name}] {a20.size} x {b20.size}: alignment valid, score {sc} equal "
+              f"to the oracle's; launches {counts}; wall {wall:.3f} s")
+    # the global capture instantiation with the located cell at 20k (the
+    # anchored locate's and a core root's mode)
+    g20 = ScoringConfig(match=2, mismatch=-1, gap=-2)
+    ta20, tb20 = torch.from_numpy(a20).to(dev), torch.from_numpy(b20).to(dev)
+    rows20 = hirschberg._kway_rows(b20.size)
+    k20_ms, k20_runs, k20 = cuda_ms(lambda: band.capture_fill(ta20, tb20, g20, rows20, col=True,
+                                                              cell=True))
+    p20_ms, p20 = host_ms(lambda: band.capture_plain(ta20, tb20, g20, rows20, col=True, cell=True))
+    hold_capture(k20, p20, f"20000 x 20000 global, {len(rows20)} rows")
+    ck["ms_20k"] = (k20_ms, p20_ms)
+    print(f"[timing] {smi}: band_capture_fill global at 20000 x 20000 with {len(rows20)} rows, "
+          f"the last column and the located cell: median of 5 {k20_ms:.3f} ms (runs "
+          f"{runs_str(k20_runs)}); equal to capture_plain word for word (plain {p20_ms:.1f} ms)")
+
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:
             raise AssertionError(f"the port imported {pkg}")
+    # bounds from this run's shapes: the bit-parallel kernels do about 25
+    # 64-bit operations (50 at 3 or 4 planes), each two 32-bit ones, per
+    # word of 64 query rows and column; they read the text and the match
+    # planes and write the final planes (and the captures)
+    nw = -(-n // bitpal.WORD)
+    plane_bytes = m + (bitpal.ALPHABET + 2) * nw * 8
+    cells = m * n
+    d_cells = a20.size * b20.size
+    bounds = {
+        "bitpal_gfill_g1": bound(plane_bytes, m * nw * 25 * 2),
+        "bitpal_gfill": bound(plane_bytes, m * nw * 50 * 2),
+        "bitpal_capture_fill": bound(plane_bytes + len(root_rows) * m, m * nw * 25 * 2),
+        "band_fill": bound(m + n + 4, band_ops(cfg_sw, cells)),
+        "band_capture_fill": bound(m + n + 4 * (m + 1) + 12, band_ops(cfg_sw, cells, cell=True)),
+        "diag_fill": bound(2 * a20.size + 4, band_ops(g20, d_cells)),
+    }
+
+    def extra(name):
+        b_ms, by = bounds[name]
+        return dict(bound_ms=b_ms, bound_by=by, library_ms=None)
+
     print(json.dumps({"kernels": [{
         "name": "bitpal_gfill_g1", "route": "cuda", "source": GKERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms, "shape": k1_shape,
+        "ms": ms, "plain_ms": plain_ms, "shape": k1_shape, **extra("bitpal_gfill_g1"),
     }] + [{
         "name": name, "route": "cuda", "source": GKERNEL_SOURCE,
         "replaces": GREPLACES[name],
         "launches": {"bitpal_gfill": g_counts["fill_g"],
                      "bitpal_capture_fill": align_counts["capture_fill"]}[name],
-        **gk[name],
+        **gk[name], **extra(name),
     } for name in GREPLACES] + [{
         "name": "band_fill", "route": "cuda", "source": BAND_SOURCE,
         "replaces": BAND_REPLACES, "launches": sw_counts["band_fill"], **bk,
+        **extra("band_fill"),
+    }, {
+        "name": "band_capture_fill", "route": "cuda", "source": BAND_SOURCE,
+        "replaces": CAPTURE_REPLACES, "launches": n_cap_launch, **ck,
+        **extra("band_capture_fill"),
     }, {
         "name": "diag_fill", "route": "cuda", "source": DIAG_SOURCE,
-        "replaces": DIAG_REPLACES, **dk,
+        "replaces": DIAG_REPLACES, **dk, **extra("diag_fill"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -89,23 +89,34 @@ def test_headroom_refusal_matches_jax():
 @pytest.mark.parametrize(
     "cfg,item",
     [
-        (ScoringConfig(match=1, mismatch=0, gap=-8), "item 9"),
-        (ScoringConfig(mode=AlignMode.LOCAL), "item 9"),
+        (ScoringConfig(match=1, mismatch=0, gap=-8), None),
+        (ScoringConfig(mode=AlignMode.LOCAL), None),
         (ScoringConfig(gap_open=-5, gap_extend=-2), "item 10"),
-        (ScoringConfig(mode=AlignMode.SEMIGLOBAL), "item 9"),
-        (ScoringConfig(matrix=((1, 0), (0, 1))), "item 9"),
-        (ScoringConfig(match=1, mismatch=0, gap=0), "item 9"),
+        (ScoringConfig(mode=AlignMode.SEMIGLOBAL), None),
+        (ScoringConfig(matrix=((1, 0), (0, 1))), None),
+        (ScoringConfig(match=1, mismatch=0, gap=0), None),
     ],
     ids=["g8", "local", "affine", "semiglobal", "matrix", "gap0"],
 )
 @pytest.mark.parametrize("impl", ["auto", "bitpal"])
 def test_unported_configs_raise(cfg, item, impl, monkeypatch):
-    """Alignment past the full table outside the family is not ported: it
-    raises naming its ROADMAP item (the scores of these configs are)."""
+    """Alignment past the full table outside the family runs the band split
+    over K7's port and scores the oracle's optimum; affine alignment is not
+    ported and raises naming its ROADMAP item."""
     monkeypatch.setattr(api, "FULL_TABLE_CELL_LIMIT", 100)
     s1, s2 = _pair(20, 30, seed=1)
-    with pytest.raises(NotImplementedError, match=item):
-        align(s1, s2, cfg, EngineConfig(impl=impl, device="cpu"))
+    if cfg.has_matrix:  # the 2-code matrix scores codes 0 and 1
+        s1, s2 = s1 % 2, s2 % 2
+    engine = EngineConfig(impl=impl, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            align(s1, s2, cfg, engine)
+        return
+    sc, a1, a2 = align(s1, s2, cfg, engine)
+    assert len(a1) == len(a2)
+    assert sc == toracle.score(s1, s2, cfg)
+    if not cfg.has_matrix:  # code 0 prints as the gap
+        assert sc == toracle.alignment_score(a1, a2, cfg)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -324,10 +335,30 @@ def test_linear_pair_headroom_refusal_is_shared_with_pallas():
         align_score(s1, s2, cfg, CPU)
 
 
+@pytest.mark.parametrize(
+    "kw", [dict(match=2, mismatch=-1, gap=-2, mode="LOCAL"),
+           dict(match=2, mismatch=-1, gap_open=-5, gap_extend=-2, mode="SEMIGLOBAL"),
+           dict(gap=-2, mode="GLOBAL")],
+    ids=["sw", "affine-sg", "g2"])
+def test_band_chunked_is_the_band_engine(kw):
+    """``band-chunked`` lifts the TPU kernel's SMEM cap on the boundary row;
+    the port's band kernel has none, so it resolves to ``band``, and both
+    give ``tpualign``'s score."""
+    kw = dict(kw)
+    mode = kw.pop("mode")
+    cfg = ScoringConfig(mode=AlignMode[mode], **kw)
+    s1, s2 = _pair(160, 110, seed=12)
+    assert resolve_impl(EngineConfig(impl="band-chunked"), cfg) == "band"
+    got = align_score(s1, s2, cfg, EngineConfig(impl="band-chunked", device="cpu"))
+    assert got == align_score(s1, s2, cfg, EngineConfig(impl="band", device="cpu"))
+    assert got == tpualign.align_score(s1, s2, jconfig.ScoringConfig(
+        mode=jconfig.AlignMode[mode], **kw))
+
+
 def test_unported_impls_raise():
     s1, s2 = _pair(20, 30, seed=1)
     for impl, item in [("bitpal-strips", "item 13"), ("band-strips", "item 13"),
-                       ("strips", "item 13"), ("band-chunked", "item 9")]:
+                       ("strips", "item 13")]:
         with pytest.raises(NotImplementedError, match=item):
             align_score(s1, s2, engine=EngineConfig(impl=impl, device="cpu"))
 

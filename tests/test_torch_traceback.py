@@ -2,8 +2,9 @@
 traceback, ends-free start, re-scoring) against ``tpualign.ops.oracle``,
 string for string in every mode and with a matrix, and the port's
 ``align`` against ``tpualign.align``: the small path string for string, the
-large path (bit-parallel Hirschberg, forced on small pairs by lowering the
-full-table limit) valid and optimal, and its refusals.  Inputs come from
+large paths (bit-parallel Hirschberg, and the band split for every other
+linear-gap config, forced on small pairs by lowering the full-table limit)
+valid and optimal, and its refusals.  Inputs come from
 numpy with a seed; comparisons are exact."""
 
 import numpy as np
@@ -15,6 +16,7 @@ from tpualign.io.bdna import BASES
 from tpualign.ops import oracle
 from tpualign_torch import api
 from tpualign_torch import AlignMode, EngineConfig, ScoringConfig, align
+from tpualign_torch.ops import band_align, hirschberg
 from tpualign_torch.ops import oracle as toracle
 
 CPU = EngineConfig(device="cpu")
@@ -100,25 +102,45 @@ def test_api_align_large_path_is_hirschberg(monkeypatch, cfg):
 
 @pytest.mark.parametrize(
     "cfg,item",
-    [(ScoringConfig(mode=AlignMode.LOCAL), "item 9"),
-     (ScoringConfig(mode=AlignMode.SEMIGLOBAL), "item 9"),
-     (ScoringConfig(matrix=_DNA), "item 9"),
-     (ScoringConfig(gap=-8), "item 9"),
+    [(ScoringConfig(mode=AlignMode.LOCAL), None),
+     (ScoringConfig(mode=AlignMode.SEMIGLOBAL), None),
+     (ScoringConfig(matrix=_DNA), None),
+     (ScoringConfig(gap=-8), None),
      (ScoringConfig(gap_open=-3, gap_extend=-1), "item 10")],
     ids=["local", "semiglobal", "matrix", "g8", "affine"])
 def test_api_align_large_unported_configs_raise(monkeypatch, cfg, item):
+    """Past the full table every linear-gap config aligns (the band split
+    over K7's port): valid, with the oracle's score; affine gaps raise."""
     monkeypatch.setattr(api, "FULL_TABLE_CELL_LIMIT", 5000)
     s1, s2 = _pair(150, 130, seed=8)
-    with pytest.raises(NotImplementedError, match=item):
-        align(s1, s2, cfg, CPU)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            align(s1, s2, cfg, CPU)
+        return
+    sc, a1, a2 = align(s1, s2, cfg, CPU)
+    core1, core2 = a1.replace("-", ""), a2.replace("-", "")
+    assert core1 in "".join(BASES[c] for c in s1) and core2 in "".join(BASES[c] for c in s2)
+    if not (cfg.is_local or cfg.is_ends_free):
+        assert len(core1) == s1.size and len(core2) == s2.size
+    assert not any(x == "-" and y == "-" for x, y in zip(a1, a2))
+    jcfg = _configs(dict(mode=cfg.mode.name, gap=cfg.gap, matrix=cfg.matrix))[1]
+    assert sc == toracle.alignment_score(a1, a2, cfg) == oracle.score(s1, s2, jcfg)
 
 
 def test_api_align_refusals(monkeypatch):
     s1, s2 = _pair(30, 20, seed=2)
     with pytest.raises(NotImplementedError, match="item 10"):  # affine alignment
         align(s1, s2, ScoringConfig(gap_open=-3, gap_extend=-1), CPU)
-    with pytest.raises(ValueError, match="item 5"):
-        align(np.ones(20, np.int8), np.ones(1024 * 1024 + 1, np.int8), engine=CPU)
+    # a family query past the one-block bit-parallel fill falls through to
+    # the band split, as tpualign's align does
+    monkeypatch.setattr(hirschberg, "MAX_QUERY_ROWS", 100)
     monkeypatch.setattr(api, "FULL_TABLE_CELL_LIMIT", 100)
+    calls = []
+    real = band_align.align_global
+    monkeypatch.setattr(band_align, "align_global",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    b1, b2 = _pair(90, 140, seed=4)
+    sc, a1, a2 = align(b1, b2, engine=CPU)
+    assert calls and sc == oracle.score(b1, b2) == toracle.alignment_score(a1, a2)
     with pytest.raises(NotImplementedError, match="item 12"):
         align(s1, s2, engine=EngineConfig(impl="oracle", device="cpu"))

@@ -1,0 +1,260 @@
+"""A/B of versions of ``tpualign_torch/csrc/band_fill.cu`` on one card, in
+one process: each version builds into a library of its own, and the script
+prints, per version, the registers and spills that ptxas reports for the
+16-rows-a-thread kernels, their SASS instruction counts (``cuobjdump``), and
+the times of the same fills, run in the order A B .. B A so that drift on
+the card shows as asymmetry.  Every version's result must equal the first
+version's, or the script exits 1.
+
+Usage, from the repo root on a machine with a card and ``nvcc``:
+
+    python3 tools/ab_band_fill.py parent=OLD.cu change=tpualign_torch/csrc/band_fill.cu
+
+Times are CUDA-event medians of ``--runs`` runs after one warm-up: K6
+(``band_fill``) under SW (2, -1, -2), the DNA matrix, affine NW and affine
+SW at 20,000 x 20,000, and SW at the 64gb shape unless ``--no-full``; K7
+(``band_capture_fill``, where a version has it) as the SW locate and as a
+global fill with 31 rows at 20,000 x 20,000.  Every K6 kernel of a later
+version is compared with the first version's instruction for instruction
+(addresses and encodings cut); with ``--out DIR`` the SASS of K6's SW
+kernel at 16 rows a thread goes to DIR, one file per version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import atexit
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from tpualign_torch import _build, matrices  # noqa: E402
+from tpualign_torch.config import AlignMode, ScoringConfig  # noqa: E402
+from tpualign_torch.ops import band, hirschberg  # noqa: E402
+
+SW = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+SCORES = {
+    "SW": SW,
+    "dna NW": ScoringConfig(matrix=matrices.dna(2, -1, -3), gap=-3),
+    "affine NW": ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2),
+    "affine SW": ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2,
+                               mode=AlignMode.LOCAL),
+}
+#: K6's SW kernel at 16 rows a thread (pair scoring, linear gaps, local)
+SW_KERNEL = "band_fill_kernelILi16ELb0ELb0ELb1E"
+
+
+def build(label: str, src: str, out: str) -> subprocess.Popen:
+    lib = os.path.join(out, f"{label}.so")
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_k16(log: str):
+    """(kernel, registers, spill bytes) of the 16-rows kernels in a ptxas log."""
+    rows, name = [], None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            name = hit.group(1)
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name and "ILi16E" in name:
+            spill = re.search(r"(\d+) bytes spill stores", log[log.find(name):])
+            rows.append((name, int(hit.group(1)), int(spill.group(1)) if spill else None))
+            name = None
+    return rows
+
+
+def sass(lib: str):
+    """{kernel: [instruction, ...]} of a library, addresses and encodings cut."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        hit = re.match(r"\s*Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            out[name] = []
+            continue
+        hit = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if hit and name:
+            out[name].append(hit.group(1))
+    return out
+
+
+def bind(lib: str) -> ctypes.CDLL:
+    dll = ctypes.CDLL(lib)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    dll.band_fill.argtypes = [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, vp, vp]
+    dll.band_fill.restype = i32
+    if hasattr(dll, "band_capture_fill"):
+        dll.band_capture_fill.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 6
+                                          + [vp, i32] + [vp] * 5)
+        dll.band_capture_fill.restype = i32
+    return dll
+
+
+def score_call(dll, text, query, cfg, ends):
+    m, n = text.numel(), query.numel()
+    k, threads = band.kernel_geometry(n, band.max_k(cfg))
+    K = len(cfg.matrix) if cfg.has_matrix else 0
+    matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).cuda()
+    boundary = torch.empty((2, m + 1), dtype=torch.int32, device="cuda")
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def run():
+        err = dll.band_fill(text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
+                            cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
+                            cfg.gap_extend or 0, band._flags(cfg, ends), k, threads,
+                            boundary.data_ptr(), out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"band_fill launch failed with CUDA error {err}")
+        return out
+    return run
+
+
+def capture_call(dll, text, query, cfg, rows, cell):
+    m, n = text.numel(), query.numel()
+    k, threads = band.kernel_geometry(n, band.max_k(cfg))
+    krows = list(rows) if rows and rows[-1] == n else list(rows) + [n]
+    cap_rows = torch.tensor(krows, dtype=torch.int32).cuda()
+    caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device="cuda")
+    found = torch.empty(3, dtype=torch.int32, device="cuda") if cell else None
+    boundary = torch.empty(m + 1, dtype=torch.int32, device="cuda")
+    matrix = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def run():
+        err = dll.band_capture_fill(
+            text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), 0, cfg.match,
+            cfg.mismatch, cfg.gap, band._flags(cfg, (False, False, False, False)), k,
+            threads, cap_rows.data_ptr(), len(krows), caps.data_ptr(), None,
+            None if found is None else found.data_ptr(), boundary.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"band_capture_fill launch failed with CUDA error {err}")
+        return torch.cat([caps.flatten(), found]) if cell else caps
+    return run
+
+
+def time_ms(run, runs):
+    """Median CUDA-event time of ``runs`` runs after one warm-up, the runs,
+    and the result as a host tensor."""
+    out = run().cpu()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times)), times, out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("versions", nargs="+", help="label=path of a band_fill.cu")
+    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--no-full", action="store_true", help="skip the 64gb-shape SW fill")
+    ap.add_argument("--out", help="directory for the SASS of K6's SW kernel")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    versions = [v.split("=", 1) for v in args.versions]
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"[card] {smi.strip()}")
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, tmp, True)
+    procs = [(label, build(label, src, tmp)) for label, src in versions]
+    libs = {}
+    for label, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            print(log)
+            raise RuntimeError(f"nvcc failed for {label}")
+        libs[label] = os.path.join(tmp, f"{label}.so")
+        for name, regs, spill in ptxas_k16(log):
+            print(f"[ptxas {label}] {name}: {regs} registers, {spill} bytes spilled")
+    print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+
+    first = None
+    for label, lib in libs.items():
+        kernels = sass(lib)
+        for name, instrs in sorted(kernels.items()):
+            if "ILi16E" in name:
+                print(f"[sass {label}] {name}: {len(instrs)} instructions")
+        for name in kernels:
+            if args.out and SW_KERNEL in name:
+                with open(os.path.join(args.out, f"{label}.{name}.sass"), "w") as f:
+                    f.write("\n".join(kernels[name]) + "\n")
+        # K6's kernels by template arguments, against the first version's
+        k6 = {hit.group(1): instrs for name, instrs in kernels.items()
+              if (hit := re.search(r"band_fill_kernelI(Li\d+E(?:Lb[01]E){3})", name))}
+        if first is None:
+            first = label, k6
+            continue
+        same = [key for key, instrs in k6.items() if first[1].get(key) == instrs]
+        differ = sorted(set(k6) - set(same))
+        print(f"[sass {label} vs {first[0]}] K6 kernels with the same SASS: {len(same)} of "
+              f"{len(k6)}; differing: {differ}")
+    dlls = {label: bind(lib) for label, lib in libs.items()}
+
+    rng = np.random.default_rng(20)
+    a = torch.from_numpy(rng.integers(1, 5, 20000).astype(np.int8)).cuda()
+    b = torch.from_numpy(rng.integers(1, 5, 20000).astype(np.int8)).cuda()
+    cases = [(f"K6 {name} 20k", lambda d, c=cfg: score_call(d, a, b, c, band._ends_flags(c, False)))
+             for name, cfg in SCORES.items()]
+    rows20 = hirschberg._kway_rows(b.numel())
+    cases += [("K7 SW locate 20k", lambda d: capture_call(d, a, b, SW, [], True)),
+              ("K7 global 31 rows 20k", lambda d: capture_call(
+                  d, a, b, ScoringConfig(match=2, mismatch=-1, gap=-2), rows20, False))]
+    if not args.no_full:
+        g = np.random.default_rng(64)
+        s1 = torch.from_numpy(g.integers(1, 5, 126440).astype(np.int8)).cuda()
+        s2 = torch.from_numpy(g.integers(1, 5, 127240).astype(np.int8)).cuda()
+        p = band.plan(s1.numel(), s2.numel(), SW)
+        text, query = (s2, s1) if p.swapped else (s1, s2)
+        cases.append(("K6 SW 64gb shape", lambda d: score_call(d, text, query, p.cfg, p.ends)))
+
+    order = [label for label, _ in versions]
+    order = order + order[::-1]
+    results, firsts = {}, {}
+    for case, make in cases:
+        for label in order:
+            dll = dlls[label]
+            if case.startswith("K7") and not hasattr(dll, "band_capture_fill"):
+                continue
+            ms, runs, out = time_ms(make(dll), args.runs)
+            if case in firsts and not torch.equal(firsts[case], out):
+                print(f"[differs] {case}: {label}'s result differs from the first version's")
+                return 1
+            firsts.setdefault(case, out)
+            results.setdefault(case, {}).setdefault(label, []).append(ms)
+            print(f"[time] {case} {label}: median {ms:.3f} ms (runs "
+                  f"{', '.join(f'{t:.3f}' for t in runs)})")
+    print(json.dumps({"card": smi.strip(), "ms": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

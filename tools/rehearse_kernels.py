@@ -2,7 +2,8 @@
 
     python tools/rehearse_kernels.py [--cases N] [--seed S]
 
-Compiles ``tpualign_torch/csrc/band_fill.cu`` and ``diag_fill.cu`` with ``g++`` as
+Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points) and
+``diag_fill.cu`` with ``g++`` as
 C++20 through a shim ``cuda_runtime.h``: one ``std::thread`` per CUDA
 thread of the one block, ``__syncthreads`` as a ``std::barrier``, the warp
 shuffles through a slot array between two barriers, ``__shared__`` as
@@ -10,8 +11,9 @@ shuffles through a slot array between two barriers, ``__shared__`` as
 launch rewritten into a call of the shim's launcher.  The kernels then run
 through ``ctypes`` on CPU buffers over random configs, shapes and strip
 geometries (several strips, partial last strips, every rows-per-thread
-count), and each result is held against the plain version
-(``band.score_plain``, ``pallas_diag.score_plain``).  Prints one line per
+count, captured rows at the strip edges), and each result is held against
+the plain version (``band.score_plain``, ``band.capture_plain``,
+``pallas_diag.score_plain``).  Prints one line per
 kernel and exits non-zero on the first mismatch.
 
 A rehearsal of the kernels' logic before a card runs them, not a test of
@@ -84,6 +86,9 @@ inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
 inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline int __vibmax_s32(int a, int b, bool* pred) { *pred = a >= b; return max(a, b); }
 
 template <class T> T shuffle(T v, int src_offset) {
   const int t = threadIdx.x, lane = t & 31, src = lane + src_offset;
@@ -121,6 +126,8 @@ def build() -> ctypes.CDLL:
     dll = ctypes.CDLL(lib)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     dll.band_fill.argtypes = [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, vp, vp]
+    dll.band_capture_fill.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 6
+                                      + [vp, i32] + [vp] * 5)
     dll.diag_fill.argtypes = [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp]
     return dll
 
@@ -150,6 +157,42 @@ def _band_case(dll, rng, mode, matrix, affine, m, n, geometry):
     return err == 0 and int(out[0]) == want, (cfg, ends, m, n, k, threads, int(out[0]), want)
 
 
+def _capture_case(dll, rng, local, matrix, m, n, geometry, locate):
+    """``band_capture_fill`` against ``capture_plain``: the last row, rows
+    around the strip edges, the last column and, with ``locate``, the
+    located cell."""
+    kw = dict(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 2)),
+              gap=int(rng.integers(-4, 0)), mode=AlignMode.LOCAL if local else AlignMode.GLOBAL)
+    if matrix is not None:
+        kw["matrix"] = matrix
+    cfg = ScoringConfig(**kw)
+    hi = len(matrix) if matrix is not None else 5
+    text = torch.from_numpy(rng.integers(0, hi, m).astype(np.int8))
+    query = torch.from_numpy(rng.integers(0, hi, n).astype(np.int8))
+    zr, zc = (bool(x) for x in rng.integers(0, 2, 2))
+    k, threads = geometry or band.kernel_geometry(n, band.max_k(cfg))
+    R = k * threads
+    rows = sorted({r for r in (1, R - 1, R, R + 1, 2 * R, n - 1, n,
+                               int(rng.integers(1, n + 1))) if 1 <= r <= n})
+    K = len(matrix) if matrix is not None else 0
+    mat = np.ascontiguousarray(np.asarray(matrix if K else [0], np.int32).reshape(-1))
+    cap_rows = np.asarray(rows, np.int32)  # row n among them: the last row
+    caps = np.empty((len(rows), m + 1), np.int32)
+    scratch, col, cell = np.empty(m + 1, np.int32), np.empty(n + 1, np.int32), np.empty(3, np.int32)
+    err = dll.band_capture_fill(text.data_ptr(), m, query.data_ptr(), n, mat.ctypes.data, K,
+                                cfg.match, cfg.mismatch, cfg.gap,
+                                band._flags(cfg, (zr, zc, False, False)), k, threads,
+                                cap_rows.ctypes.data, len(rows), caps.ctypes.data,
+                                col.ctypes.data, cell.ctypes.data if locate else None,
+                                scratch.ctypes.data, None)
+    want = band.capture_plain(text, query, cfg, rows, zero_row=zr, zero_col=zc,
+                              col=True, cell=locate)
+    got = (caps[-1], caps, col, cell if locate else None)
+    ok = err == 0 and all(a is b is None or np.array_equal(a, b.numpy())
+                          for a, b in zip(got, want))
+    return ok, (cfg, zr, zc, m, n, k, threads, rows, cell, want.cell)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cases", type=int, default=120)
@@ -171,6 +214,14 @@ def main() -> None:
         if not ok:
             sys.exit(f"band_fill differs from score_plain: {info}")
     print(f"[rehearse] band_fill equal to score_plain in {args.cases} cases")
+    for c in range(args.cases):
+        geometry = geometries[int(rng.integers(0, len(geometries)))]
+        m, n = (int(x) for x in rng.integers(1, 90, 2))
+        ok, info = _capture_case(dll, rng, bool(c % 2), mats[(c // 2) % 4], m, n, geometry,
+                                 locate=c % 3 != 2)
+        if not ok:
+            sys.exit(f"band_capture_fill differs from capture_plain: {info}")
+    print(f"[rehearse] band_capture_fill equal to capture_plain in {args.cases} cases")
     for c in range(args.cases // 4):
         cfg = ScoringConfig(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 1)),
                             gap=int(rng.integers(-4, 1)),

@@ -7,10 +7,11 @@ the band engine for everything else, and the same fallbacks when an engine
 refuses a config or a shape with ValueError.  Every engine runs on
 ``engine.device``: its CUDA kernel on a CUDA device, its plain PyTorch
 version on the CPU.  ``align`` walks the full table for any linear-gap
-config up to ``FULL_TABLE_CELL_LIMIT`` cells and runs the bit-parallel
-Hirschberg split above it for the family.  What is not ported raises
-NotImplementedError naming the ROADMAP item that ports it; nothing runs
-quietly on another engine or device.
+config up to ``FULL_TABLE_CELL_LIMIT`` cells; above it, it runs the
+bit-parallel Hirschberg split for the family and the split over K7's port
+(``ops/band_align.py``, ``ops/ends_free.py``) for every other linear-gap
+config.  What is not ported raises NotImplementedError naming the ROADMAP
+item that ports it; nothing runs quietly on another engine or device.
 """
 
 from __future__ import annotations
@@ -20,35 +21,25 @@ from typing import Tuple
 import numpy as np
 
 from .config import UNPORTED_IMPLS, EngineConfig, ScoringConfig
-from .ops import band, bitpal, hirschberg, oracle, pallas_diag, xla
+from .ops import band, band_align, bitpal, ends_free, hirschberg, oracle, pallas_diag, xla
 
 #: ``align`` walks the exact full table up to this many DP cells (as
 #: ``tpualign.api.FULL_TABLE_CELL_LIMIT``), and bisects above it
 FULL_TABLE_CELL_LIMIT = 16 * 1024 * 1024
 
 
-def _unported_align(scoring: ScoringConfig) -> str:
-    if scoring.is_affine:
-        return ("alignment under affine (Gotoh) gaps past the full table is "
-                "not ported yet: ROADMAP queue 1 item 10 (affine alignment)")
-    if scoring.is_local:
-        what = "local (Smith-Waterman) alignment"
-    elif scoring.has_matrix or scoring.is_ends_free:
-        what = "matrix or ends-free alignment"
-    else:
-        what = "linear-gap alignment outside the (1, 0, -g) family"
-    return (f"{what} past the full table is not ported yet: ROADMAP queue 1 "
-            "item 9 (general-scoring alignment, kernel K7)")
-
-
 def resolve_impl(engine: EngineConfig, scoring: ScoringConfig) -> str:
     """The engine for ``engine.impl`` and ``scoring``: a named engine as it
     is; ``auto`` gives ``bitpal`` for the (1, 0, -g) family, g = 1..7, and
     ``band`` for every other config, affine included (``tpualign``'s rule
-    on a TPU).  The sharded engines raise NotImplementedError."""
+    on a TPU).  ``band-chunked`` gives ``band``: the JAX tier exists to lift
+    the TPU kernel's SMEM cap on the boundary row, which the port's band
+    kernel does not have.  The sharded engines raise NotImplementedError."""
     if engine.impl in UNPORTED_IMPLS:
         raise NotImplementedError(
             f"impl={engine.impl!r} is not ported yet: {UNPORTED_IMPLS[engine.impl]}")
+    if engine.impl == "band-chunked":
+        return "band"
     if engine.impl != "auto":
         return engine.impl
     return "bitpal" if bitpal.family(scoring) is not None else "band"
@@ -96,28 +87,52 @@ def align(
     s2: np.ndarray,
     scoring: ScoringConfig = ScoringConfig(),
     engine: EngineConfig = EngineConfig(),
+    *,
+    stats: dict | None = None,
 ) -> Tuple[int, str, str]:
     """Score plus aligned strings (gap ``-``) of ``s1`` (text, columns)
     against ``s2`` (query, rows), with the semantics of ``tpualign.align``.
 
     Up to ``FULL_TABLE_CELL_LIMIT`` cells: the exact full-table traceback
     (:func:`tpualign_torch.ops.oracle.traceback`), any linear-gap config,
-    on the host.  Above it, a (1, 0, -g) family config runs the bit-parallel
-    Hirschberg split (:func:`tpualign_torch.ops.hirschberg.align`) on
-    ``engine.device``; its alignment is optimal, with a tie order that may
-    differ from the oracle's.  Other configs raise NotImplementedError
-    naming their ROADMAP item, and a query past the one-block fill's rows
-    raises ValueError."""
+    on the host.  Above it, on ``engine.device``, routed as
+    ``tpualign/api.py:218-288`` routes on a TPU: matrix or ends-free configs
+    to :func:`tpualign_torch.ops.ends_free.align_large`; the (1, 0, -g)
+    family (``bitpal``) to the bit-parallel Hirschberg split; ``band`` and
+    ``pallas`` to :func:`tpualign_torch.ops.band_align.align_local` or
+    ``align_global``.  Where the bit-parallel split refuses a pair
+    (ValueError), the port goes on to the band split: its own choice, since
+    ``tpualign`` sends such a pair to its checkpointed traceback, which is
+    not ported.  The alignments are optimal, with a tie order that may
+    differ from the oracle's.  Affine configs and ``impl="oracle"`` or
+    ``"xla"`` raise NotImplementedError naming their ROADMAP item.
+
+    ``stats``, when given, gets the split of the path past the full table:
+    the tree's counts and host-clock seconds
+    (:func:`tpualign_torch.ops.hirschberg.tree`) and, for local configs,
+    the located cells and route (:func:`tpualign_torch.ops.band_align.align_local`)."""
     s1 = np.asarray(s1, dtype=np.int8)
     s2 = np.asarray(s2, dtype=np.int8)
     if (s1.size + 1) * (s2.size + 1) <= FULL_TABLE_CELL_LIMIT:
         return oracle.traceback(s1, s2, scoring)
-    if engine.impl == "oracle":
+    dev = engine.device
+    if scoring.has_matrix or scoring.is_ends_free:
+        return ends_free.align_large(s1, s2, scoring, device=dev, stats=stats)
+    if scoring.is_affine:
         raise NotImplementedError(
-            "the oracle walks at most FULL_TABLE_CELL_LIMIT cells; the "
-            "checkpointed portable traceback is not ported yet: ROADMAP "
-            "queue 1 item 12 (portable engines)"
-        )
-    if bitpal.family(scoring) is None:
-        raise NotImplementedError(_unported_align(scoring))
-    return hirschberg.align(s1, s2, scoring, device=engine.device)
+            "alignment under affine (Gotoh) gaps past the full table is not "
+            "ported yet: ROADMAP queue 1 item 10 (affine alignment)")
+    impl = resolve_impl(engine, scoring)
+    if impl == "bitpal":
+        try:
+            return hirschberg.align(s1, s2, scoring, device=dev, stats=stats)
+        except ValueError:  # outside the family, its codes or its one block
+            impl = "band"
+    if impl in ("band", "pallas"):
+        if scoring.is_local:
+            return band_align.align_local(s1, s2, scoring, device=dev, stats=stats)
+        return band_align.align_global(s1, s2, scoring, device=dev, stats=stats)
+    raise NotImplementedError(
+        f"impl={impl!r} past the full table needs the checkpointed portable "
+        "traceback, which is not ported yet: ROADMAP queue 1 item 12 "
+        "(portable engines)")

@@ -18,14 +18,14 @@ import torch
 __all__ = ["AlignMode", "EngineConfig", "ScoringConfig"]
 
 #: the engines of ``tpualign``'s ``EngineConfig`` that the port runs;
-#: ``auto`` resolves by scoring config (:func:`tpualign_torch.api.resolve_impl`)
-IMPLS = ("auto", "bitpal", "band", "pallas", "xla", "oracle")
+#: ``auto`` resolves by scoring config and ``band-chunked`` to ``band``
+#: (:func:`tpualign_torch.api.resolve_impl`)
+IMPLS = ("auto", "bitpal", "band", "pallas", "xla", "oracle", "band-chunked")
 
 #: ``tpualign``'s other engines, accepted by name and refused by
 #: :func:`tpualign_torch.api.resolve_impl` with the ROADMAP item that ports
 #: them
 UNPORTED_IMPLS = {
-    "band-chunked": "ROADMAP queue 1 item 9 (its scan is kernel K7)",
     "bitpal-strips": "ROADMAP queue 1 item 13 (sharded pipelines)",
     "band-strips": "ROADMAP queue 1 item 13 (sharded pipelines)",
     "strips": "ROADMAP queue 1 item 13 (sharded pipelines)",

@@ -1,10 +1,11 @@
-// General-scoring score in row strips: any integer scoring, linear or
-// affine (Gotoh) gaps, pair scoring or a substitution matrix of up to 16
-// codes, global / local (Smith-Waterman) / ends-free modes.
+// General-scoring strip fills: any integer scoring, linear or affine
+// (Gotoh) gaps, pair scoring or a substitution matrix of up to 16 codes,
+// global / local (Smith-Waterman) / ends-free modes.  One template, two
+// entry points:
 //
-// Replaces the TPU kernel tpualign/ops/band.py:_band_kernel_body (K6).
-// Contract, cell for cell the same as score_plain in
-// tpualign_torch/ops/band.py:
+// band_fill (CAPTURE = false) replaces the TPU kernel
+// tpualign/ops/band.py:_band_kernel_body (K6).  Contract, cell for cell the
+// same as score_plain in tpualign_torch/ops/band.py:
 //
 //   in:  text    (m,)     int8 codes, across the columns
 //        query   (n,)     int8 codes, down the rows
@@ -16,6 +17,19 @@
 //                         0; with er / ec, the max over row n (j in 1..m) /
 //                         column m (i in 1..n); otherwise H(n, m)
 //   scratch: boundary (2, m+1) int32, the rows H(i0, 0..m) and F(i0, 0..m)
+//
+// band_capture_fill (CAPTURE = true, linear gaps) replaces
+// tpualign/ops/band_align.py:_strip_kernel_body (K7) as the alignment paths
+// use it: the same fill with the same flags (zr, zc, local), and, in place
+// of the score, cell for cell the same as capture_plain in ops/band.py:
+//
+//   in:  cap_rows (J,)     int32 DP rows in 1..n, strictly increasing (the
+//                          last row is row n: the caller captures it)
+//   out: caps     (J, m+1) int32, caps[s][j] = H(cap_rows[s], j)
+//        col      (n+1,)   int32, the last column H(0..n, m) (optional)
+//   scratch: boundary (m+1,) int32
+//        cell     (3,)     int32 (v, i, j): the max over cells i >= 1,
+//                          j >= 1, first in row-major order (optional)
 //
 // Recurrence (tpualign/ops/oracle.py): linear H = max(diag + s, up + g,
 // left + g); affine E = max(left_H + open, left_E) + ext, F = max(up_H +
@@ -34,15 +48,27 @@
 // injected in closed form; F at column 0 is never read.  One
 // __syncthreads() per step.
 //
-// The TPU kernel's layout (column-major 8x128 planes, 2-step lane
+// The captures: at a strip's start each thread finds its captured rows in
+// cap_rows by binary search (a bit mask over its K rows and the slot of the
+// first) and stores H of each as its column is computed, so any row can be
+// captured, a strip's last row included; the last row is row n captured.
+// Locating (a template flag, so that fills that do not locate carry no
+// cell code): per step each thread takes its column's first maximum over
+// its rows (one DPX __vibmax_s32 and a select a cell), then keeps the best
+// cell, a tie replacing only from a smaller row, since its columns arrive
+// in order; the block reduces by the same order.
+//
+// The TPU kernels' layout (column-major 8x128 planes, 2-step lane
 // stagger, pend rings, SMEM boundary row and 4-bit text with its length
-// cap, float32 values, sentinel pad codes) has no counterpart here.
+// cap, float32 values, sentinel pad codes, bottom-aligned strips with a
+// first live slot, per-slot running max planes and right-column capture
+// planes) has no counterpart here.
 //
 // What bounds it: one SM issues every cell (about 8 integer instructions a
-// cell, DPX add-max where it fits) plus a block barrier per step; the
-// other SMs idle.  Later work: a strip pipeline over many blocks (each
-// block a strip, handing its bottom row down through global memory with
-// flags).
+// cell, DPX add-max where it fits, two more for the located cell) plus a
+// block barrier per step; the other SMs idle.  Later work: a strip
+// pipeline over many blocks (each block a strip, handing its bottom row
+// down through global memory with flags).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,6 +79,7 @@ constexpr int kMaxThreads = 1024;
 constexpr int kWarps = kMaxThreads / 32;
 constexpr int kMaxCodes = 16;
 constexpr int32_t kNeg = -(1 << 30);
+constexpr int kNoRow = 0x7fffffff;  // no located cell yet
 
 enum : int {
   kLocal = 1,
@@ -77,6 +104,17 @@ struct Params {
   int32_t* out;
 };
 
+// band_capture_fill's outputs, a kernel argument of their own: with them in
+// Params, ptxas spilled 208 bytes (not 24) in band_fill's global affine
+// instantiations at 16 rows a thread, which doubled their time on the H100
+struct CaptureArgs {
+  const int32_t* cap_rows;  // (J,) captured DP rows, increasing
+  int J;
+  int32_t* caps;  // (J, m+1)
+  int32_t* col;   // (n+1,) last column, or null
+  int32_t* cell;  // (3,) located cell, or null
+};
+
 // h[q] for a q known only at run time, without indexing a register array
 template <int K>
 __device__ __forceinline__ int32_t pick(const int32_t (&h)[K], int q) {
@@ -86,12 +124,13 @@ __device__ __forceinline__ int32_t pick(const int32_t (&h)[K], int q) {
   return v;
 }
 
-template <int K, bool AFFINE, bool MATRIX, bool LOCAL>
-__global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
+// The fill, inlined into both kernels below
+template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE>
+__device__ __forceinline__ void fill(const Params& p, const CaptureArgs& c) {
   __shared__ int32_t mat[kMaxCodes * kMaxCodes];
   __shared__ int32_t hand_h[2][kWarps];
   __shared__ int32_t hand_f[2][kWarps];
-  __shared__ int32_t red[kWarps];
+  __shared__ int32_t red[LOCATE ? 3 : 1][kWarps];
   const int r = threadIdx.x;
   const int T = blockDim.x;
   const int lane = r & 31;
@@ -100,6 +139,7 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
   const int n = p.n;
   const bool zr = p.flags & kZeroRow, zc = p.flags & kZeroCol;
   const bool er = p.flags & kEndRow, ec = p.flags & kEndCol;
+  const bool want_col = CAPTURE && c.col != nullptr;
 
   if (MATRIX) {
     for (int x = r; x < p.K * p.K; x += T) mat[x] = p.matrix[x];
@@ -111,17 +151,35 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
     if (!(LOCAL || zr || j == 0)) v = AFFINE ? p.open + j * p.ext : j * p.gap;
     p.bh[j] = v;
     if (AFFINE) p.bf[j] = kNeg;
+    if (want_col && j == m) c.col[0] = v;
   }
   __syncthreads();
 
   int32_t acc = LOCAL ? 0 : kNeg;
+  int32_t best_v = kNeg;  // this thread's located cell
+  int best_i = kNoRow, best_j = 0;
   const int R = K * T;
   for (int i0 = 0; i0 < n; i0 += R) {
     const int top = i0 + r * K;  // this thread's rows are top+1 .. top+K
     const int nlive = max(0, min(K, n - top));
     const int t_live = (min(R, n - i0) + K - 1) / K;  // threads with a live row
-    const bool owns_n = top < n && n <= top + K;
+    const bool owns_n = !CAPTURE && top < n && n <= top + K;
     const int qn = n - top - 1;
+    // captured rows among top+1 .. top+nlive: bit q of cmask is row top+q+1,
+    // whose slot is cfirst plus the set bits below q
+    unsigned cmask = 0;
+    int cfirst = 0;
+    if (CAPTURE) {
+      int lo = 0, hi = c.J;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (c.cap_rows[mid] <= top) lo = mid + 1; else hi = mid;
+      }
+      cfirst = lo;
+      for (int x = lo; x < c.J && c.cap_rows[x] <= top + nlive; ++x) {
+        cmask |= 1u << (c.cap_rows[x] - top - 1);
+      }
+    }
     int rc[K];
 #pragma unroll
     for (int q = 0; q < K; ++q) rc[q] = q < nlive ? p.query[top + q] : 0;
@@ -157,6 +215,8 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
         const int c = p.text[j - 1];
         const int cK = MATRIX ? c * p.K : 0;
         int32_t up = in_h, upf = in_f, diag = diag_top;
+        int32_t cm = kNeg;  // LOCATE: this column's max over the live rows,
+        int cq = 0;         // first at row top + cq + 1
 #pragma unroll
         for (int q = 0; q < K; ++q) {
           const int32_t s =
@@ -171,7 +231,12 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
           }
           if (LOCAL) {
             hn = max(hn, 0);
-            if (q < nlive) acc = max(acc, hn);
+            if (!CAPTURE && q < nlive) acc = max(acc, hn);
+          }
+          if (LOCATE && q < nlive) {
+            bool keep;  // cm >= hn: a tie keeps the smaller row
+            cm = __vibmax_s32(cm, hn, &keep);
+            cq = keep ? cq : q;
           }
           diag = h[q];
           h[q] = hn;
@@ -179,7 +244,17 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
         }
         out_h = up;
         out_f = upf;
-        if (!LOCAL) {
+        if (LOCATE) {
+          // row-major first: the columns arrive in order, so a tie replaces
+          // only from a smaller row
+          const int i = top + cq + 1;
+          if (cm > best_v || (cm == best_v && i < best_i)) {
+            best_v = cm;
+            best_i = i;
+            best_j = j;
+          }
+        }
+        if (!LOCAL && !CAPTURE) {
           if (ec && j == m) {
 #pragma unroll
             for (int q = 0; q < K; ++q) {
@@ -193,6 +268,21 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
         p.bh[j] = out_h;
         if (AFFINE) p.bf[j] = out_f;
       }
+      if (CAPTURE && active) {
+        // few threads own a captured row: a loop over the set bits keeps
+        // the slots' addresses out of the registers of the others
+        for (unsigned mk = cmask; mk != 0u; mk &= mk - 1u) {
+          const int q = __ffs(mk) - 1;
+          const int slot = cfirst + __popc(cmask & ((1u << q) - 1u));
+          c.caps[static_cast<size_t>(slot) * (m + 1) + j] = pick(h, q);
+        }
+        if (want_col && j == m) {
+#pragma unroll
+          for (int q = 0; q < K; ++q) {
+            if (q < nlive) c.col[top + q + 1] = h[q];
+          }
+        }
+      }
       diag_top = in_h;
       if (lane == 31) {
         hand_h[t & 1][warp] = out_h;
@@ -202,25 +292,81 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
     }
   }
 
+  if (CAPTURE) {
+    if (!LOCATE) return;
+    // the located cell over the block: the larger value, then the smaller row
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int32_t ov = __shfl_down_sync(0xffffffffu, best_v, off);
+      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
+      const int oj = __shfl_down_sync(0xffffffffu, best_j, off);
+      if (ov > best_v || (ov == best_v && oi < best_i)) {
+        best_v = ov;
+        best_i = oi;
+        best_j = oj;
+      }
+    }
+    if (lane == 0) {
+      red[0][warp] = best_v;
+      red[1][warp] = best_i;
+      red[2][warp] = best_j;
+    }
+    __syncthreads();
+    if (r == 0) {
+      for (int w = 1; w < T / 32; ++w) {
+        if (red[0][w] > best_v || (red[0][w] == best_v && red[1][w] < best_i)) {
+          best_v = red[0][w];
+          best_i = red[1][w];
+          best_j = red[2][w];
+        }
+      }
+      c.cell[0] = best_v;
+      c.cell[1] = best_i;
+      c.cell[2] = best_j;
+    }
+    return;
+  }
   // max over the block
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     acc = max(acc, __shfl_down_sync(0xffffffffu, acc, off));
   }
-  if (lane == 0) red[warp] = acc;
+  if (lane == 0) red[0][warp] = acc;
   __syncthreads();
   if (r == 0) {
-    for (int w = 1; w < T / 32; ++w) acc = max(acc, red[w]);
+    for (int w = 1; w < T / 32; ++w) acc = max(acc, red[0][w]);
     *p.out = acc;
   }
 }
 
-template <bool AFFINE, bool MATRIX, bool LOCAL>
-int launch_k(int k, int threads, cudaStream_t s, const Params& p) {
+// K6's port: the score, a kernel of its own that takes Params alone.  With
+// CaptureArgs as a second, unused argument ptxas allocated and ordered K6's
+// SW kernel differently (the same 488 instructions) and it ran 1.7% slower
+// on the H100.  Taking Params alone, its linear kernels compile to the same
+// SASS as before K7's port shared the fill (tools/ab_band_fill.py compares)
+template <int K, bool AFFINE, bool MATRIX, bool LOCAL>
+__global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(Params p) {
+  fill<K, AFFINE, MATRIX, LOCAL, false, false>(p, CaptureArgs{});
+}
+
+// K7's port: the captures and, with LOCATE, the located cell
+template <int K, bool MATRIX, bool LOCAL, bool LOCATE>
+__global__ void __launch_bounds__(kMaxThreads)
+    band_capture_kernel(Params p, CaptureArgs c) {
+  fill<K, false, MATRIX, LOCAL, true, LOCATE>(p, c);
+}
+
+template <bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE>
+int launch_k(int k, int threads, cudaStream_t s, const Params& p,
+             const CaptureArgs& c) {
   switch (k) {
-#define BAND_CASE(K)                                                       \
-  case K:                                                                  \
-    band_fill_kernel<K, AFFINE, MATRIX, LOCAL><<<1, threads, 0, s>>>(p);   \
+#define BAND_CASE(K)                                                          \
+  case K:                                                                     \
+    if constexpr (CAPTURE) {                                                  \
+      band_capture_kernel<K, MATRIX, LOCAL, LOCATE><<<1, threads, 0, s>>>(p, c); \
+    } else {                                                                  \
+      band_fill_kernel<K, AFFINE, MATRIX, LOCAL><<<1, threads, 0, s>>>(p);    \
+    }                                                                         \
     break;
     BAND_CASE(1)
     BAND_CASE(2)
@@ -234,15 +380,23 @@ int launch_k(int k, int threads, cudaStream_t s, const Params& p) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool AFFINE>
-int launch_mode(int k, int threads, cudaStream_t s, const Params& p) {
+template <bool AFFINE, bool CAPTURE, bool LOCATE>
+int launch_mode(int k, int threads, cudaStream_t s, const Params& p,
+                const CaptureArgs& c) {
   const bool local = p.flags & kLocal;
   if (p.K > 0) {
-    return local ? launch_k<AFFINE, true, true>(k, threads, s, p)
-                 : launch_k<AFFINE, true, false>(k, threads, s, p);
+    return local
+               ? launch_k<AFFINE, true, true, CAPTURE, LOCATE>(k, threads, s, p, c)
+               : launch_k<AFFINE, true, false, CAPTURE, LOCATE>(k, threads, s, p, c);
   }
-  return local ? launch_k<AFFINE, false, true>(k, threads, s, p)
-               : launch_k<AFFINE, false, false>(k, threads, s, p);
+  return local
+             ? launch_k<AFFINE, false, true, CAPTURE, LOCATE>(k, threads, s, p, c)
+             : launch_k<AFFINE, false, false, CAPTURE, LOCATE>(k, threads, s, p, c);
+}
+
+bool bad_geometry(int m, int n, int K, int threads) {
+  return m < 1 || n < 1 || K < 0 || K > kMaxCodes || threads < 32 ||
+         threads > kMaxThreads || threads % 32 != 0;
 }
 
 }  // namespace
@@ -257,8 +411,7 @@ extern "C" int band_fill(const void* text, int m, const void* query, int n,
                          int gap, int gap_open, int gap_extend, int flags,
                          int k, int threads, void* boundary, void* out,
                          void* stream) {
-  if (m < 1 || n < 1 || K < 0 || K > kMaxCodes || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0) {
+  if (bad_geometry(m, n, K, threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* b = static_cast<int32_t*>(boundary);
@@ -277,7 +430,48 @@ extern "C" int band_fill(const void* text, int m, const void* query, int n,
                  b,
                  b + m + 1,
                  static_cast<int32_t*>(out)};
+  const CaptureArgs c{};
   auto s = static_cast<cudaStream_t>(stream);
-  return (flags & kAffine) ? launch_mode<true>(k, threads, s, p)
-                           : launch_mode<false>(k, threads, s, p);
+  return (flags & kAffine) ? launch_mode<true, false, false>(k, threads, s, p, c)
+                           : launch_mode<false, false, false>(k, threads, s, p, c);
+}
+
+// Launches the capture fill (linear gaps; flags: local, zr, zc) on
+// `stream`, geometry and scoring as band_fill.  Captures H of the J rows
+// `cap_rows` (int32, strictly increasing, in 1..n) into `caps` (J, m+1)
+// int32; writes the last column H(0..n, m) into `col` (n+1,) int32 and the
+// located cell (v, i, j) into `cell` (3,) int32 unless they are null.
+// `boundary` is (m+1,) int32 scratch.  Returns the
+// cudaError_t of the launch; the fill itself runs asynchronously.
+extern "C" int band_capture_fill(const void* text, int m, const void* query,
+                                 int n, const void* matrix, int K, int match,
+                                 int mismatch, int gap, int flags, int k,
+                                 int threads, const void* cap_rows, int J,
+                                 void* caps, void* col, void* cell,
+                                 void* boundary, void* stream) {
+  if (bad_geometry(m, n, K, threads) || (flags & kAffine) || J < 0 ||
+      (J > 0 && (cap_rows == nullptr || caps == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p{static_cast<const int8_t*>(text),
+                 m,
+                 static_cast<const int8_t*>(query),
+                 n,
+                 static_cast<const int32_t*>(matrix),
+                 K,
+                 match,
+                 mismatch,
+                 gap,
+                 0,
+                 0,
+                 flags,
+                 static_cast<int32_t*>(boundary),
+                 nullptr,
+                 nullptr};
+  const CaptureArgs c{static_cast<const int32_t*>(cap_rows), J,
+                      static_cast<int32_t*>(caps), static_cast<int32_t*>(col),
+                      static_cast<int32_t*>(cell)};
+  auto s = static_cast<cudaStream_t>(stream);
+  return cell ? launch_mode<false, true, true>(k, threads, s, p, c)
+              : launch_mode<false, true, false>(k, threads, s, p, c);
 }

@@ -1,5 +1,6 @@
-"""General-scoring score in row strips, in PyTorch and CUDA: the port of
-``tpualign/ops/band.py`` (``score_fn``, ``_band_call``).
+"""General-scoring fills in row strips, in PyTorch and CUDA: the port of
+``tpualign/ops/band.py`` (``score_fn``, ``_band_call``) and of the strip
+kernel under ``tpualign/ops/band_align.py`` (``_strip_call``).
 
 Any ``ScoringConfig``: linear or affine (Gotoh) gaps, pair scoring or a
 substitution matrix of up to 16 codes, global, local (Smith-Waterman),
@@ -17,6 +18,12 @@ global memory at any length.  Its contract, shared by :func:`band_fill` and
 - the result is one int: local, the max over every cell with
   ``1 <= j <= m`` (and 0); with ``er`` and/or ``ec``, the max over row n
   (``j`` in 1..m) and/or column m (``i`` in 1..n); otherwise ``H(n, m)``.
+
+The capture kernel (``band_capture_fill``, K7's port, one more flag of
+the same template, so the two cannot drift apart) runs the same fill under
+linear gaps and returns in place of the score the rows that the alignment
+paths read: chosen DP rows, the last row and column, and the row-major
+first maximum cell (:func:`capture_fill`, :func:`capture_plain`).
 
 The host adds the closed-form boundary cells H(n, 0) and H(0, m)
 (:func:`score_fn`).  What the TPU kernel carries for its own sake is gone:
@@ -136,7 +143,7 @@ def score_plain(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     xla.check_pair(text, query, ("text", "query"))
     zr, zc, er, ec = ends
     local = cfg.is_local
-    h, best, col = xla.rows_scan(
+    h, best, col, _, _ = xla.rows_scan(
         text, query, cfg, zero_row=local or zr, zero_col=local or zc,
         want_best=local, want_col=ec and not local,
     )
@@ -190,6 +197,104 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
 
 
 band_fill.launches = 0
+
+
+class Capture(NamedTuple):
+    """What :func:`capture_fill` and :func:`capture_plain` return: int32
+    tensors on the device of their inputs, None where not asked for."""
+
+    row: torch.Tensor  # (m+1,): the last row H(n, 0..m)
+    caps: Optional[torch.Tensor]  # (J, m+1): H(rows[s], 0..m)
+    col: Optional[torch.Tensor]  # (n+1,): the last column H(0..n, m)
+    cell: Optional[torch.Tensor]  # (3,): (v, i, j), the row-major first max
+    #                               over the cells i >= 1, j >= 1
+
+
+def _check_capture(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
+                   rows) -> list:
+    xla.check_pair(text, query, ("text", "query"))
+    if cfg.is_affine:
+        raise ValueError("the capture fill takes linear gaps (affine alignment is "
+                         "ROADMAP queue 1 item 10)")
+    rows = [int(r) for r in rows]
+    n = query.numel()
+    if any(not 1 <= r <= n for r in rows) or any(a >= b for a, b in zip(rows, rows[1:])):
+        raise ValueError(f"captured rows must increase within 1..{n}, got {rows}")
+    return rows
+
+
+def capture_plain(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
+                  rows=(), *, zero_row: bool = False, zero_col: bool = False,
+                  col: bool = False, cell: bool = False) -> Capture:
+    """Plain PyTorch version of the capture kernel: the fill of ``text``
+    (columns) against ``query`` (rows) under the linear-gap ``cfg`` (in
+    kernel coordinates), with H(0, :) = 0 under ``zero_row`` or local
+    scoring and H(:, 0) = 0 under ``zero_col`` or local scoring, by one
+    :func:`tpualign_torch.ops.xla.rows_scan`.  Returns the last row, the
+    rows ``rows`` (DP rows in 1..n, increasing), with ``col`` the last
+    column, and with ``cell`` the located cell (:class:`Capture`)."""
+    rows = _check_capture(text, query, cfg, rows)
+    zr, zc = cfg.is_local or zero_row, cfg.is_local or zero_col
+    scan = xla.rows_scan(text, query, cfg, zero_row=zr, zero_col=zc, want_col=col,
+                         capture_rows=rows, want_cell=cell)
+    last_col = None
+    if col:
+        h0m = 0 if zr else cfg.gap * text.numel()
+        last_col = torch.cat([scan.col.new_full((1,), h0m), scan.col]).int()
+    return Capture(scan.h.int(), scan.caps.int() if rows else None, last_col,
+                   scan.cell.int() if cell else None)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
+                 rows=(), *, zero_row: bool = False, zero_col: bool = False,
+                 col: bool = False, cell: bool = False,
+                 geometry: Optional[Tuple[int, int]] = None) -> Capture:
+    """The capture kernel's result (:func:`capture_plain`) on the device of
+    its tensors: the CUDA kernel ``band_capture_fill`` (``csrc/band_fill.cu``,
+    K7's port) for CUDA tensors, :func:`capture_plain` for CPU tensors.
+
+    ``geometry`` as in :func:`band_fill`.  On CUDA the wrapper allocates the
+    outputs, launches on the current stream without synchronising, and
+    counts the launch in ``capture_fill.launches``.  A launch the device
+    refuses raises; nothing falls back to the plain version."""
+    rows = _check_capture(text, query, cfg, rows)
+    if text.device.type == "cpu":
+        return capture_plain(text, query, cfg, rows, zero_row=zero_row,
+                             zero_col=zero_col, col=col, cell=cell)
+    if text.device.type != "cuda":
+        raise ValueError(f"capture_fill runs on cpu or cuda tensors, got {text.device}")
+    m, n = text.numel(), query.numel()
+    k, threads = geometry or kernel_geometry(n, max_k(cfg))
+    dev = text.device
+    lib = _build.load()
+    K = len(cfg.matrix) if cfg.has_matrix else 0
+    matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
+    # the kernel returns the last row as a captured row
+    krows = rows if rows and rows[-1] == n else rows + [n]
+    cap_rows = torch.tensor(krows, dtype=torch.int32).to(dev)
+    caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device=dev)
+    last_col = torch.empty(n + 1, dtype=torch.int32, device=dev) if col else None
+    found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
+    boundary = torch.empty(m + 1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.band_capture_fill(
+            text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
+            cfg.match, cfg.mismatch, cfg.gap,
+            _flags(cfg, (zero_row, zero_col, False, False)), k, threads,
+            cap_rows.data_ptr(), len(krows), caps.data_ptr(), _ptr(last_col), _ptr(found),
+            boundary.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"band_capture_fill launch failed with CUDA error {err}")
+    capture_fill.launches += 1
+    return Capture(caps[-1], caps[: len(rows)] if rows else None, last_col, found)
+
+
+capture_fill.launches = 0
 
 
 class Plan(NamedTuple):

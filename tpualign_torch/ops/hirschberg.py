@@ -32,6 +32,11 @@ columns), the node falls back to the binary split.  The recovered alignment
 is optimal (the tests check its score against the oracle's); its tie order
 among co-optimal paths may differ from the oracle's diag > up > left.
 
+The tree (:func:`tree`) takes its node fills as parameters: :func:`align`
+gives it the bit-parallel fills above, and
+:func:`tpualign_torch.ops.band_align.align_global` the capture fill of
+K7's port, whose rows hold H itself, for every other linear-gap config.
+
 What exists only for the TPU is gone: the jit shape buckets, text packing
 and the 2w stagger offsets into the capture streams (the port's fills take
 exact lengths, and capture entry ``x - 1`` is column ``x``), the 128-row
@@ -140,12 +145,7 @@ def align(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device,
 
     Raises ValueError for a config outside the family, for codes outside
     0..4, and for a query past the one-block fill's ``MAX_QUERY_ROWS``.
-    ``stats``, when given, is filled with counts and host-clock seconds:
-    ``kway_nodes``, ``binary_nodes``, ``leaves``, ``leaf_cells``,
-    ``bisect_s`` (until the last node's crossings are read back),
-    ``leaf_walk_s`` (the leaf walks' own times, summed over the threads)
-    and ``wall_s``."""
-    t_start = time.perf_counter()
+    ``stats`` as in :func:`tree`."""
     fam = bitpal.family(cfg)
     if fam is None:
         raise ValueError(
@@ -160,6 +160,29 @@ def align(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device,
             f"{MAX_QUERY_ROWS} rows: ROADMAP queue 1 item 5 (multi-block "
             "wavefront)"
         )
+    # looked up at each call, so that a test can replace a node
+    return tree(s1, s2, cfg, lambda *a: _kway_node(*a, g),
+                lambda *a: _split_node(*a, g), device=device, stats=stats)
+
+
+def tree(s1: np.ndarray, s2: np.ndarray, cfg: ScoringConfig, kway_node, split_node,
+         *, device, stats: dict | None = None) -> Tuple[int, str, str]:
+    """The breadth-first split of ``s1`` (text, columns) against ``s2``
+    (query, rows), both code arrays, under the global linear-gap ``cfg``,
+    with the node fills as parameters (module docstring): on ``seqs =
+    (query, reversed query, text, reversed text)`` as tensors on
+    ``device``, ``kway_node(seqs, ta, tb, qa, qb, rows)`` returns the
+    crossing column of each row of ``rows`` (segment-local, a ``(J,)``
+    device tensor) and ``split_node(seqs, ta, mid, tb, qa, qb)`` the
+    crossing row of column ``mid`` (segment-local, 0-d).  Leaves are walked
+    by :func:`tpualign_torch.ops.oracle.traceback` under ``cfg``.
+
+    ``stats``, when given, is filled with counts and host-clock seconds:
+    ``kway_nodes``, ``binary_nodes``, ``leaves``, ``leaf_cells``,
+    ``bisect_s`` (until the last node's crossings are read back),
+    ``leaf_walk_s`` (the leaf walks' own times, summed over the threads)
+    and ``wall_s``."""
+    t_start = time.perf_counter()
     dev = bitpal._device(device)
     q = torch.from_numpy(s2).to(dev)
     t = torch.from_numpy(s1).to(dev)
@@ -183,12 +206,12 @@ def align(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device,
         rows = _kway_rows(n) if n >= KWAY_MIN_ROWS and not force_bin else []
         if rows:
             counts["kway_nodes"] += 1
-            xs = _kway_node(seqs, ta, tb, qa, qb, rows, g)
+            xs = kway_node(seqs, ta, tb, qa, qb, rows)
             pending.append(("kway", ta, tb, qa, qb, rows, xs))
             return
         counts["binary_nodes"] += 1
         mid = ta + m // 2
-        split = _split_node(seqs, ta, mid, tb, qa, qb, g)
+        split = split_node(seqs, ta, mid, tb, qa, qb)
         pending.append(("binary", ta, tb, qa, qb, mid, split))
 
     with ThreadPoolExecutor(max_workers=LEAF_WORKERS) as pool:

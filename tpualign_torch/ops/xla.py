@@ -20,7 +20,7 @@ row loop never waits on the device.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +91,17 @@ def check_codes(s1, s2, cfg: ScoringConfig) -> None:
             raise ValueError("sequence codes outside the matrix alphabet")
 
 
+class Scan(NamedTuple):
+    """What :func:`rows_scan` returns; each part it was not asked for is
+    None (``h`` is always there)."""
+
+    h: torch.Tensor  # the last row H(n, 0..m)
+    best: Optional[torch.Tensor]  # 0-d: the max over rows 1..n
+    col: Optional[torch.Tensor]  # (n,): the last column H(1..n, m)
+    caps: Optional[torch.Tensor]  # (J, m+1): the captured rows
+    cell: Optional[torch.Tensor]  # (3,): the located cell (v, i, j)
+
+
 def rows_scan(
     text: torch.Tensor,
     query: torch.Tensor,
@@ -100,15 +111,20 @@ def rows_scan(
     zero_col: bool,
     want_best: bool = False,
     want_col: bool = False,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    capture_rows=(),
+    want_cell: bool = False,
+) -> Scan:
     """Fill the table of ``text`` (columns) against ``query`` (rows), both
     non-empty code tensors on one device, one row at a time.
 
     ``zero_row``: H(0, j) = 0 (else the gap charges of ``cfg``);
     ``zero_col``: H(i, 0) = 0.  Local mode (``cfg.is_local``) adds the zero
-    floor.  Returns ``(h_last, best, col)``: the last row H(n, 0..m);
-    with ``want_best`` the max over every row 1..n (else None); with
-    ``want_col`` the last column H(1..n, m) (else None)."""
+    floor.  Returns the last row H(n, 0..m); with ``want_best`` the max over
+    every row 1..n; with ``want_col`` the last column H(1..n, m).  Linear
+    gaps only: ``capture_rows`` (DP rows in 1..n, increasing) adds those
+    rows H(r, 0..m), and ``want_cell`` the first max over the cells
+    ``i >= 1, j >= 1`` in row-major order, ``(v, i, j)``: each row's max
+    and its first argmax, then the first row with the greatest max."""
     dev = text.device
     m = text.numel()
     codes = query.tolist()
@@ -119,6 +135,8 @@ def rows_scan(
     col = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_col else None
     t = torch.empty(m + 1, dtype=torch.int64, device=dev)
     if cfg.is_affine:
+        if capture_rows or want_cell:
+            raise ValueError("row captures and the located cell take linear gaps")
         open_, ext = cfg.gap_open, cfg.gap_extend
         jext = j * ext
         open_jext = jext + open_
@@ -141,7 +159,11 @@ def rows_scan(
                 torch.maximum(best, h, out=best)
             if want_col:
                 col[i - 1] = h[-1]
-        return h, None if best is None else best.max(), col
+        return Scan(h, None if best is None else best.max(), col, None, None)
+    slot = {r: s for s, r in enumerate(capture_rows)}
+    caps = torch.empty((len(slot), m + 1), dtype=torch.int64, device=dev)
+    row_max = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_cell else None
+    row_arg = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_cell else None
     g = cfg.gap
     jg = j * g
     h = torch.zeros(m + 1, dtype=torch.int64, device=dev) if zero_row else jg.clone()
@@ -155,7 +177,16 @@ def rows_scan(
             torch.maximum(best, h, out=best)
         if want_col:
             col[i - 1] = h[-1]
-    return h, None if best is None else best.max(), col
+        if i in slot:
+            caps[slot[i]] = h
+        if want_cell:
+            row_max[i - 1], row_arg[i - 1] = h[1:].max(0)
+    cell = None
+    if want_cell:
+        i = torch.argmax(row_max)
+        cell = torch.stack([row_max[i], i + 1, row_arg[i] + 1])
+    return Scan(h, None if best is None else best.max(), col,
+                caps if slot else None, cell)
 
 
 def _empty_score(m: int, n: int, cfg: ScoringConfig) -> int:
@@ -173,7 +204,7 @@ def score_tensors(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig) -> tor
     tensor there: ``s1`` across the columns, ``s2`` down the rows."""
     zero_row = cfg.is_local or cfg.free_start_s1
     zero_col = cfg.is_local or cfg.free_start_s2
-    h, best, col = rows_scan(
+    h, best, col, _, _ = rows_scan(
         s1, s2, cfg, zero_row=zero_row, zero_col=zero_col,
         want_best=cfg.is_local, want_col=cfg.free_end_s2,
     )

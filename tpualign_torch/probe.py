@@ -19,7 +19,11 @@ Prints, each part on lines of its own:
    each kernel inside it, the device's busy time (the union of its
    kernels and copies) and its idle share of the wall;
 6. the same for one warm ``align_score`` of the pair under the
-   Smith-Waterman scoring (2, -1, -2) (``band_fill``).
+   Smith-Waterman scoring (2, -1, -2) (``band_fill``);
+7. the same for one ``align`` of the pair under that scoring (the
+   locate, the anchored start locate and the core's split over
+   ``band_capture_fill``, then the leaf walks), with the host-clock split
+   that the call records in ``stats``.
 
 Nothing is compared here: ``chip_smoke.py`` checks the kernel.  Exits
 non-zero without a CUDA device.
@@ -35,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from . import align_score
+from . import align, align_score
 from .config import AlignMode, ScoringConfig
 from .ops import bitpal, hirschberg
 
@@ -156,6 +160,12 @@ def main() -> None:
     sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
     align_score(s1, s2, sw)
     _traced("align_score SW", lambda: align_score(s1, s2, sw))
+
+    # 7: one Smith-Waterman align of the pair, traced, its split on the
+    # host clock
+    stats = {}
+    _traced("align SW", lambda: align(s1, s2, sw, stats=stats))
+    print(f"[align SW, traced, host clock] {stats}")
 
 
 def _traced(tag: str, call) -> None:
