@@ -19,15 +19,22 @@ path's shape:
   pair (``bitpal_gfill``, g = 2);
 - ``tpualign_torch.align_score`` under the CLI's Smith-Waterman scoring
   (2, -1, -2) on that pair (``band_fill``);
-- ``tpualign_torch.align`` under that scoring on that pair (this slice's
-  main path): the locate, the anchored start locate and the core's split,
-  all over ``band_capture_fill``, then leaf walks on the host;
+- ``tpualign_torch.align`` under that scoring on that pair: the locate,
+  the anchored start locate and the core's split, all over
+  ``band_capture_fill``, then leaf walks on the host;
+- ``tpualign_torch.align`` under affine gaps (2, -1, open -5, extend -2),
+  global and local, on that pair (this slice's main path): Myers-Miller
+  over ``band_capture_fill``'s affine last rows (H, F), after the local
+  locate and anchored start locate, then leaf walks on the host; each
+  alignment scored against ``align_score``'s (``band_fill``), and the
+  root's forward fill held against its plain version at its full shape;
 - at 20,000 x 20,000, ``align_score`` under a DNA matrix (global),
   semiglobal, infix, affine (-5, -2) global and local, a positive-mismatch
   affine local (``band_fill``), and ``impl="pallas"`` global
   (``diag_fill``); ``align`` under the DNA matrix, semiglobal, infix, SW,
-  positive-mismatch SW, ``impl="pallas"`` and a family config that the
-  bit-parallel split refuses (``band_capture_fill``).
+  positive-mismatch SW, ``impl="pallas"``, a family config that the
+  bit-parallel split refuses, and affine global, local, positive-mismatch
+  local, semiglobal, infix and with the DNA matrix (``band_capture_fill``).
 
     python3 chip_smoke.py [--corpus DIR]
 
@@ -44,6 +51,7 @@ the JAX package ``tpualign``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -64,12 +72,16 @@ GREPLACES = {
     "bitpal_gfill": "tpualign/ops/bitpal.py:556",  # _g_kernel_body (K2)
     "bitpal_capture_fill": "tpualign/ops/bitpal.py:1038",  # _chunk_kernel_body (K4)
 }
-BAND_SOURCE = "tpualign_torch/csrc/band_fill.cu"
+#: K6's and K7's bodies: one fill template; entries in band_fill.cu and
+#: band_capture_affine.cu
+BAND_SOURCE = "tpualign_torch/csrc/band_fill.cuh"
 BAND_REPLACES = "tpualign/ops/band.py:171"  # _band_kernel_body (K6)
 DIAG_SOURCE = "tpualign_torch/csrc/diag_fill.cu"
 DIAG_REPLACES = "tpualign/ops/pallas_diag.py:201"  # _diag_kernel_body (K8)
 CAPTURE_REPLACES = "tpualign/ops/band_align.py:103"  # _strip_kernel_body (K7)
-N_INSTANTIATIONS = 30 + 40 + 40 + 1  # bitpal_gfill, band_fill, band_capture_fill, diag_fill
+#: bitpal_gfill, band_fill, band_capture_fill (40 linear, 36 affine: local
+#: stops at 8 rows a thread), diag_fill
+N_INSTANTIATIONS = 30 + 40 + 76 + 1
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -629,6 +641,7 @@ def main() -> None:
         want = band.capture_plain(t, q, cfg, rows, col=True, cell=cell, **flags)
         hold_capture(got, want, f"{cfg}, {text.size} x {query.size}, rows {rows}, "
                                 f"geometry {geometry}, {flags}")
+        return got
 
     t0 = time.perf_counter()
     n_cap = 0
@@ -655,11 +668,40 @@ def main() -> None:
         capture_case(rng.integers(1, 5, lm).astype(np.int8), rng.integers(1, 5, ln).astype(np.int8),
                      cfg, rows, geometry)
         n_cap += 1
-    print(f"[band_capture_fill vs plain] {n_cap} cases equal to capture_plain word for word "
-          f"(all 40 instantiations over three strips with rows at the strip edges, zero "
-          f"boundaries, DNA and IUPAC matrices, masked local, 1-row and 1-column tables; "
-          f"captured rows, last row, last column, located cell); "
-          f"{time.perf_counter() - t0:.1f} s")
+    # the 36 affine instantiations <rows per thread, matrix, local, locate>
+    # (local stops at 8 rows a thread), the top-edge open tb = gap_open and
+    # the waived tb = 0 in turn; the last row of F besides
+    n_aff = 0
+    for k, mat, mode, cell in itertools.product(
+            (1, 2, 4, 8, 16), (None, matrices.dna(2, -1, -3)),
+            (AlignMode.GLOBAL, AlignMode.LOCAL), (True, False)):
+        if mode is AlignMode.LOCAL and k > band.MAX_K_LOCAL_AFFINE:
+            continue
+        cfg = ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2, mode=mode,
+                            matrix=mat)
+        R, nq = 32 * k, 64 * k + 7
+        rows = sorted({1, R - 1, R, R + 1, 2 * R, nq - 1, nq} - {0})
+        flags = {} if mode is AlignMode.LOCAL else dict(
+            zero_row=n_aff % 3 == 0, zero_col=n_aff % 2 == 0, tb=0 if n_aff % 4 < 2 else -5)
+        capture_case(rng.integers(0, 5, 96 * k + 50).astype(np.int8),
+                     rng.integers(0, 5, nq).astype(np.int8), cfg, rows, (k, 32), cell, **flags)
+        n_aff += 1
+    iupac_aff = ScoringConfig(matrix=matrices.iupac(), gap_open=-4, gap_extend=-1)
+    for cfg, lm, ln, rows, geometry, flags in [
+            (aff, 5000, 1, [1], None, dict(tb=0)), (aff, 1, 3000, [1, 1500, 3000], None, {}),
+            (masked_aff, 1, 1, [1], None, {}), (masked_aff, 700, 600, [300, 600], None, {}),
+            (aff, 3000, 2500, [1023, 1024, 1025, 2500], (4, 256), dict(tb=0)),
+            (aff.with_mode(AlignMode.LOCAL), 900, 5000, [511, 512, 513, 4999], (8, 64), {}),
+            (iupac_aff, 700, 900, [450], None, dict(tb=-2, zero_col=True))]:
+        hi = 16 if cfg.has_matrix else 5
+        capture_case(rng.integers(1, hi, lm).astype(np.int8),
+                     rng.integers(1, hi, ln).astype(np.int8), cfg, rows, geometry, **flags)
+        n_aff += 1
+    print(f"[band_capture_fill vs plain] {n_cap} linear and {n_aff} affine cases equal to "
+          f"capture_plain word for word (all 76 instantiations over three strips with rows "
+          f"at the strip edges, zero boundaries, DNA and IUPAC matrices, masked local, affine "
+          f"tb = gap_open and 0, 1-row and 1-column tables; captured rows, last row, last "
+          f"column, located cell, last row of F); {time.perf_counter() - t0:.1f} s")
 
     # phase (c): Smith-Waterman on the 64gb-shape pair, align_score (band_fill)
     cfg_sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
@@ -763,9 +805,62 @@ def main() -> None:
           f"with the located cell {core_ms:.3f} ms (runs {runs_str(core_runs)}), both equal "
           f"to capture_plain word for word (plain {core_plain_ms:.1f} ms); the SW locate equal "
           f"to capture_plain's (plain {sw_plain_ms:.1f} ms)")
-    ck.update(ms=loc_ms, plain_ms=sw_plain_ms, shape=f"{n}x{m}", anchored_ms=anc_ms,
-              core_root_ms=bare_ms, core_root_cell_ms=core_ms,
+    ck.update(sw_locate_ms=loc_ms, sw_locate_plain_ms=sw_plain_ms, sw_shape=f"{n}x{m}",
+              anchored_ms=anc_ms, core_root_ms=bare_ms, core_root_cell_ms=core_ms,
               core_root_plain_ms=core_plain_ms)
+
+    # phase (g): this slice's main path, align under affine gaps (2, -1,
+    # open -5, extend -2) on the 64gb-shape pair, global and local: Myers-
+    # Miller over band_capture_fill, the leaf walks on the host; each scored
+    # against align_score's (band_fill, K6: a second kernel as witness)
+    cfg_aff = ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2)
+    aff_paths = {}
+    for name, cfg in (("global", cfg_aff), ("local", cfg_aff.with_mode(AlignMode.LOCAL))):
+        witness = tpualign_torch.align_score(s1, s2, cfg)
+        reset_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        sc, a1, a2 = tpualign_torch.align(s1, s2, cfg, stats=stats)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        n_launch = counts["band_capture_fill"]
+        if n_launch < 2 or sum(counts.values()) != n_launch:
+            raise AssertionError(f"affine {name} align did not run band_capture_fill alone: "
+                                 f"{counts}")
+        valid = (core_ok if cfg.is_local else alignment_ok)(s1, s2, a1, a2, oracle.BASES)
+        rescored = oracle.alignment_score(a1, a2, cfg)
+        if not valid or not sc == rescored == witness:
+            raise AssertionError(f"64gb-shape affine {name} alignment valid {valid}, score {sc} "
+                                 f"(re-scored {rescored}), align_score's {witness}")
+        aff_paths[name] = dict(launches=n_launch, wall_s=wall, stats=stats)
+        print(f"[main path: align affine {name}] {m} x {n} ({source}), (2, -1, open -5, "
+              f"extend -2): alignment valid, {len(a1)} columns, score {sc} equal to "
+              f"align_score's (band_fill); launches {counts}; wall {wall:.3f} s")
+        print(f"[path split: align affine {name}] {json.dumps(stats)}")
+        del a1, a2
+    # the Myers-Miller root's forward fill (rows 1..n/2 under tb = gap_open:
+    # the last rows H and F), held word for word against capture_plain at its
+    # full shape
+    mid = n // 2
+    qh = q2d[:mid]
+    root_plain_ms, root_plain = host_ms(lambda: band.capture_plain(t1d, qh, cfg_aff))
+    root_ms, root_runs, root_k = cuda_ms(lambda: band.capture_fill(t1d, qh, cfg_aff), runs=3)
+    hold_capture(root_k, root_plain, f"the affine root's forward fill, {mid} x {m}")
+    del root_k, root_plain
+    # the local path's locate (local affine, the located cell, 8 rows a
+    # thread) on its own
+    cfg_aff_sw = cfg_aff.with_mode(AlignMode.LOCAL)
+    aloc_ms, aloc_runs, _ = cuda_ms(lambda: band.capture_fill(t1d, q2d, cfg_aff_sw, cell=True),
+                                    runs=1)
+    print(f"[timing] {smi}: band_capture_fill affine at the 64gb shape: the Myers-Miller "
+          f"root's forward fill {mid} x {m} median of 3 {root_ms:.3f} ms "
+          f"({m * mid / root_ms / 1e6:.2f} GCUPS; runs {runs_str(root_runs)}), equal to "
+          f"capture_plain word for word (H and F, plain {root_plain_ms:.1f} ms); the local "
+          f"locate {n} x {m} {aloc_ms:.3f} ms ({m * n / aloc_ms / 1e6:.2f} GCUPS; runs "
+          f"{runs_str(aloc_runs)})")
+    ck.update(launches=aff_paths["global"]["launches"], ms=root_ms, plain_ms=root_plain_ms,
+              shape=f"{mid}x{m}", affine_local_launches=aff_paths["local"]["launches"],
+              affine_local_locate_ms=aloc_ms, sw_align_launches=n_cap_launch)
 
     # phase (d): further paths at 20,000 x 20,000, each through align_score
     # and against the plain version
@@ -831,6 +926,12 @@ def main() -> None:
         ("positive-mismatch SW", masked, "auto"),
         ("pallas NW", ScoringConfig(match=2, mismatch=-1, gap=-2), "pallas"),
         ("family past the bit-parallel block", ScoringConfig(), "auto"),
+        ("affine NW", cfg_aff, "auto"),
+        ("affine SW", cfg_aff_sw, "auto"),
+        ("positive-mismatch affine SW", masked_aff, "auto"),
+        ("affine semiglobal", cfg_aff.with_mode(AlignMode.SEMIGLOBAL), "auto"),
+        ("affine infix", cfg_aff.with_mode(AlignMode.INFIX), "auto"),
+        ("affine dna", dataclasses.replace(cfg_aff, matrix=matrices.dna(2, -1, -3)), "auto"),
     ]
     for name, cfg, impl in aligns:
         max_rows = hirschberg.MAX_QUERY_ROWS
@@ -867,6 +968,18 @@ def main() -> None:
     print(f"[timing] {smi}: band_capture_fill global at 20000 x 20000 with {len(rows20)} rows, "
           f"the last column and the located cell: median of 5 {k20_ms:.3f} ms (runs "
           f"{runs_str(k20_runs)}); equal to capture_plain word for word (plain {p20_ms:.1f} ms)")
+    # the same under affine gaps, with the waived top-edge open (tb = 0) and
+    # the last row of F
+    a20_ms, a20_runs, ka20 = cuda_ms(lambda: band.capture_fill(ta20, tb20, cfg_aff, rows20,
+                                                               col=True, cell=True, tb=0))
+    pa20_ms, pa20 = host_ms(lambda: band.capture_plain(ta20, tb20, cfg_aff, rows20, col=True,
+                                                       cell=True, tb=0))
+    hold_capture(ka20, pa20, f"20000 x 20000 affine global, tb = 0, {len(rows20)} rows")
+    ck["affine_ms_20k"] = (a20_ms, pa20_ms)
+    print(f"[timing] {smi}: band_capture_fill affine global at 20000 x 20000, tb = 0, with "
+          f"{len(rows20)} rows, the last column, the located cell and the last row of F: "
+          f"median of 5 {a20_ms:.3f} ms (runs {runs_str(a20_runs)}); equal to capture_plain "
+          f"word for word (plain {pa20_ms:.1f} ms)")
 
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:
@@ -884,7 +997,7 @@ def main() -> None:
         "bitpal_gfill": bound(plane_bytes, m * nw * 50 * 2),
         "bitpal_capture_fill": bound(plane_bytes + len(root_rows) * m, m * nw * 25 * 2),
         "band_fill": bound(m + n + 4, band_ops(cfg_sw, cells)),
-        "band_capture_fill": bound(m + n + 4 * (m + 1) + 12, band_ops(cfg_sw, cells, cell=True)),
+        "band_capture_fill": bound(m + mid + 8 * (m + 1), band_ops(cfg_aff, m * mid)),
         "diag_fill": bound(2 * a20.size + 4, band_ops(g20, d_cells)),
     }
 
@@ -908,7 +1021,7 @@ def main() -> None:
         **extra("band_fill"),
     }, {
         "name": "band_capture_fill", "route": "cuda", "source": BAND_SOURCE,
-        "replaces": CAPTURE_REPLACES, "launches": n_cap_launch, **ck,
+        "replaces": CAPTURE_REPLACES, **ck,
         **extra("band_capture_fill"),
     }, {
         "name": "diag_fill", "route": "cuda", "source": DIAG_SOURCE,

@@ -91,7 +91,7 @@ def test_headroom_refusal_matches_jax():
     [
         (ScoringConfig(match=1, mismatch=0, gap=-8), None),
         (ScoringConfig(mode=AlignMode.LOCAL), None),
-        (ScoringConfig(gap_open=-5, gap_extend=-2), "item 10"),
+        (ScoringConfig(gap_open=-5, gap_extend=-2), None),
         (ScoringConfig(mode=AlignMode.SEMIGLOBAL), None),
         (ScoringConfig(matrix=((1, 0), (0, 1))), None),
         (ScoringConfig(match=1, mismatch=0, gap=0), None),
@@ -101,8 +101,9 @@ def test_headroom_refusal_matches_jax():
 @pytest.mark.parametrize("impl", ["auto", "bitpal"])
 def test_unported_configs_raise(cfg, item, impl, monkeypatch):
     """Alignment past the full table outside the family runs the band split
-    over K7's port and scores the oracle's optimum; affine alignment is not
-    ported and raises naming its ROADMAP item."""
+    over K7's port, or under affine gaps Myers-Miller over its affine
+    capture fill, and scores the oracle's optimum; no config raises any
+    more."""
     monkeypatch.setattr(api, "FULL_TABLE_CELL_LIMIT", 100)
     s1, s2 = _pair(20, 30, seed=1)
     if cfg.has_matrix:  # the 2-code matrix scores codes 0 and 1
@@ -241,14 +242,14 @@ def test_oracle_matches_jax_package(kwargs, m, n):
 
 
 def test_oracle_refuses_affine():
-    """The oracle scores affine configs; its affine traceback is not ported
-    (item 10), so ``align`` refuses them even on the full table."""
+    """Repaired: the oracle's affine traceback and so ``align`` raised even
+    on a 10 x 12 table; both now walk it as ``tpualign`` does."""
     cfg = ScoringConfig(gap_open=-3, gap_extend=-1)
+    jcfg = jconfig.ScoringConfig(gap_open=-3, gap_extend=-1)
     s1, s2 = _pair(10, 12, seed=4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        toracle.traceback(s1, s2, cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        align(s1, s2, cfg, CPU)
+    want = oracle.traceback(s1, s2, jcfg)
+    assert toracle.traceback(s1, s2, cfg) == want == tpualign.align(s1, s2, jcfg)
+    assert align(s1, s2, cfg, CPU) == want
 
 
 @pytest.mark.parametrize("mode", list(AlignMode), ids=lambda m: m.name)

@@ -24,7 +24,7 @@ from tpualign.ops import oracle
 from tpualign.utils import native
 from tpualign_torch import EngineConfig, align, api, matrices
 from tpualign_torch.config import AlignMode, ScoringConfig
-from tpualign_torch.ops import band, band_align, ends_free, hirschberg
+from tpualign_torch.ops import affine_align, band, band_align, ends_free, hirschberg
 from tpualign_torch.ops import oracle as toracle
 
 CPU = EngineConfig(device="cpu")
@@ -140,7 +140,8 @@ def test_capture_fill_on_cpu_is_the_plain_version():
                             cell=True, geometry=(1, 32))
     want = band.capture_plain(s1, s2, cfg, [1, 32, 33, 70], zero_col=True, col=True,
                               cell=True)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(a is b is None or torch.equal(a, b) for a, b in zip(got, want))
+    assert got.f is None  # F's last row: affine gaps only
     assert torch.equal(got.caps[-1], got.row)  # row n is also the last row
     assert int(got.col[-1]) == int(got.row[-1])  # H(n, m) in both
     assert band.capture_fill.launches == before  # the count is of kernel launches
@@ -159,8 +160,10 @@ def test_capture_fill_rejects_bad_arguments():
         band.capture_fill(torch.ones(20, dtype=torch.int8)[::2], query, cfg)
     with pytest.raises(ValueError, match="cpu or cuda"):
         band.capture_fill(text.to("meta"), query.to("meta"), cfg)
-    with pytest.raises(ValueError, match="linear gaps"):
-        band.capture_fill(text, query, ScoringConfig(gap_open=-3, gap_extend=-1))
+    with pytest.raises(ValueError, match="takes affine gaps"):  # the top-edge open
+        band.capture_fill(text, query, cfg, tb=0)
+    with pytest.raises(ValueError, match="tb must lie"):
+        band.capture_fill(text, query, ScoringConfig(gap_open=-3, gap_extend=-1), tb=-4)
     for rows in ([0], [8], [3, 3], [4, 2]):
         with pytest.raises(ValueError, match="captured rows"):
             band.capture_fill(text, query, cfg, rows)
@@ -317,9 +320,11 @@ def test_refusals():
     s1, s2 = _pair(30, 20, seed=2)
     with pytest.raises(ValueError, match="ends-free"):
         band_align.align_global(s1, s2, ScoringConfig(mode=AlignMode.SEMIGLOBAL), device="cpu")
-    with pytest.raises(ValueError, match="item 10"):
-        band_align.align_local(s1, s2, ScoringConfig(mode=AlignMode.LOCAL, gap_open=-3,
-                                                     gap_extend=-1), device="cpu")
+    affine_sw = ScoringConfig(mode=AlignMode.LOCAL, gap_open=-3, gap_extend=-1)
+    with pytest.raises(ValueError, match="ops/affine_align.py"):
+        band_align.align_local(s1, s2, affine_sw, device="cpu")
+    sc, a1, a2 = affine_align.align_local(s1, s2, affine_sw, device="cpu")  # served there
+    assert sc == toracle.score(s1, s2, affine_sw) == toracle.alignment_score(a1, a2, affine_sw)
     with pytest.raises(ValueError, match="local"):
         band_align.align_local(s1, s2, ScoringConfig(gap=-2), device="cpu")
     with pytest.raises(ValueError, match="sg/infix"):
@@ -329,7 +334,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="int32 headroom"):
         band_align.align_global(s1, s2, ScoringConfig(match=1 << 24, gap=-(1 << 24)),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ends_free.align_large(*_pair(3000, 3000, seed=1),
-                              ScoringConfig(mode=AlignMode.SEMIGLOBAL, gap_open=-3,
-                                            gap_extend=-1), device="cpu")
+    # affine ends-free alignment, once refused, reduces to a Myers-Miller core
+    affine_sg = ScoringConfig(mode=AlignMode.SEMIGLOBAL, gap_open=-3, gap_extend=-1)
+    b1, b2 = _pair(300, 200, seed=1)
+    sc, a1, a2 = ends_free.align_large(b1, b2, affine_sg, device="cpu")
+    assert sc == toracle.score(b1, b2, affine_sg) == toracle.alignment_score(a1, a2, affine_sg)
+    assert a1.replace("-", "") in _decode(b1) and a2.replace("-", "") in _decode(b2)

@@ -2,9 +2,9 @@
 traceback, ends-free start, re-scoring) against ``tpualign.ops.oracle``,
 string for string in every mode and with a matrix, and the port's
 ``align`` against ``tpualign.align``: the small path string for string, the
-large paths (bit-parallel Hirschberg, and the band split for every other
-linear-gap config, forced on small pairs by lowering the full-table limit)
-valid and optimal, and its refusals.  Inputs come from
+large paths (bit-parallel Hirschberg, the band split for every other
+linear-gap config and Myers-Miller under affine gaps, forced on small pairs
+by lowering the full-table limit) valid and optimal, and its refusals.  Inputs come from
 numpy with a seed; comparisons are exact."""
 
 import numpy as np
@@ -29,9 +29,19 @@ CONFIGS = [
     dict(mode="LOCAL", mismatch=-1, gap=-2), dict(mode="SEMIGLOBAL", gap=-2),
     dict(mode="INFIX", mismatch=-1), dict(matrix=_DNA, gap=-2),
     dict(matrix=_DNA, mode="LOCAL", gap=-3), dict(matrix=_DNA, mode="INFIX", gap=-1),
+    dict(match=2, mismatch=-1, gap_open=-5, gap_extend=-2),
+    dict(mode="LOCAL", match=2, mismatch=-1, gap_open=-5, gap_extend=-2),
+    dict(mode="SEMIGLOBAL", match=2, mismatch=-1, gap_open=-3, gap_extend=-1),
+    dict(mode="INFIX", mismatch=-1, gap_open=-2, gap_extend=-1),
+    dict(gap_open=0, gap_extend=-1),
+    dict(matrix=_DNA, gap_open=-4, gap_extend=-1),
+    dict(matrix=_DNA, mode="LOCAL", gap_open=-4, gap_extend=-2),
+    dict(matrix=_DNA, mode="SEMIGLOBAL", gap_open=-3, gap_extend=-1),
 ]
 IDS = ["unit", "2,-1,-3", "g2", "local", "semiglobal", "infix", "matrix",
-       "matrix-local", "matrix-infix"]
+       "matrix-local", "matrix-infix", "affine", "affine-local", "affine-semiglobal",
+       "affine-infix", "affine-open0", "affine-matrix", "affine-matrix-local",
+       "affine-matrix-semiglobal"]
 
 
 def _configs(kwargs):
@@ -106,11 +116,12 @@ def test_api_align_large_path_is_hirschberg(monkeypatch, cfg):
      (ScoringConfig(mode=AlignMode.SEMIGLOBAL), None),
      (ScoringConfig(matrix=_DNA), None),
      (ScoringConfig(gap=-8), None),
-     (ScoringConfig(gap_open=-3, gap_extend=-1), "item 10")],
+     (ScoringConfig(gap_open=-3, gap_extend=-1), None)],
     ids=["local", "semiglobal", "matrix", "g8", "affine"])
 def test_api_align_large_unported_configs_raise(monkeypatch, cfg, item):
-    """Past the full table every linear-gap config aligns (the band split
-    over K7's port): valid, with the oracle's score; affine gaps raise."""
+    """Past the full table every config aligns (the band split over K7's
+    port, or Myers-Miller over its affine capture fill): valid, with the
+    oracle's score.  No config raises any more."""
     monkeypatch.setattr(api, "FULL_TABLE_CELL_LIMIT", 5000)
     s1, s2 = _pair(150, 130, seed=8)
     if item is not None:
@@ -123,14 +134,16 @@ def test_api_align_large_unported_configs_raise(monkeypatch, cfg, item):
     if not (cfg.is_local or cfg.is_ends_free):
         assert len(core1) == s1.size and len(core2) == s2.size
     assert not any(x == "-" and y == "-" for x, y in zip(a1, a2))
-    jcfg = _configs(dict(mode=cfg.mode.name, gap=cfg.gap, matrix=cfg.matrix))[1]
+    jcfg = _configs(dict(mode=cfg.mode.name, gap=cfg.gap, matrix=cfg.matrix,
+                         gap_open=cfg.gap_open, gap_extend=cfg.gap_extend))[1]
     assert sc == toracle.alignment_score(a1, a2, cfg) == oracle.score(s1, s2, jcfg)
 
 
 def test_api_align_refusals(monkeypatch):
     s1, s2 = _pair(30, 20, seed=2)
-    with pytest.raises(NotImplementedError, match="item 10"):  # affine alignment
-        align(s1, s2, ScoringConfig(gap_open=-3, gap_extend=-1), CPU)
+    # affine alignment, once refused, is tpualign's on the full table
+    assert align(s1, s2, ScoringConfig(gap_open=-3, gap_extend=-1), CPU) == tpualign.align(
+        s1, s2, jconfig.ScoringConfig(gap_open=-3, gap_extend=-1))
     # a family query past the one-block bit-parallel fill falls through to
     # the band split, as tpualign's align does
     monkeypatch.setattr(hirschberg, "MAX_QUERY_ROWS", 100)

@@ -8,13 +8,18 @@ version's, or the script exits 1.
 
 Usage, from the repo root on a machine with a card and ``nvcc``:
 
-    python3 tools/ab_band_fill.py parent=OLD.cu change=tpualign_torch/csrc/band_fill.cu
+    python3 tools/ab_band_fill.py parent=OLD.cu \
+        change=tpualign_torch/csrc/band_fill.cu+tpualign_torch/csrc/band_capture_affine.cu
+
+A version is one source or several joined by ``+``, built into one library.
 
 Times are CUDA-event medians of ``--runs`` runs after one warm-up: K6
 (``band_fill``) under SW (2, -1, -2), the DNA matrix, affine NW and affine
 SW at 20,000 x 20,000, and SW at the 64gb shape unless ``--no-full``; K7
 (``band_capture_fill``, where a version has it) as the SW locate and as a
-global fill with 31 rows at 20,000 x 20,000.  Every K6 kernel of a later
+global fill with 31 rows at 20,000 x 20,000, and where a version has
+``band_capture_affine`` as Myers-Miller's half fill (10,000 rows, the last
+rows H and F) and the affine SW locate.  Every K6 kernel of a later
 version is compared with the first version's instruction for instruction
 (addresses and encodings cut); with ``--out DIR`` the SASS of K6's SW
 kernel at 16 rows a thread goes to DIR, one file per version.
@@ -55,10 +60,11 @@ SCORES = {
 SW_KERNEL = "band_fill_kernelILi16ELb0ELb0ELb1E"
 
 
-def build(label: str, src: str, out: str) -> subprocess.Popen:
+def build(label: str, srcs: str, out: str) -> subprocess.Popen:
+    """nvcc of one version: its sources, joined by ``+``, into one library."""
     lib = os.path.join(out, f"{label}.so")
     return subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, src],
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, *srcs.split("+")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -104,6 +110,10 @@ def bind(lib: str) -> ctypes.CDLL:
         dll.band_capture_fill.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 6
                                           + [vp, i32] + [vp] * 5)
         dll.band_capture_fill.restype = i32
+    if hasattr(dll, "band_capture_affine"):
+        dll.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 8
+                                            + [vp, i32] + [vp] * 6)
+        dll.band_capture_affine.restype = i32
     return dll
 
 
@@ -127,26 +137,37 @@ def score_call(dll, text, query, cfg, ends):
     return run
 
 
-def capture_call(dll, text, query, cfg, rows, cell):
+def capture_call(dll, text, query, cfg, rows, cell, tb=0):
+    """A capture fill: ``band_capture_fill`` under linear gaps,
+    ``band_capture_affine`` (with the top-edge open ``tb``) under affine
+    ones.  Returns the captured rows, then the cell, then the F row."""
     m, n = text.numel(), query.numel()
     k, threads = band.kernel_geometry(n, band.max_k(cfg))
     krows = list(rows) if rows and rows[-1] == n else list(rows) + [n]
     cap_rows = torch.tensor(krows, dtype=torch.int32).cuda()
     caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device="cuda")
     found = torch.empty(3, dtype=torch.int32, device="cuda") if cell else None
-    boundary = torch.empty(m + 1, dtype=torch.int32, device="cuda")
+    f_row = torch.empty(m + 1, dtype=torch.int32, device="cuda") if cfg.is_affine else None
+    boundary = torch.empty((2, m + 1), dtype=torch.int32, device="cuda")
     matrix = torch.zeros(1, dtype=torch.int32, device="cuda")
+    head = (text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), 0, cfg.match,
+            cfg.mismatch)
+    flags = band._flags(cfg, (False, False, False, False))
+    outs = (cap_rows.data_ptr(), len(krows), caps.data_ptr(), None,
+            None if found is None else found.data_ptr())
 
     def run():
-        err = dll.band_capture_fill(
-            text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), 0, cfg.match,
-            cfg.mismatch, cfg.gap, band._flags(cfg, (False, False, False, False)), k,
-            threads, cap_rows.data_ptr(), len(krows), caps.data_ptr(), None,
-            None if found is None else found.data_ptr(), boundary.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if cfg.is_affine:
+            err = dll.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags, k,
+                                          threads, *outs, f_row.data_ptr(),
+                                          boundary.data_ptr(), stream)
+        else:
+            err = dll.band_capture_fill(*head, cfg.gap, flags, k, threads, *outs,
+                                        boundary.data_ptr(), stream)
         if err:
-            raise RuntimeError(f"band_capture_fill launch failed with CUDA error {err}")
-        return torch.cat([caps.flatten(), found]) if cell else caps
+            raise RuntimeError(f"the capture fill's launch failed with CUDA error {err}")
+        return torch.cat([caps.flatten()] + [t for t in (found, f_row) if t is not None])
     return run
 
 
@@ -227,7 +248,11 @@ def main() -> int:
     rows20 = hirschberg._kway_rows(b.numel())
     cases += [("K7 SW locate 20k", lambda d: capture_call(d, a, b, SW, [], True)),
               ("K7 global 31 rows 20k", lambda d: capture_call(
-                  d, a, b, ScoringConfig(match=2, mismatch=-1, gap=-2), rows20, False))]
+                  d, a, b, ScoringConfig(match=2, mismatch=-1, gap=-2), rows20, False)),
+              ("K7 affine global half 20k", lambda d: capture_call(
+                  d, a, b[:10000], SCORES["affine NW"], [], False, tb=-5)),
+              ("K7 affine SW locate 20k", lambda d: capture_call(
+                  d, a, b, SCORES["affine SW"], [], True, tb=-5))]
     if not args.no_full:
         g = np.random.default_rng(64)
         s1 = torch.from_numpy(g.integers(1, 5, 126440).astype(np.int8)).cuda()
@@ -243,6 +268,8 @@ def main() -> int:
         for label in order:
             dll = dlls[label]
             if case.startswith("K7") and not hasattr(dll, "band_capture_fill"):
+                continue
+            if case.startswith("K7 affine") and not hasattr(dll, "band_capture_affine"):
                 continue
             ms, runs, out = time_ms(make(dll), args.runs)
             if case in firsts and not torch.equal(firsts[case], out):

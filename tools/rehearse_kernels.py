@@ -2,8 +2,9 @@
 
     python tools/rehearse_kernels.py [--cases N] [--seed S]
 
-Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points) and
-``diag_fill.cu`` with ``g++`` as
+Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points),
+``band_capture_affine.cu`` (with the template they share,
+``band_fill.cuh``) and ``diag_fill.cu`` with ``g++`` as
 C++20 through a shim ``cuda_runtime.h``: one ``std::thread`` per CUDA
 thread of the one block, ``__syncthreads`` as a ``std::barrier``, the warp
 shuffles through a slot array between two barriers, ``__shared__`` as
@@ -103,23 +104,25 @@ template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, 
 """
 
 LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<1, (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
-SOURCES = ("band_fill.cu", "diag_fill.cu")
+SOURCES = ("band_fill.cu", "band_capture_affine.cu", "diag_fill.cu")
+HEADERS = ("band_fill.cuh",)
 
 
 def build() -> ctypes.CDLL:
-    """Compile the two kernels with g++ through the shim; return the library."""
+    """Compile the kernels with g++ through the shim; return the library."""
     out_dir = os.path.join(_build.BUILD_DIR, "rehearse")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
         f.write(SHIM)
     objs = []
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:  # the headers beside the sources that include them
         with open(os.path.join(_build.CSRC, name)) as f:
             src = LAUNCH.sub(r"shim::launch(\2, [&] { \1(\4); });", f.read())
-        path = os.path.join(out_dir, name + ".cpp")
+        path = os.path.join(out_dir, name if name in HEADERS else name + ".cpp")
         with open(path, "w") as f:
             f.write(src)
-        objs.append(path)
+        if name in SOURCES:
+            objs.append(path)
     lib = os.path.join(out_dir, "librehearse.so")
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-I", out_dir,
                     "-o", lib, *objs, "-lpthread"], check=True)
@@ -128,6 +131,8 @@ def build() -> ctypes.CDLL:
     dll.band_fill.argtypes = [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, vp, vp]
     dll.band_capture_fill.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 6
                                       + [vp, i32] + [vp] * 5)
+    dll.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 8
+                                        + [vp, i32] + [vp] * 6)
     dll.diag_fill.argtypes = [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp]
     return dll
 
@@ -157,20 +162,25 @@ def _band_case(dll, rng, mode, matrix, affine, m, n, geometry):
     return err == 0 and int(out[0]) == want, (cfg, ends, m, n, k, threads, int(out[0]), want)
 
 
-def _capture_case(dll, rng, local, matrix, m, n, geometry, locate):
+def _capture_case(dll, rng, local, matrix, m, n, geometry, locate, affine=False):
     """``band_capture_fill`` against ``capture_plain``: the last row, rows
-    around the strip edges, the last column and, with ``locate``, the
-    located cell."""
+    around the strip edges, the last column, with ``locate`` the located
+    cell, and with ``affine`` the last row of F under a top-edge open ``tb``
+    of ``gap_open`` or 0."""
     kw = dict(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 2)),
               gap=int(rng.integers(-4, 0)), mode=AlignMode.LOCAL if local else AlignMode.GLOBAL)
     if matrix is not None:
         kw["matrix"] = matrix
+    if affine:
+        kw.update(gap_open=int(rng.integers(-6, 1)), gap_extend=int(rng.integers(-3, 0)))
     cfg = ScoringConfig(**kw)
+    tb = (cfg.gap_open if rng.integers(0, 2) else 0) if affine else None
     hi = len(matrix) if matrix is not None else 5
     text = torch.from_numpy(rng.integers(0, hi, m).astype(np.int8))
     query = torch.from_numpy(rng.integers(0, hi, n).astype(np.int8))
     zr, zc = (bool(x) for x in rng.integers(0, 2, 2))
     k, threads = geometry or band.kernel_geometry(n, band.max_k(cfg))
+    k = min(k, band.max_k(cfg))
     R = k * threads
     rows = sorted({r for r in (1, R - 1, R, R + 1, 2 * R, n - 1, n,
                                int(rng.integers(1, n + 1))) if 1 <= r <= n})
@@ -178,19 +188,26 @@ def _capture_case(dll, rng, local, matrix, m, n, geometry, locate):
     mat = np.ascontiguousarray(np.asarray(matrix if K else [0], np.int32).reshape(-1))
     cap_rows = np.asarray(rows, np.int32)  # row n among them: the last row
     caps = np.empty((len(rows), m + 1), np.int32)
-    scratch, col, cell = np.empty(m + 1, np.int32), np.empty(n + 1, np.int32), np.empty(3, np.int32)
-    err = dll.band_capture_fill(text.data_ptr(), m, query.data_ptr(), n, mat.ctypes.data, K,
-                                cfg.match, cfg.mismatch, cfg.gap,
-                                band._flags(cfg, (zr, zc, False, False)), k, threads,
-                                cap_rows.ctypes.data, len(rows), caps.ctypes.data,
-                                col.ctypes.data, cell.ctypes.data if locate else None,
-                                scratch.ctypes.data, None)
+    scratch, col, cell = np.empty(2 * (m + 1), np.int32), np.empty(n + 1, np.int32), np.empty(3, np.int32)
+    fout = np.empty(m + 1, np.int32)
+    head = (text.data_ptr(), m, query.data_ptr(), n, mat.ctypes.data, K, cfg.match,
+            cfg.mismatch)
+    flags = band._flags(cfg, (zr, zc, False, False))
+    outs = (cap_rows.ctypes.data, len(rows), caps.ctypes.data, col.ctypes.data,
+            cell.ctypes.data if locate else None)
+    if affine:
+        err = dll.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags, k,
+                                      threads, *outs, fout.ctypes.data, scratch.ctypes.data,
+                                      None)
+    else:
+        err = dll.band_capture_fill(*head, cfg.gap, flags, k, threads, *outs,
+                                    scratch.ctypes.data, None)
     want = band.capture_plain(text, query, cfg, rows, zero_row=zr, zero_col=zc,
-                              col=True, cell=locate)
-    got = (caps[-1], caps, col, cell if locate else None)
+                              col=True, cell=locate, tb=tb)
+    got = (caps[-1], caps, col, cell if locate else None, fout if affine else None)
     ok = err == 0 and all(a is b is None or np.array_equal(a, b.numpy())
                           for a, b in zip(got, want))
-    return ok, (cfg, zr, zc, m, n, k, threads, rows, cell, want.cell)
+    return ok, (cfg, tb, zr, zc, m, n, k, threads, rows, cell, want.cell)
 
 
 def main() -> None:
@@ -214,14 +231,16 @@ def main() -> None:
         if not ok:
             sys.exit(f"band_fill differs from score_plain: {info}")
     print(f"[rehearse] band_fill equal to score_plain in {args.cases} cases")
-    for c in range(args.cases):
+    for c in range(2 * args.cases):
         geometry = geometries[int(rng.integers(0, len(geometries)))]
         m, n = (int(x) for x in rng.integers(1, 90, 2))
+        m, n = (1 if c % 10 == 3 else m), (1 if c % 10 == 7 else n)  # 1-column, 1-row
         ok, info = _capture_case(dll, rng, bool(c % 2), mats[(c // 2) % 4], m, n, geometry,
-                                 locate=c % 3 != 2)
+                                 locate=c % 3 != 2, affine=c >= args.cases)
         if not ok:
             sys.exit(f"band_capture_fill differs from capture_plain: {info}")
-    print(f"[rehearse] band_capture_fill equal to capture_plain in {args.cases} cases")
+    print(f"[rehearse] band_capture_fill equal to capture_plain in {args.cases} linear "
+          f"and {args.cases} affine cases")
     for c in range(args.cases // 4):
         cfg = ScoringConfig(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 1)),
                             gap=int(rng.integers(-4, 1)),

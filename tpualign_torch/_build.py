@@ -118,6 +118,10 @@ def load() -> ctypes.CDLL:
             vp, i32, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32,
             vp, i32, vp, vp, vp, vp, vp]
         lib.band_capture_fill.restype = i32
+        lib.band_capture_affine.argtypes = [
+            vp, i32, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+            vp, i32, vp, vp, vp, vp, vp, vp]
+        lib.band_capture_affine.restype = i32
         lib.diag_fill.argtypes = [vp, i32, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp]
         lib.diag_fill.restype = i32
         _lib = lib

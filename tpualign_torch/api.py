@@ -6,10 +6,11 @@ does on a TPU: the bit-parallel engine for the (1, 0, -g) family, g = 1..7,
 the band engine for everything else, and the same fallbacks when an engine
 refuses a config or a shape with ValueError.  Every engine runs on
 ``engine.device``: its CUDA kernel on a CUDA device, its plain PyTorch
-version on the CPU.  ``align`` walks the full table for any linear-gap
-config up to ``FULL_TABLE_CELL_LIMIT`` cells; above it, it runs the
-bit-parallel Hirschberg split for the family and the split over K7's port
-(``ops/band_align.py``, ``ops/ends_free.py``) for every other linear-gap
+version on the CPU.  ``align`` serves every ``ScoringConfig`` too: it walks
+the full table up to ``FULL_TABLE_CELL_LIMIT`` cells; above it, it runs the
+bit-parallel Hirschberg split for the family, Myers-Miller over K7's affine
+capture fill (``ops/affine_align.py``) for affine gaps, and the split over
+K7's port (``ops/band_align.py``, ``ops/ends_free.py``) for every other
 config.  What is not ported raises NotImplementedError naming the ROADMAP
 item that ports it; nothing runs quietly on another engine or device.
 """
@@ -21,7 +22,8 @@ from typing import Tuple
 import numpy as np
 
 from .config import UNPORTED_IMPLS, EngineConfig, ScoringConfig
-from .ops import band, band_align, bitpal, ends_free, hirschberg, oracle, pallas_diag, xla
+from .ops import (affine_align, band, band_align, bitpal, ends_free, hirschberg, oracle,
+                  pallas_diag, xla)
 
 #: ``align`` walks the exact full table up to this many DP cells (as
 #: ``tpualign.api.FULL_TABLE_CELL_LIMIT``), and bisects above it
@@ -94,23 +96,28 @@ def align(
     against ``s2`` (query, rows), with the semantics of ``tpualign.align``.
 
     Up to ``FULL_TABLE_CELL_LIMIT`` cells: the exact full-table traceback
-    (:func:`tpualign_torch.ops.oracle.traceback`), any linear-gap config,
-    on the host.  Above it, on ``engine.device``, routed as
-    ``tpualign/api.py:218-288`` routes on a TPU: matrix or ends-free configs
-    to :func:`tpualign_torch.ops.ends_free.align_large`; the (1, 0, -g)
-    family (``bitpal``) to the bit-parallel Hirschberg split; ``band`` and
-    ``pallas`` to :func:`tpualign_torch.ops.band_align.align_local` or
-    ``align_global``.  Where the bit-parallel split refuses a pair
+    (:func:`tpualign_torch.ops.oracle.traceback`), any config, on the host.
+    Above it, on ``engine.device``, routed as ``tpualign/api.py:218-288``
+    routes on a TPU: matrix or ends-free configs to
+    :func:`tpualign_torch.ops.ends_free.align_large`; other affine configs,
+    whatever ``impl`` is, to Myers-Miller
+    (:func:`tpualign_torch.ops.affine_align.align` or ``align_local``); the
+    (1, 0, -g) family (``bitpal``) to the bit-parallel Hirschberg split;
+    ``band`` and ``pallas`` to :func:`tpualign_torch.ops.band_align.align_local`
+    or ``align_global``.  Where the bit-parallel split refuses a pair
     (ValueError), the port goes on to the band split: its own choice, since
     ``tpualign`` sends such a pair to its checkpointed traceback, which is
-    not ported.  The alignments are optimal, with a tie order that may
-    differ from the oracle's.  Affine configs and ``impl="oracle"`` or
-    ``"xla"`` raise NotImplementedError naming their ROADMAP item.
+    not ported.  The alignments are optimal; under linear gaps their tie
+    order may differ from the oracle's, under affine gaps the strings are
+    ``tpualign``'s.  ``impl="oracle"`` or ``"xla"`` under linear gaps raise
+    NotImplementedError naming their ROADMAP item.
 
     ``stats``, when given, gets the split of the path past the full table:
     the tree's counts and host-clock seconds
-    (:func:`tpualign_torch.ops.hirschberg.tree`) and, for local configs,
-    the located cells and route (:func:`tpualign_torch.ops.band_align.align_local`)."""
+    (:func:`tpualign_torch.ops.hirschberg.tree`,
+    :func:`tpualign_torch.ops.affine_align.align`) and, for local configs,
+    the located cells (:func:`tpualign_torch.ops.band_align.align_local`,
+    :func:`tpualign_torch.ops.affine_align.align_local`)."""
     s1 = np.asarray(s1, dtype=np.int8)
     s2 = np.asarray(s2, dtype=np.int8)
     if (s1.size + 1) * (s2.size + 1) <= FULL_TABLE_CELL_LIMIT:
@@ -119,9 +126,7 @@ def align(
     if scoring.has_matrix or scoring.is_ends_free:
         return ends_free.align_large(s1, s2, scoring, device=dev, stats=stats)
     if scoring.is_affine:
-        raise NotImplementedError(
-            "alignment under affine (Gotoh) gaps past the full table is not "
-            "ported yet: ROADMAP queue 1 item 10 (affine alignment)")
+        return affine_align.align(s1, s2, scoring, device=dev, stats=stats)
     impl = resolve_impl(engine, scoring)
     if impl == "bitpal":
         try:

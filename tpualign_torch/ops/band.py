@@ -143,10 +143,10 @@ def score_plain(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     xla.check_pair(text, query, ("text", "query"))
     zr, zc, er, ec = ends
     local = cfg.is_local
-    h, best, col, _, _ = xla.rows_scan(
+    h, best, col = xla.rows_scan(
         text, query, cfg, zero_row=local or zr, zero_col=local or zc,
         want_best=local, want_col=ec and not local,
-    )
+    )[:3]
     if local:
         return best.clamp(min=0)
     if er or ec:
@@ -208,41 +208,54 @@ class Capture(NamedTuple):
     col: Optional[torch.Tensor]  # (n+1,): the last column H(0..n, m)
     cell: Optional[torch.Tensor]  # (3,): (v, i, j), the row-major first max
     #                               over the cells i >= 1, j >= 1
+    f: Optional[torch.Tensor]  # (m+1,): affine, the last row F(n, 0..m),
+    #                            F(n, 0) taken as H(n, 0)
 
 
 def _check_capture(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
-                   rows) -> list:
+                   rows, tb: Optional[int]) -> Tuple[list, int]:
+    """The rows as a list and the top-edge open (0 under linear gaps)."""
     xla.check_pair(text, query, ("text", "query"))
-    if cfg.is_affine:
-        raise ValueError("the capture fill takes linear gaps (affine alignment is "
-                         "ROADMAP queue 1 item 10)")
     rows = [int(r) for r in rows]
     n = query.numel()
     if any(not 1 <= r <= n for r in rows) or any(a >= b for a, b in zip(rows, rows[1:])):
         raise ValueError(f"captured rows must increase within 1..{n}, got {rows}")
-    return rows
+    if not cfg.is_affine:
+        if tb is not None:
+            raise ValueError("tb, the top edge's vertical-gap open, takes affine gaps")
+        return rows, 0
+    tb = cfg.gap_open if tb is None else int(tb)
+    if not cfg.gap_open <= tb <= 0:
+        raise ValueError(f"tb must lie in [gap_open, 0] = [{cfg.gap_open}, 0], got {tb}")
+    return rows, tb
 
 
 def capture_plain(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
                   rows=(), *, zero_row: bool = False, zero_col: bool = False,
-                  col: bool = False, cell: bool = False) -> Capture:
+                  col: bool = False, cell: bool = False,
+                  tb: Optional[int] = None) -> Capture:
     """Plain PyTorch version of the capture kernel: the fill of ``text``
-    (columns) against ``query`` (rows) under the linear-gap ``cfg`` (in
-    kernel coordinates), with H(0, :) = 0 under ``zero_row`` or local
-    scoring and H(:, 0) = 0 under ``zero_col`` or local scoring, by one
+    (columns) against ``query`` (rows) under ``cfg`` (in kernel
+    coordinates), with H(0, :) = 0 under ``zero_row`` or local scoring and
+    H(:, 0) = 0 under ``zero_col`` or local scoring, by one
     :func:`tpualign_torch.ops.xla.rows_scan`.  Returns the last row, the
     rows ``rows`` (DP rows in 1..n, increasing), with ``col`` the last
-    column, and with ``cell`` the located cell (:class:`Capture`)."""
-    rows = _check_capture(text, query, cfg, rows)
+    column, with ``cell`` the located cell, and under affine gaps the last
+    row of F, where ``tb`` (default ``gap_open``, in ``[gap_open, 0]``) is
+    Myers-Miller's top-edge open: F(0, j) = H(0, j) + tb and H(i, 0) =
+    tb + i*ext (:class:`Capture`)."""
+    rows, tb = _check_capture(text, query, cfg, rows, tb)
     zr, zc = cfg.is_local or zero_row, cfg.is_local or zero_col
     scan = xla.rows_scan(text, query, cfg, zero_row=zr, zero_col=zc, want_col=col,
-                         capture_rows=rows, want_cell=cell)
+                         capture_rows=rows, want_cell=cell,
+                         tb=tb if cfg.is_affine else None)
     last_col = None
     if col:
-        h0m = 0 if zr else cfg.gap * text.numel()
+        h0m = 0 if zr else xla.gap_run(cfg, text.numel())
         last_col = torch.cat([scan.col.new_full((1,), h0m), scan.col]).int()
     return Capture(scan.h.int(), scan.caps.int() if rows else None, last_col,
-                   scan.cell.int() if cell else None)
+                   scan.cell.int() if cell else None,
+                   scan.f.int() if cfg.is_affine else None)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -251,20 +264,23 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
                  rows=(), *, zero_row: bool = False, zero_col: bool = False,
-                 col: bool = False, cell: bool = False,
+                 col: bool = False, cell: bool = False, tb: Optional[int] = None,
                  geometry: Optional[Tuple[int, int]] = None) -> Capture:
     """The capture kernel's result (:func:`capture_plain`) on the device of
-    its tensors: the CUDA kernel ``band_capture_fill`` (``csrc/band_fill.cu``,
-    K7's port) for CUDA tensors, :func:`capture_plain` for CPU tensors.
+    its tensors: K7's port for CUDA tensors, the CUDA kernel
+    ``band_capture_fill`` (``csrc/band_fill.cu``) or, under affine gaps,
+    ``band_capture_affine`` (``csrc/band_capture_affine.cu``), one fill
+    template (``csrc/band_fill.cuh``); :func:`capture_plain` for CPU
+    tensors.
 
     ``geometry`` as in :func:`band_fill`.  On CUDA the wrapper allocates the
     outputs, launches on the current stream without synchronising, and
     counts the launch in ``capture_fill.launches``.  A launch the device
     refuses raises; nothing falls back to the plain version."""
-    rows = _check_capture(text, query, cfg, rows)
+    rows, tb = _check_capture(text, query, cfg, rows, tb)
     if text.device.type == "cpu":
-        return capture_plain(text, query, cfg, rows, zero_row=zero_row,
-                             zero_col=zero_col, col=col, cell=cell)
+        return capture_plain(text, query, cfg, rows, zero_row=zero_row, zero_col=zero_col,
+                             col=col, cell=cell, tb=tb if cfg.is_affine else None)
     if text.device.type != "cuda":
         raise ValueError(f"capture_fill runs on cpu or cuda tensors, got {text.device}")
     m, n = text.numel(), query.numel()
@@ -279,19 +295,28 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device=dev)
     last_col = torch.empty(n + 1, dtype=torch.int32, device=dev) if col else None
     found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
-    boundary = torch.empty(m + 1, dtype=torch.int32, device=dev)
+    f_row = torch.empty(m + 1, dtype=torch.int32, device=dev) if cfg.is_affine else None
+    # H and, under affine gaps, F of the strips' boundary row
+    boundary = torch.empty((2 if cfg.is_affine else 1, m + 1), dtype=torch.int32, device=dev)
+    head = (text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K, cfg.match,
+            cfg.mismatch)
+    flags = _flags(cfg, (zero_row, zero_col, False, False))
+    outs = (cap_rows.data_ptr(), len(krows), caps.data_ptr(), _ptr(last_col), _ptr(found))
     with torch.cuda.device(dev):
-        err = lib.band_capture_fill(
-            text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
-            cfg.match, cfg.mismatch, cfg.gap,
-            _flags(cfg, (zero_row, zero_col, False, False)), k, threads,
-            cap_rows.data_ptr(), len(krows), caps.data_ptr(), _ptr(last_col), _ptr(found),
-            boundary.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if cfg.is_affine:  # csrc/band_capture_affine.cu
+            entry = "band_capture_affine"
+            err = lib.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags, k,
+                                          threads, *outs, f_row.data_ptr(),
+                                          boundary.data_ptr(), stream)
+        else:
+            entry = "band_capture_fill"
+            err = lib.band_capture_fill(*head, cfg.gap, flags, k, threads, *outs,
+                                        boundary.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"band_capture_fill launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     capture_fill.launches += 1
-    return Capture(caps[-1], caps[: len(rows)] if rows else None, last_col, found)
+    return Capture(caps[-1], caps[: len(rows)] if rows else None, last_col, found, f_row)
 
 
 capture_fill.launches = 0

@@ -73,8 +73,8 @@ def _check_align_cfg(cfg: ScoringConfig) -> None:
         raise ValueError("band_align serves global/local configs; ends-free modes "
                          "reduce through ops.ends_free")
     if cfg.is_affine:
-        raise ValueError("affine gaps are outside the band alignment's envelope "
-                         "(ROADMAP queue 1 item 10)")
+        raise ValueError("band_align takes linear gaps; affine gaps align through "
+                         "ops/affine_align.py")
 
 
 def _codes(s1, s2, cfg: ScoringConfig):
@@ -133,17 +133,28 @@ def locate_all(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig, *,
                anchored: bool = False) -> Tuple[int, int, int]:
     """``(v, i, j)``: the row-major first maximum over every cell of the
     table of ``text`` (columns) against ``query`` (rows), boundary cells
-    included, by one capture fill: local (``cfg.is_local``), with zero
-    boundaries and the floor; ``anchored``, under global boundaries and no
-    floor.  The kernel locates over ``i, j >= 1``; row 0 and column 0 are
-    closed-form (as ``tpualign.utils.native.locate_flex``'s extraction 1)."""
+    included, by one capture fill, linear or affine gaps: local
+    (``cfg.is_local``), with zero boundaries and the floor; ``anchored``,
+    under global boundaries and no floor.  The kernel locates over
+    ``i, j >= 1``; row 0 and column 0 are closed-form (as
+    ``tpualign.utils.native.locate_flex``'s extraction 1).  Under affine
+    gaps, where a hit scores above 0, this is the cell that
+    ``tpualign.ops.affine_align`` locates (``_locate``; anchored,
+    ``_first_hit_fn``)."""
     fill_cfg = cfg.with_mode(AlignMode.GLOBAL) if anchored else cfg
     v, i, j = band.capture_fill(text, query, fill_cfg, cell=True).cell.tolist()
-    m, n, g = text.numel(), query.numel(), cfg.gap
+    m, n = text.numel(), query.numel()
     zero = not anchored
-    # row 0: H(0, x) = x*g; column 0: H(y, 0) = y*g, y >= 1 (0 when zero)
-    row0 = (0, 0, 0) if zero or g <= 0 else (m * g, 0, m)
-    col0 = (0, 1, 0) if zero else ((g, 1, 0) if g <= 0 else (n * g, n, 0))
+    if cfg.is_affine:
+        # row 0: H(0, 0) = 0 >= H(0, x) = open + x*ext; column 0: H(y, 0) =
+        # open + y*ext, the largest at y = 1 (0 when zero)
+        row0 = (0, 0, 0)
+        col0 = (0, 1, 0) if zero else (cfg.gap_open + cfg.gap_extend, 1, 0)
+    else:
+        # row 0: H(0, x) = x*g; column 0: H(y, 0) = y*g, y >= 1 (0 when zero)
+        g = cfg.gap
+        row0 = (0, 0, 0) if zero or g <= 0 else (m * g, 0, m)
+        col0 = (0, 1, 0) if zero else ((g, 1, 0) if g <= 0 else (n * g, n, 0))
     return _first_max([(v, i, j), row0, col0])
 
 
@@ -213,17 +224,17 @@ def align_local(s1, s2, cfg: ScoringConfig, *, device,
 def locate_flex_device(s1, s2, cfg: ScoringConfig, *, anchored: bool = False,
                        device) -> Tuple[int, int, int]:
     """``(score, ie, je)`` of an optimal extraction cell for the ends-free
-    modes, the counterpart of ``tpualign.utils.native.locate_flex`` (same
-    boundaries, extraction sets and first-occurrence rules) by one capture
-    fill on ``device``.  ``anchored=False``: the forward end locate under
-    the mode's free-start boundaries; ``anchored=True``: the reversed start
-    locate under global boundaries, the same extraction set (the reversed
-    last row is the original row 0, the reversed last column column 0).
-    Both sequences non-empty."""
+    modes, linear or affine gaps, the counterpart of
+    ``tpualign.utils.native.locate_flex`` and of
+    ``tpualign.ops.affine_align.locate_flex`` (same boundaries, extraction
+    sets and first-occurrence rules) by one capture fill on ``device``.
+    ``anchored=False``: the forward end locate under the mode's free-start
+    boundaries; ``anchored=True``: the reversed start locate under global
+    boundaries, the same extraction set (the reversed last row is the
+    original row 0, the reversed last column column 0).  Both sequences
+    non-empty."""
     if not cfg.is_ends_free:
         raise ValueError("locate_flex_device serves the sg/infix modes")
-    if cfg.is_affine:
-        raise ValueError("locate_flex_device is linear-gap only")
     s1, s2 = _codes(s1, s2, cfg)
     m, n = s1.size, s2.size
     dev = _device(device)

@@ -1,8 +1,8 @@
 """Plain NumPy score and traceback, the port's oracle: a row scan of the
 DP table under linear and affine (Gotoh) gaps, in every mode (global,
 local, semiglobal, infix) and with a substitution matrix, and the
-full-table traceback (linear gaps) with the reference's diag > up > left
-tie order.  The same semantics as
+full-table traceback (the affine one over three tables) with the
+reference's diag > up > left tie order.  The same semantics as
 ``tpualign.ops.oracle`` (``tests/test_torch_api.py`` and
 ``tests/test_torch_traceback.py`` hold the two to each other), independent
 of the bit-parallel engine it checks.
@@ -124,6 +124,8 @@ def score_table(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> np.ndarray:
     """Full ``(N+1, M+1)`` int32 DP table (H), linear or affine gaps (the
     port of ``tpualign.ops.oracle.score_table``).  O(N*M) memory: small
     inputs only."""
+    if cfg.is_affine:
+        return affine_tables(s1, s2, cfg)[0].astype(np.int32)
     s1 = np.asarray(s1, dtype=np.int64)
     s2 = np.asarray(s2, dtype=np.int64)
     M, N = s1.size, s2.size
@@ -132,13 +134,6 @@ def score_table(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> np.ndarray:
     zero_col = local or cfg.free_start_s2  # H(i, 0) = 0
     zero_row = local or cfg.free_start_s1  # H(0, j) = 0
     H = np.zeros((N + 1, M + 1), dtype=np.int64)
-    if cfg.is_affine:
-        H[0], F, jext = _affine_top(M, cfg, zero_row)
-        for i in range(1, N + 1):
-            sub = _sub_row(s1, int(s2[i - 1]), cfg)
-            H[i], F = _affine_row(H[i - 1], F, sub, i, jext, cfg.gap_open,
-                                  cfg.gap_extend, local, zero_col=zero_col)
-        return H.astype(np.int32)
     jg = np.arange(M + 1, dtype=np.int64) * g
     if not zero_row:
         H[0, :] = jg
@@ -156,34 +151,121 @@ def score_table(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> np.ndarray:
     return H.astype(np.int32)
 
 
+def affine_tables(s1, s2, cfg: ScoringConfig, tb=None):
+    """The exact ``(N+1, M+1)`` int64 Gotoh tables ``(H, E, F)`` of an
+    affine ``cfg`` (E a horizontal gap, F a vertical one), with the top-edge
+    open ``tb`` (default ``cfg.gap_open``; Myers-Miller waives it with 0):
+    F(0, j) = H(0, j) + tb and H(i, 0) = tb + i*ext, so that a vertical gap
+    from the top edge opens at ``tb``.  ``tb`` lies in ``[gap_open, 0]``.
+
+    E comes from the cummax identity of :func:`_affine_row` and equals the
+    sequential recurrence ``E[i][j] = max(H[i][j-1] + open, E[i][j-1]) +
+    ext`` cell for cell (``open <= 0``), so a walk's predecessor tests see
+    the values ``tpualign.ops.oracle._traceback_affine`` fills cell by cell.
+    Row 0's E is that recurrence along row 0 (local: -inf), column 0's E is
+    -inf."""
+    s1 = np.asarray(s1, dtype=np.int64)
+    s2 = np.asarray(s2, dtype=np.int64)
+    M, N = s1.size, s2.size
+    local = cfg.is_local
+    zero_col = local or cfg.free_start_s2
+    open_, ext = np.int64(cfg.gap_open), np.int64(cfg.gap_extend)
+    tb = open_ if tb is None else np.int64(tb)
+    H = np.zeros((N + 1, M + 1), dtype=np.int64)
+    E = np.full((N + 1, M + 1), NEG, dtype=np.int64)
+    F = np.full((N + 1, M + 1), NEG, dtype=np.int64)
+    H[0], _, jext = _affine_top(M, cfg, local or cfg.free_start_s1)
+    F[0] = H[0] + tb
+    T = np.empty(M + 1, dtype=np.int64)
+    for i in range(1, N + 1):
+        F[i] = np.maximum(H[i - 1] + open_, F[i - 1]) + ext
+        T[0] = 0 if zero_col else tb + i * ext
+        np.maximum(H[i - 1, :-1] + _sub_row(s1, int(s2[i - 1]), cfg), F[i, 1:], out=T[1:])
+        if local:
+            np.maximum(T, 0, out=T)
+        E[i, 1:] = np.maximum.accumulate(T - jext)[:-1] + open_ + jext[1:]
+        H[i] = np.maximum(T, E[i])
+    if not local:
+        E[0, 1:] = np.maximum.accumulate(H[0] - jext)[:-1] + open_ + jext[1:]
+    return H, E, F
+
+
+def _traceback_affine(s1, s2, cfg: ScoringConfig) -> Tuple[int, str, str]:
+    """Gotoh three-state walk over :func:`affine_tables`, the port of
+    ``tpualign.ops.oracle._traceback_affine``: diag > up (F) > left (E),
+    and inside a gap state closing (an H predecessor) beats extending."""
+    H, E, F = affine_tables(s1, s2, cfg)
+    local = cfg.is_local
+    i, j = _start(H, cfg)
+    sc = int(H[i, j])
+    open_ext = cfg.gap_open + cfg.gap_extend
+    a1: List[str] = []
+    a2: List[str] = []
+    state = "H"
+    while i > 0 or j > 0:
+        if state == "H":
+            if local and H[i, j] == 0:
+                break
+            if (cfg.free_start_s1 and i == 0) or (cfg.free_start_s2 and j == 0):
+                break
+            diag_ok = i > 0 and j > 0
+            if diag_ok and H[i, j] == H[i - 1, j - 1] + cfg.sub_score(int(s1[j - 1]),
+                                                                      int(s2[i - 1])):
+                a1.append(BASES[s1[j - 1]])
+                a2.append(BASES[s2[i - 1]])
+                i, j = i - 1, j - 1
+            elif i > 0 and H[i, j] == F[i, j]:
+                state = "F"
+            elif j > 0 and H[i, j] == E[i, j]:
+                state = "E"
+            else:  # pragma: no cover - would indicate a broken table
+                raise AssertionError(f"no predecessor at H({i},{j})")
+        elif state == "F":
+            a1.append("-")
+            a2.append(BASES[s2[i - 1]])
+            close = F[i, j] == H[i - 1, j] + open_ext
+            i -= 1
+            state = "H" if close else "F"
+        else:  # E
+            a1.append(BASES[s1[j - 1]])
+            a2.append("-")
+            close = E[i, j] == H[i, j - 1] + open_ext
+            j -= 1
+            state = "H" if close else "E"
+    return sc, "".join(reversed(a1)), "".join(reversed(a2))
+
+
+def _start(H: np.ndarray, cfg: ScoringConfig) -> Tuple[int, int]:
+    """The walk's start cell: local, the row-major first maximum; ends-free,
+    :func:`_ends_free_start`; global, the bottom-right cell."""
+    if cfg.is_local:
+        i, j = np.unravel_index(int(np.argmax(H)), H.shape)
+        return int(i), int(j)
+    if cfg.is_ends_free:
+        return _ends_free_start(H, cfg)
+    return H.shape[0] - 1, H.shape[1] - 1
+
+
 def traceback(s1, s2, cfg: ScoringConfig = ScoringConfig()) -> Tuple[int, str, str]:
     """Score plus aligned strings (gap char ``-``), from the full table; the
-    port of ``tpualign.ops.oracle.traceback`` for linear gaps.
+    port of ``tpualign.ops.oracle.traceback``, linear and affine gaps.
 
     Tie order diag > up > left mirrors the branchless max of the reference
-    (a later candidate replaces only on a strictly greater value).  For
-    Smith-Waterman the path starts at the maximum cell (row-major first
+    (a later candidate replaces only on a strictly greater value); under
+    affine gaps up and left are the F and E states (:func:`_traceback_affine`).
+    For Smith-Waterman the path starts at the maximum cell (row-major first
     occurrence) and stops at the first zero cell.  Ends-free modes
     (semiglobal/infix) start at the maximum boundary cell, last row first,
     then last column, first occurrence, and stop when a free start is
     reached; like SW, the returned strings cover only the aligned core.
-    Affine gaps raise NotImplementedError: their walk (three tables) comes
-    with affine alignment.
     """
-    if cfg.is_affine:
-        raise NotImplementedError(
-            "the oracle's affine (Gotoh) traceback is not ported yet: ROADMAP "
-            "queue 1 item 10 (affine alignment)")
     s1 = np.asarray(s1, dtype=np.int64)
     s2 = np.asarray(s2, dtype=np.int64)
+    if cfg.is_affine:
+        return _traceback_affine(s1, s2, cfg)
     H = score_table(s1, s2, cfg).astype(np.int64)
     local = cfg.is_local
-    if local:
-        i, j = np.unravel_index(int(np.argmax(H)), H.shape)
-    elif cfg.is_ends_free:
-        i, j = _ends_free_start(H, cfg)
-    else:
-        i, j = s2.size, s1.size
+    i, j = _start(H, cfg)
     sc = int(H[i, j])
     a1: List[str] = []
     a2: List[str] = []

@@ -69,8 +69,8 @@ def score_plain(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig) -> torch
     int64 tensor on the tensors' device."""
     _check_fill_args(s1, s2)
     local = cfg.is_local
-    h, best, _, _, _ = xla.rows_scan(s1, s2, cfg, zero_row=local, zero_col=local,
-                               want_best=local)
+    h, best = xla.rows_scan(s1, s2, cfg, zero_row=local, zero_col=local,
+                            want_best=local)[:2]
     return best.clamp(min=0) if local else h[-1]
 
 

@@ -100,6 +100,7 @@ class Scan(NamedTuple):
     col: Optional[torch.Tensor]  # (n,): the last column H(1..n, m)
     caps: Optional[torch.Tensor]  # (J, m+1): the captured rows
     cell: Optional[torch.Tensor]  # (3,): the located cell (v, i, j)
+    f: Optional[torch.Tensor]  # (m+1,): affine, the last row F(n, 0..m)
 
 
 def rows_scan(
@@ -113,6 +114,7 @@ def rows_scan(
     want_col: bool = False,
     capture_rows=(),
     want_cell: bool = False,
+    tb: Optional[int] = None,
 ) -> Scan:
     """Fill the table of ``text`` (columns) against ``query`` (rows), both
     non-empty code tensors on one device, one row at a time.
@@ -120,59 +122,60 @@ def rows_scan(
     ``zero_row``: H(0, j) = 0 (else the gap charges of ``cfg``);
     ``zero_col``: H(i, 0) = 0.  Local mode (``cfg.is_local``) adds the zero
     floor.  Returns the last row H(n, 0..m); with ``want_best`` the max over
-    every row 1..n; with ``want_col`` the last column H(1..n, m).  Linear
-    gaps only: ``capture_rows`` (DP rows in 1..n, increasing) adds those
-    rows H(r, 0..m), and ``want_cell`` the first max over the cells
+    every row 1..n; with ``want_col`` the last column H(1..n, m);
+    ``capture_rows`` (DP rows in 1..n, increasing) adds those rows
+    H(r, 0..m), and ``want_cell`` the first max over the cells
     ``i >= 1, j >= 1`` in row-major order, ``(v, i, j)``: each row's max
-    and its first argmax, then the first row with the greatest max."""
+    and its first argmax, then the first row with the greatest max.
+
+    Affine gaps also return the last row of F, with F(n, 0) taken as
+    H(n, 0); ``tb`` (default ``gap_open``, in ``[gap_open, 0]``) is the
+    top-edge open of Myers-Miller: F(0, j) = H(0, j) + tb and, unless
+    ``zero_col``, H(i, 0) = tb + i*ext."""
     dev = text.device
     m = text.numel()
     codes = query.tolist()
     table, row_of = _profile(text, codes, cfg)
     local = cfg.is_local
+    affine = cfg.is_affine
     j = torch.arange(m + 1, dtype=torch.int64, device=dev)
     best = torch.full((m + 1,), NEG, dtype=torch.int64, device=dev) if want_best else None
     col = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_col else None
-    t = torch.empty(m + 1, dtype=torch.int64, device=dev)
-    if cfg.is_affine:
-        if capture_rows or want_cell:
-            raise ValueError("row captures and the located cell take linear gaps")
-        open_, ext = cfg.gap_open, cfg.gap_extend
-        jext = j * ext
-        open_jext = jext + open_
-        h = torch.zeros(m + 1, dtype=torch.int64, device=dev)
-        if not zero_row:
-            h[1:] = open_jext[1:]
-        f = torch.full((m + 1,), NEG, dtype=torch.int64, device=dev)
-        e = torch.empty(m + 1, dtype=torch.int64, device=dev)
-        e[0] = NEG
-        for i, b in enumerate(codes, start=1):
-            f = torch.maximum(h + open_, f).add_(ext)
-            torch.maximum(h[:-1] + table[row_of[b]], f[1:], out=t[1:])
-            if local:
-                t.clamp_(min=0)
-            t[0] = 0 if (local or zero_col) else open_ + i * ext
-            c = torch.cummax(t - jext, 0).values
-            torch.add(c[:-1], open_jext[1:], out=e[1:])
-            h = torch.maximum(t, e)
-            if want_best:
-                torch.maximum(best, h, out=best)
-            if want_col:
-                col[i - 1] = h[-1]
-        return Scan(h, None if best is None else best.max(), col, None, None)
     slot = {r: s for s, r in enumerate(capture_rows)}
     caps = torch.empty((len(slot), m + 1), dtype=torch.int64, device=dev)
     row_max = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_cell else None
     row_arg = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_cell else None
-    g = cfg.gap
-    jg = j * g
-    h = torch.zeros(m + 1, dtype=torch.int64, device=dev) if zero_row else jg.clone()
+    t = torch.empty(m + 1, dtype=torch.int64, device=dev)
+    if affine:
+        open_, ext = cfg.gap_open, cfg.gap_extend
+        tb = open_ if tb is None else tb
+        jg = j * ext  # the in-row scan's slope: ext under affine gaps
+        open_jext = jg + open_
+        h = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+        if not zero_row:
+            h[1:] = open_jext[1:]
+        f = h + tb
+        e = torch.empty(m + 1, dtype=torch.int64, device=dev)
+        e[0] = NEG
+    else:
+        g = cfg.gap
+        jg = j * g
+        h = torch.zeros(m + 1, dtype=torch.int64, device=dev) if zero_row else jg.clone()
     for i, b in enumerate(codes, start=1):
-        torch.maximum(h[:-1] + table[row_of[b]], h[1:] + g, out=t[1:])
+        if affine:
+            f = torch.maximum(h + open_, f).add_(ext)
+            torch.maximum(h[:-1] + table[row_of[b]], f[1:], out=t[1:])
+        else:
+            torch.maximum(h[:-1] + table[row_of[b]], h[1:] + g, out=t[1:])
         if local:
             t.clamp_(min=0)
-        t[0] = 0 if (local or zero_col) else i * g
-        h = torch.cummax(t - jg, 0).values.add_(jg)
+        t[0] = 0 if (local or zero_col) else (tb + i * ext if affine else i * g)
+        c = torch.cummax(t - jg, 0).values
+        if affine:
+            torch.add(c[:-1], open_jext[1:], out=e[1:])
+            h = torch.maximum(t, e)
+        else:
+            h = c.add_(jg)
         if want_best:
             torch.maximum(best, h, out=best)
         if want_col:
@@ -185,8 +188,10 @@ def rows_scan(
     if want_cell:
         i = torch.argmax(row_max)
         cell = torch.stack([row_max[i], i + 1, row_arg[i] + 1])
+    if affine:
+        f[0] = h[0]
     return Scan(h, None if best is None else best.max(), col,
-                caps if slot else None, cell)
+                caps if slot else None, cell, f if affine else None)
 
 
 def _empty_score(m: int, n: int, cfg: ScoringConfig) -> int:
@@ -204,10 +209,10 @@ def score_tensors(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig) -> tor
     tensor there: ``s1`` across the columns, ``s2`` down the rows."""
     zero_row = cfg.is_local or cfg.free_start_s1
     zero_col = cfg.is_local or cfg.free_start_s2
-    h, best, col, _, _ = rows_scan(
+    h, best, col = rows_scan(
         s1, s2, cfg, zero_row=zero_row, zero_col=zero_col,
         want_best=cfg.is_local, want_col=cfg.free_end_s2,
-    )
+    )[:3]
     if cfg.is_local:
         return best.clamp(min=0)
     if cfg.free_end_s1:
