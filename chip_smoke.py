@@ -2,8 +2,9 @@
 
 Builds the port's CUDA kernels from ``tpualign_torch/csrc`` with ``nvcc``
 (``bitpal_gfill``: K1's port at g = 1 and K2's at g >= 2;
-``bitpal_capture_fill``, K4's; ``band_fill``, K6's; ``band_capture_fill``,
-K7's; ``diag_fill``, K8's), holds each against its plain PyTorch version on
+``bitpal_capture_fill``, K4's; ``bitpal_batch_fill``, K5's; ``band_fill``,
+K6's; ``band_capture_fill``, K7's, and ``band_batch_fill``, its batch
+contract; ``diag_fill``, K8's), holds each against its plain PyTorch version on
 the card at a range of shapes (and the scores and alignments against the
 port's NumPy oracle), then drives the port's paths through its public
 entry points, each with the launch counts set to 0 just before it and read
@@ -34,9 +35,17 @@ path's shape:
   (``diag_fill``); ``align`` under the DNA matrix, semiglobal, infix, SW,
   positive-mismatch SW, ``impl="pallas"``, a family config that the
   bit-parallel split refuses, and affine global, local, positive-mismatch
-  local, semiglobal, infix and with the DNA matrix (``band_capture_fill``).
-
-    python3 chip_smoke.py [--corpus DIR]
+  local, semiglobal, infix and with the DNA matrix (``band_capture_fill``);
+- ``tpualign_torch.align_score_batch`` (this slice's main path) on the
+  repo's serving demo (``examples/serve_batch.py``: 16 pairs of 5,000 to
+  25,000 bases) under (1, 0, -1) and (1, 0, -2) (``bitpal_batch_fill``,
+  K5's port) and under SW (2, -1, -2) and affine (2, -1, open -5,
+  extend -2) (``band_batch_fill``, K7's batch contract), and on 8,192
+  short-read candidate checks (a 150-base read against a 150- to 350-base
+  window) under infix (2, -1, -2) and (1, 0, -1): one launch each, the
+  kernel held against its batched plain version at that shape, every score
+  against the port's per-pair ``align_score``; every batch instantiation
+  against its plain version on small ragged batches.
 
 With ``--corpus`` naming the reference's ``bdna`` directory the 64gb pair is
 read from it and the scores must be the reference's 73888 and the JAX
@@ -79,9 +88,14 @@ BAND_REPLACES = "tpualign/ops/band.py:171"  # _band_kernel_body (K6)
 DIAG_SOURCE = "tpualign_torch/csrc/diag_fill.cu"
 DIAG_REPLACES = "tpualign/ops/pallas_diag.py:201"  # _diag_kernel_body (K8)
 CAPTURE_REPLACES = "tpualign/ops/band_align.py:103"  # _strip_kernel_body (K7)
+BATCH_SOURCE = "tpualign_torch/csrc/bitpal_batch.cu"
+BATCH_REPLACES = "tpualign/ops/bitpal.py:773"  # _batch_kernel_body (K5)
+BAND_BATCH_SOURCE = "tpualign_torch/csrc/band_batch.cu"
 #: bitpal_gfill, band_fill, band_capture_fill (40 linear, 36 affine: local
-#: stops at 8 rows a thread), diag_fill
-N_INSTANTIATIONS = 30 + 40 + 76 + 1
+#: stops at 8 rows a thread), diag_fill, bitpal_batch_fill (5 words per
+#: thread x 3 plane counts), band_batch_fill (40 less local affine at 16
+#: rows a thread)
+N_INSTANTIATIONS = 30 + 40 + 76 + 1 + 15 + 38
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -117,7 +131,8 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"((?:bitpal_g|band_|diag_)fill_kernel)", mangled)
+            base = re.search(r"((?:bitpal_g|band_|diag_)fill_kernel|(?:bitpal|band)_batch_kernel)",
+                             mangled)
             args = re.search(r"kernelI(.*?)EEv", mangled)
             targs = re.findall(r"L[ib](\d+)E", args.group(1) + "E") if args else []
             name = f"{base.group(1) if base else mangled}<{','.join(targs)}>"
@@ -188,11 +203,14 @@ def main() -> None:
     import tpualign_torch
     from tpualign_torch import _build, matrices
     from tpualign_torch.config import AlignMode, EngineConfig, ScoringConfig
-    from tpualign_torch.ops import band, bitpal, hirschberg, oracle, pallas_diag
+    from tpualign_torch.ops import band, band_batch, bitpal, hirschberg, oracle, pallas_diag, xla
+    from tpualign_torch.ops import pairs as packing
+    from tpualign_torch.probe import read_pairs, serve_pairs
 
     counted = {"fill_g": bitpal.fill_g, "capture_fill": bitpal.capture_fill,
                "band_fill": band.band_fill, "diag_fill": pallas_diag.diag_fill,
-               "band_capture_fill": band.capture_fill}
+               "band_capture_fill": band.capture_fill,
+               "bitpal_batch_fill": bitpal.batch_fill, "band_batch_fill": band_batch.batch_fill}
 
     def reset_counts():
         for fn in counted.values():
@@ -981,6 +999,183 @@ def main() -> None:
           f"median of 5 {a20_ms:.3f} ms (runs {runs_str(a20_runs)}); equal to capture_plain "
           f"word for word (plain {pa20_ms:.1f} ms)")
 
+    # phase (h): this slice's main path, align_score_batch over the two
+    # batch kernels.  Small cases first: every batch instantiation against
+    # its plain version on ragged batches (1-base pairs, pairs past one
+    # strip), and the entry with empty pairs mixed in against the per-pair
+    # align_score
+    t0 = time.perf_counter()
+    k5 = dict(max_abs_err=0)  # bitpal_batch_fill
+    kb = dict(max_abs_err=0)  # band_batch_fill
+    shifts = torch.arange(bitpal.WORD, device=dev)
+
+    def enc_rows(planes):
+        """Every row's enc from ``(P, B, nw)`` planes."""
+        return sum(((planes[:, b, :, None] >> shifts) & 1) << b for b in range(planes.shape[1]))
+
+    def hold_k5(got, want, where):
+        """``bitpal_batch_fill``'s planes against ``batch_fill_plain``'s, word
+        for word; records the largest difference of a row's enc."""
+        torch.cuda.synchronize()
+        err = int((enc_rows(got) - enc_rows(want)).abs().max())
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"bitpal_batch_fill differs from batch_fill_plain at {where} "
+                                 f"(max abs err {err})")
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+
+    def hold_band_batch(got, want, where):
+        """``band_batch_fill``'s per-pair results against ``xla.score_batch``'s."""
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        if err:
+            raise AssertionError(f"band_batch_fill differs from xla.score_batch at {where} "
+                                 f"(max abs err {err})")
+        kb["max_abs_err"] = max(kb["max_abs_err"], err)
+
+    def ragged(count, tmax, qmax, lo=1):
+        """``count`` pairs of random lengths, the first 1 x 1, the last with the
+        longest query."""
+        tl = rng.integers(1, tmax + 1, count)
+        ql = rng.integers(1, qmax + 1, count)
+        tl[0], ql[0], ql[-1] = 1, 1, qmax
+        return ([rng.integers(lo, 5, int(x)).astype(np.int8) for x in tl],
+                [rng.integers(lo, 5, int(x)).astype(np.int8) for x in ql])
+
+    n_k5 = 0
+    for gs, k in itertools.product(((1,), (2, 3), (4, 5, 6, 7)), (1, 2, 4, 8, 16)):
+        g = gs[n_k5 % len(gs)]
+        texts, queries = ragged(5, 60, 20 * bitpal.WORD - 5, lo=0)
+        packed = packing.pack_pairs(texts, queries, np.arange(5)).to(dev)
+        tpad, mt, eq, _ = bitpal.batch_inputs(packed)
+        geometry = (k, -(-eq.shape[2] // k))
+        hold_k5(bitpal.batch_fill(tpad, mt, eq, packed.n_cap, g, geometry),
+                bitpal.batch_fill_plain(tpad, mt, eq, packed.n_cap, g),
+                f"a ragged batch, g = {g}, geometry {geometry}")
+        n_k5 += 1
+    n_kb = 0
+    for k, affine, mat, local in itertools.product(
+            (1, 2, 4, 8, 16), (False, True), (None, matrices.dna(2, -1, -3)), (False, True)):
+        if affine and local and k > band.MAX_K_LOCAL_AFFINE:
+            continue
+        mode = (AlignMode.LOCAL if local
+                else (AlignMode.GLOBAL, AlignMode.SEMIGLOBAL, AlignMode.INFIX)[n_kb % 3])
+        gaps = dict(gap_open=-5, gap_extend=-2) if affine else {}
+        cfg = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=mode, matrix=mat, **gaps)
+        texts, queries = ragged(5, 100, 64 * k + 7, lo=0)  # three strips at R = 32 k
+        packed = packing.pack_pairs(texts, queries, np.arange(5)).to(dev)
+        ends = band._ends_flags(cfg, False)
+        hold_band_batch(band_batch.batch_fill(packed, cfg, ends, (k, 32)),
+                        xla.score_batch(packed, cfg, ends), f"{cfg}, k = {k}")
+        n_kb += 1
+    n_entry = 0
+    for cfg in (ScoringConfig(), ScoringConfig(gap=-3), cfg_sw, cfg_aff,
+                ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.INFIX),
+                ScoringConfig(matrix=matrices.dna(2, -1, -3), gap=-3), masked_aff):
+        texts, queries = ragged(7, 300, 300)
+        texts[2], queries[4], texts[5], queries[5] = (np.empty(0, np.int8),) * 4
+        got = tpualign_torch.align_score_batch(texts, queries, cfg)
+        want = [tpualign_torch.align_score(t, q, cfg) for t, q in zip(texts, queries)]
+        if got.tolist() != want:
+            raise AssertionError(f"align_score_batch {got.tolist()} != align_score's {want}: "
+                                 f"{cfg}")
+        n_entry += 1
+    print(f"[batch kernels vs plain] bitpal_batch_fill equal to batch_fill_plain word for "
+          f"word in {n_k5} ragged batches (all 15 instantiations, codes 0..4, 1-base pairs); "
+          f"band_batch_fill equal to xla.score_batch in {n_kb} ragged batches (all 38 "
+          f"instantiations, global, semiglobal, infix and local, three strips at k x 32 "
+          f"rows); align_score_batch with empty pairs mixed in equal to align_score in "
+          f"{n_entry} configs; {time.perf_counter() - t0:.1f} s")
+
+    # the main path at full width: mix (A), the repo's serving demo, and mix
+    # (B), 8,192 short-read candidate checks.  Each align_score_batch runs
+    # with the counts set to 0 just before it: one launch of its batch kernel
+    # and nothing else; its scores against the port's per-pair align_score
+    # (K1, K2 or K6: another kernel as witness), its kernel against the
+    # batched plain version on the same inputs
+    mixes = {"A": serve_pairs(), "B": read_pairs()}
+    for name, (texts, queries) in mixes.items():
+        tl = np.fromiter(map(len, texts), np.int64)
+        ql = np.fromiter(map(len, queries), np.int64)
+        print(f"[mix {name}] {len(texts)} pairs, texts {tl.min()}..{tl.max()} and queries "
+              f"{ql.min()}..{ql.max()} bases, {int((tl * ql).sum())} DP cells")
+    batch_phases = {}
+
+    def drive_batch(tag, mix, cfg, kernel):
+        """One counted ``align_score_batch`` of the mix under ``cfg``, a warm
+        one, and the per-pair ``align_score`` loop over the same pairs."""
+        texts, queries = mixes[mix]
+        reset_counts()
+        t0 = time.perf_counter()
+        scores = tpualign_torch.align_score_batch(texts, queries, cfg)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if not only(counts, kernel):
+            raise AssertionError(f"{tag}: align_score_batch did not run one {kernel}: {counts}")
+        t0 = time.perf_counter()
+        again = tpualign_torch.align_score_batch(texts, queries, cfg)
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        witness = np.asarray([tpualign_torch.align_score(t, q, cfg)
+                              for t, q in zip(texts, queries)])
+        loop = time.perf_counter() - t0
+        bad = np.flatnonzero((scores != witness) | (again != witness))
+        if bad.size:
+            raise AssertionError(f"{tag}: {bad.size} batch scores differ from align_score's, "
+                                 f"pair {bad[0]}: {scores[bad[0]]} != {witness[bad[0]]}")
+        lens = [(t.size, q.size) for t, q in zip(texts, queries)]
+        batch_phases[tag] = dict(launches=counts[kernel], wall_s=wall, warm_wall_s=warm,
+                                 loop_s=loop, cells=sum(a * b for a, b in lens))
+        return packing.pack_pairs(texts, queries, np.arange(len(texts))).to(dev), lens
+
+    def time_k5(tag, mix, g, cfg):
+        packed, lens = drive_batch(tag, mix, cfg, "bitpal_batch_fill")
+        tpad, mt, eq, _ = bitpal.batch_inputs(packed)
+        kms, kruns, got = cuda_ms(lambda: bitpal.batch_fill(tpad, mt, eq, packed.n_cap, g))
+        pms, want = host_ms(lambda: bitpal.batch_fill_plain(tpad, mt, eq, packed.n_cap, g))
+        hold_k5(got, want, f"mix {mix}, g = {g}")
+        # the bit-parallel count (see the bounds below) over the words each
+        # pair needs; bytes: texts, match planes and final planes
+        P, nw = eq.shape[0], eq.shape[2]
+        words = sum(m * -(-n // bitpal.WORD) for m, n in lens)
+        nbytes = sum(m for m, _ in lens) + 8 * P + (bitpal.ALPHABET + bitpal.n_planes(g)) * P * nw * 8
+        b_ms, by = bound(nbytes, words * (25 if g == 1 else 50) * 2)
+        k, threads = bitpal.kernel_geometry(nw)
+        report_batch(tag, "bitpal_batch_fill", kms, kruns, pms, b_ms, by,
+                     f"k = {k}, {threads} threads, {P} blocks")
+
+    def time_band(tag, mix, cfg):
+        packed, lens = drive_batch(tag, mix, cfg, "band_batch_fill")
+        ends = band._ends_flags(cfg, False)
+        kms, kruns, got = cuda_ms(lambda: band_batch.batch_fill(packed, cfg, ends))
+        pms, want = host_ms(lambda: xla.score_batch(packed, cfg, ends))
+        hold_band_batch(got, want, f"mix {mix}, {cfg}")
+        P = len(lens)
+        nbytes = sum(m + n for m, n in lens) + 28 * P
+        b_ms, by = bound(nbytes, band_ops(cfg, batch_phases[tag]["cells"]))
+        k, threads = band.kernel_geometry(packed.n_cap, band.max_k(cfg))
+        report_batch(tag, "band_batch_fill", kms, kruns, pms, b_ms, by,
+                     f"k = {k}, {threads} threads, {P} blocks")
+
+    def report_batch(tag, kernel, kms, kruns, pms, b_ms, by, geometry):
+        ph = batch_phases[tag]
+        ph.update(kernel=kernel, ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=by)
+        print(f"[main path: align_score_batch {tag}] {ph['cells']} cells: one {kernel} "
+              f"launch ({geometry}); every score equal to align_score's; the kernel equal to "
+              f"its plain version; align_score_batch wall {ph['wall_s'] * 1e3:.3f} ms "
+              f"(warm {ph['warm_wall_s'] * 1e3:.3f} ms), per-pair align_score loop "
+              f"{ph['loop_s'] * 1e3:.3f} ms")
+        print(f"[timing] {smi}: {kernel} {tag}: median of 5 {kms:.3f} ms "
+              f"({ph['cells'] / kms / 1e6:.2f} GCUPS aggregate; runs {runs_str(kruns)}); "
+              f"plain {pms:.1f} ms; bound {b_ms:.4f} ms ({by})")
+
+    time_k5("A (1, 0, -1)", "A", 1, ScoringConfig())
+    time_k5("A (1, 0, -2)", "A", 2, ScoringConfig(gap=-2))
+    time_band("A SW", "A", cfg_sw)
+    time_band("A affine", "A", cfg_aff)
+    time_band("B infix", "B", ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.INFIX))
+    time_k5("B (1, 0, -1)", "B", 1, ScoringConfig())
+    print(f"[phase h] {time.perf_counter() - t0:.1f} s")
+
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:
             raise AssertionError(f"the port imported {pkg}")
@@ -1026,7 +1221,19 @@ def main() -> None:
     }, {
         "name": "diag_fill", "route": "cuda", "source": DIAG_SOURCE,
         "replaces": DIAG_REPLACES, **dk, **extra("diag_fill"),
-    }]}))
+    }] + [{
+        "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(ph["launches"] for ph in batch_phases.values()
+                        if ph["kernel"] == kernel),
+        **held, "ms": batch_phases[main]["ms"], "plain_ms": batch_phases[main]["plain_ms"],
+        "shape": f"mix {main}", "bound_ms": batch_phases[main]["bound_ms"],
+        "bound_by": batch_phases[main]["bound_by"], "library_ms": None,
+        "phases": {tag: {key: ph[key] for key in ("launches", "ms", "plain_ms", "bound_ms",
+                                                  "wall_s", "warm_wall_s", "loop_s")}
+                   for tag, ph in batch_phases.items() if ph["kernel"] == kernel},
+    } for kernel, source, replaces, held, main in (
+        ("bitpal_batch_fill", BATCH_SOURCE, BATCH_REPLACES, k5, "A (1, 0, -1)"),
+        ("band_batch_fill", BAND_BATCH_SOURCE, CAPTURE_REPLACES, kb, "A SW"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -163,6 +163,9 @@ def test_package_imports_and_scores_without_jax():
         "from tpualign_torch.ops import hirschberg\n"
         "hirschberg.BASE_CELLS = 64\n"
         "print(hirschberg.align(s1, s2, device='cpu')[0])\n"
+        "for impl in ('auto', 'band'):\n"
+        "    print(*tpualign_torch.align_score_batch([s1, s2], [s2, s1],\n"
+        "                                            engine=EngineConfig(impl, 'cpu')))\n"
         "assert not [k for k in sys.modules if k.startswith('jax') and sys.modules[k] is not None]\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -171,7 +174,8 @@ def test_package_imports_and_scores_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert [int(x) for x in out.stdout.split()] == [oracle.score(s1, s2)] * 7
+    want = oracle.score(s1, s2)
+    assert [int(x) for x in out.stdout.split()] == [want] * 7 + [want, oracle.score(s2, s1)] * 2
 
 
 def test_scoring_config_fields_match_jax_package():

@@ -3,19 +3,23 @@
     python tools/rehearse_kernels.py [--cases N] [--seed S]
 
 Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points),
-``band_capture_affine.cu`` (with the template they share,
-``band_fill.cuh``) and ``diag_fill.cu`` with ``g++`` as
-C++20 through a shim ``cuda_runtime.h``: one ``std::thread`` per CUDA
-thread of the one block, ``__syncthreads`` as a ``std::barrier``, the warp
-shuffles through a slot array between two barriers, ``__shared__`` as
-``static``, the DPX intrinsics as plain max, and each ``<<<1, T, 0, s>>>``
-launch rewritten into a call of the shim's launcher.  The kernels then run
-through ``ctypes`` on CPU buffers over random configs, shapes and strip
-geometries (several strips, partial last strips, every rows-per-thread
-count, captured rows at the strip edges), and each result is held against
-the plain version (``band.score_plain``, ``band.capture_plain``,
-``pallas_diag.score_plain``).  Prints one line per
-kernel and exits non-zero on the first mismatch.
+``band_capture_affine.cu`` and ``band_batch.cu`` (with the template they
+share, ``band_fill.cuh``), ``diag_fill.cu``, and ``bitpal_gfill.cu`` and
+``bitpal_batch.cu`` (with the step they share, ``bitpal_step.cuh``) with
+``g++`` as C++20 through a shim ``cuda_runtime.h``: one ``std::thread``
+per CUDA thread of a block, the blocks of a grid one after another,
+``__syncthreads`` as a ``std::barrier``, the warp shuffles through a slot
+array between two barriers, ``__shared__`` as ``static``, the DPX
+intrinsics as plain max, and each ``<<<G, T, 0, s>>>`` launch rewritten
+into a call of the shim's launcher.  The kernels then run through
+``ctypes`` on CPU buffers over random configs, shapes and geometries
+(several strips, partial last strips, every rows- or words-per-thread
+count, captured rows at the strip edges, ragged batches with 1 x 1 pairs
+and pairs past one strip), and each result is held against the plain
+version (``band.score_plain``, ``band.capture_plain``,
+``xla.score_batch``, ``pallas_diag.score_plain``,
+``bitpal.fill_g_plain``, ``bitpal.batch_fill_plain``).  Prints one line
+per kernel and exits non-zero on the first mismatch.
 
 A rehearsal of the kernels' logic before a card runs them, not a test of
 the CUDA build: what only ``nvcc`` checks (types, intrinsics' signatures,
@@ -39,7 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tpualign_torch import _build, matrices  # noqa: E402
 from tpualign_torch.config import AlignMode, ScoringConfig  # noqa: E402
-from tpualign_torch.ops import band, pallas_diag  # noqa: E402
+from tpualign_torch.ops import band, bitpal, pairs, pallas_diag, xla  # noqa: E402
 
 SHIM = r"""
 #pragma once
@@ -65,22 +69,28 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 namespace shim {
 inline thread_local dim3 tid;
-inline dim3 dims;
+inline dim3 dims, bid;
 inline std::unique_ptr<std::barrier<>> bar;
 inline std::vector<long long> slots(1024);
 
-template <class F> void launch(unsigned threads, F body) {
+// the blocks of the grid one after another, each with a thread per CUDA
+// thread: __shared__ arrays (static here) serve one block at a time
+template <class F> void launch(unsigned blocks, unsigned threads, F body) {
   dims.x = threads;
-  bar = std::make_unique<std::barrier<>>(threads);
-  std::vector<std::thread> pool;
-  for (unsigned t = 0; t < threads; ++t) {
-    pool.emplace_back([t, &body] { tid.x = t; body(); });
+  for (unsigned b = 0; b < blocks; ++b) {
+    bid.x = b;
+    bar = std::make_unique<std::barrier<>>(threads);
+    std::vector<std::thread> pool;
+    for (unsigned t = 0; t < threads; ++t) {
+      pool.emplace_back([t, &body] { tid.x = t; body(); });
+    }
+    for (auto& th : pool) th.join();
   }
-  for (auto& th : pool) th.join();
 }
 }  // namespace shim
 
 #define threadIdx (shim::tid)
+#define blockIdx (shim::bid)
 #define blockDim (shim::dims)
 inline void __syncthreads() { shim::bar->arrive_and_wait(); }
 inline int max(int a, int b) { return a > b ? a : b; }
@@ -103,9 +113,10 @@ template <class T> T __shfl_up_sync(unsigned, T v, int d) { return shuffle(v, -d
 template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, d); }
 """
 
-LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<1, (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
-SOURCES = ("band_fill.cu", "band_capture_affine.cu", "diag_fill.cu")
-HEADERS = ("band_fill.cuh",)
+LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<(\w+), (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
+SOURCES = ("band_fill.cu", "band_capture_affine.cu", "band_batch.cu", "diag_fill.cu",
+           "bitpal_gfill.cu", "bitpal_batch.cu")
+HEADERS = ("band_fill.cuh", "bitpal_step.cuh")
 
 
 def build() -> ctypes.CDLL:
@@ -117,7 +128,7 @@ def build() -> ctypes.CDLL:
     objs = []
     for name in SOURCES + HEADERS:  # the headers beside the sources that include them
         with open(os.path.join(_build.CSRC, name)) as f:
-            src = LAUNCH.sub(r"shim::launch(\2, [&] { \1(\4); });", f.read())
+            src = LAUNCH.sub(r"shim::launch(\2, \3, [&] { \1(\5); });", f.read())
         path = os.path.join(out_dir, name if name in HEADERS else name + ".cpp")
         with open(path, "w") as f:
             f.write(src)
@@ -134,6 +145,10 @@ def build() -> ctypes.CDLL:
     dll.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 8
                                         + [vp, i32] + [vp] * 6)
     dll.diag_fill.argtypes = [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp]
+    i64 = ctypes.c_int64
+    dll.band_batch_fill.argtypes = [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3
+    dll.bitpal_gfill.argtypes = [vp, vp, i64] + [i32] * 4 + [vp, vp]
+    dll.bitpal_batch_fill.argtypes = [vp, i64, vp, vp] + [i32] * 5 + [vp, vp]
     return dll
 
 
@@ -210,6 +225,86 @@ def _capture_case(dll, rng, local, matrix, m, n, geometry, locate, affine=False)
     return ok, (cfg, tb, zr, zc, m, n, k, threads, rows, cell, want.cell)
 
 
+def _band_batch_case(dll, rng, c):
+    """``band_batch_fill`` against ``xla.score_batch`` on a ragged batch:
+    every (affine, matrix, local) combination in turn, each mode, 1 x 1
+    pairs, pairs past one strip at small geometries."""
+    affine, matrix, local = bool(c % 2), [None, matrices.dna(2, -1, -3)][(c // 2) % 2], \
+        bool((c // 4) % 2)
+    mode = AlignMode.LOCAL if local else list(AlignMode)[[0, 2, 3][(c // 8) % 3]]
+    kw = dict(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 2)),
+              gap=int(rng.integers(-4, 0)), mode=mode, matrix=matrix)
+    if affine:
+        kw.update(gap_open=int(rng.integers(-6, 1)), gap_extend=int(rng.integers(-3, 0)))
+    cfg = ScoringConfig(**kw)
+    P = int(rng.integers(1, 7))
+    lens = rng.integers(1, 80, (2, P))
+    lens[:, rng.integers(0, P)] = 1 if c % 3 == 0 else lens[:, 0]  # a 1 x 1 pair
+    texts = [rng.integers(0, 5, int(x)).astype(np.int8) for x in lens[0]]
+    queries = [rng.integers(0, 5, int(x)).astype(np.int8) for x in lens[1]]
+    packed = pairs.pack_pairs(texts, queries, np.arange(P))
+    k = [1, 2, 4, 8, 16][c % 5]
+    k = min(k, band.max_k(cfg))
+    threads = 32 * int(rng.integers(1, 3))
+    ends = band._ends_flags(cfg, False)
+    K = len(matrix) if matrix is not None else 0
+    mat = np.ascontiguousarray(np.asarray(matrix if K else [0], np.int32).reshape(-1))
+    boundary = np.empty(P * 2 * (packed.m_cap + 1), np.int32)
+    out = np.empty(P, np.int32)
+    off, ln = packed.offsets, packed.lengths
+    err = dll.band_batch_fill(packed.texts.data_ptr(), packed.queries.data_ptr(),
+                              off[0].data_ptr(), off[1].data_ptr(), ln[0].data_ptr(),
+                              ln[1].data_ptr(), P, packed.m_cap, mat.ctypes.data, K, cfg.match,
+                              cfg.mismatch, cfg.gap, cfg.gap_open or 0, cfg.gap_extend or 0,
+                              band._flags(cfg, ends), k, threads, boundary.ctypes.data,
+                              out.ctypes.data, None)
+    want = xla.score_batch(packed, cfg, ends).tolist()
+    return err == 0 and out.tolist() == want, (cfg, lens.tolist(), k, threads, out, want)
+
+
+def _bitpal_cases(dll, rng, cases):
+    """``bitpal_gfill`` against ``fill_g_plain`` and ``bitpal_batch_fill``
+    against ``batch_fill_plain``: g = 1..7 in turn, every words-per-thread
+    count, queries across word edges, ragged batches with 1 x 1 pairs."""
+    for c in range(cases):
+        g = c % 7 + 1
+        nq, mt = int(rng.integers(1, 300)), int(rng.integers(1, 60))
+        nw = -(-nq // bitpal.WORD)
+        k = [1, 2, 4, 8, 16][c % 5]
+        threads = -(-nw // k)
+        q = torch.from_numpy(rng.integers(0, 5, nq).astype(np.int8))
+        t = torch.from_numpy(rng.integers(0, 5, mt).astype(np.int8))
+        eq = bitpal._eq_planes(q, nq)
+        planes = torch.empty((bitpal.n_planes(g), nw), dtype=torch.int64)
+        err = dll.bitpal_gfill(t.data_ptr(), eq.data_ptr(), mt, nw, g, k, threads,
+                               planes.data_ptr(), None)
+        want = torch.stack(bitpal.fill_g_plain(t, eq, nq, g)[0])
+        if err or not torch.equal(planes, want):
+            sys.exit(f"bitpal_gfill differs from fill_g_plain: g {g}, {nq} x {mt}, k {k}")
+        P = int(rng.integers(1, 6))
+        nqs = rng.integers(1, 300, P)
+        mts = rng.integers(1, 60, P)
+        if c % 3 == 0:
+            nqs[0], mts[-1] = 1, 1
+        nw = -(-int(nqs.max()) // bitpal.WORD)
+        threads = -(-nw // k)
+        texts = torch.zeros((P, int(mts.max())), dtype=torch.int8)
+        qpad = torch.full((P, nw * bitpal.WORD), -1, dtype=torch.int8)
+        for p in range(P):
+            texts[p, : mts[p]] = torch.from_numpy(rng.integers(0, 5, mts[p]).astype(np.int8))
+            qpad[p, : nqs[p]] = torch.from_numpy(rng.integers(0, 5, nqs[p]).astype(np.int8))
+        tlen = torch.from_numpy(mts.astype(np.int64))
+        eqb = bitpal._eq_planes_batch(qpad)
+        planes = torch.empty((P, bitpal.n_planes(g), nw), dtype=torch.int64)
+        err = dll.bitpal_batch_fill(texts.data_ptr(), texts.shape[1], tlen.data_ptr(),
+                                    eqb.data_ptr(), P, nw, g, k, threads, planes.data_ptr(),
+                                    None)
+        want = bitpal.batch_fill_plain(texts, tlen, eqb, int(nqs.max()), g)
+        if err or not torch.equal(planes, want):
+            sys.exit(f"bitpal_batch_fill differs from batch_fill_plain: g {g}, texts "
+                     f"{mts.tolist()}, queries {nqs.tolist()}, k {k}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cases", type=int, default=120)
@@ -259,6 +354,14 @@ def main() -> None:
             sys.exit(f"diag_fill differs from score_plain: {cfg} {m} x {n}: "
                      f"{int(out[0])} != {want}")
     print(f"[rehearse] diag_fill equal to score_plain in {args.cases // 4} cases")
+    for c in range(args.cases):
+        ok, info = _band_batch_case(dll, rng, c)
+        if not ok:
+            sys.exit(f"band_batch_fill differs from xla.score_batch: {info}")
+    print(f"[rehearse] band_batch_fill equal to xla.score_batch in {args.cases} batches")
+    _bitpal_cases(dll, rng, args.cases // 2)
+    print(f"[rehearse] bitpal_gfill equal to fill_g_plain and bitpal_batch_fill to "
+          f"batch_fill_plain in {args.cases // 2} cases each")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,66 @@
+"""Compare the SASS of one kernel template's instantiations between versions
+of the port's CUDA sources, on a machine with ``nvcc`` and ``cuobjdump``.
+
+Usage, from the repo root:
+
+    python3 tools/sass_compare.py bitpal_gfill_kernel \
+        parent=OLD/bitpal_gfill.cu change=tpualign_torch/csrc/bitpal_gfill.cu
+
+A version is one source or several joined by ``+``, built into one library
+with the port's flags (``tools/ab_band_fill.py:build``).  Each
+instantiation of the named kernel is keyed by its template arguments and
+compared instruction for instruction with the first version's (addresses
+and encodings cut).  Prints the count of instantiations with the same SASS
+and the ones that differ; exits 1 if any differs or a version lacks one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import atexit
+import os
+import re
+import shutil
+import sys
+import tempfile
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import ab_band_fill  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", help="the kernel template's name, e.g. bitpal_gfill_kernel")
+    ap.add_argument("versions", nargs="+", help="label=source[+source...]")
+    args = ap.parse_args()
+    tmp = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, tmp, True)
+    versions = [v.split("=", 1) for v in args.versions]
+    procs = [(label, ab_band_fill.build(label, srcs, tmp)) for label, srcs in versions]
+    by_version = {}
+    key = re.compile(re.escape(args.kernel) + r"I(.*)E")
+    for label, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            print(log)
+            raise RuntimeError(f"nvcc failed for {label}")
+        kernels = ab_band_fill.sass(os.path.join(tmp, f"{label}.so"))
+        by_version[label] = {hit.group(1): instrs for name, instrs in kernels.items()
+                             if (hit := key.search(name))}
+        print(f"[sass {label}] {len(by_version[label])} instantiations of {args.kernel}, "
+              f"{sum(map(len, by_version[label].values()))} instructions")
+    first, *rest = by_version
+    ok = True
+    for label in rest:
+        same = [k for k, v in by_version[label].items() if by_version[first].get(k) == v]
+        differ = sorted(set(by_version[first]) ^ set(by_version[label])
+                        | (set(by_version[label]) - set(same)))
+        print(f"[sass {label} vs {first}] {args.kernel}: {len(same)} of "
+              f"{len(by_version[first])} with the same SASS; differing or missing: {differ}")
+        ok = ok and not differ and len(same) == len(by_version[first]) > 0
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

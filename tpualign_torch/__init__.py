@@ -11,10 +11,12 @@ Public API:
 
 - :func:`align_score` — alignment score of one pair, any scoring config.
 - :func:`align` — score plus aligned strings of one pair.
+- :func:`align_score_batch` — scores of many pairs in one kernel launch.
 - :class:`ScoringConfig`, :class:`EngineConfig`, :class:`AlignMode` — config.
 """
 
-from .api import align, align_score
+from .api import align, align_score, align_score_batch
 from .config import AlignMode, EngineConfig, ScoringConfig
 
-__all__ = ["AlignMode", "EngineConfig", "ScoringConfig", "align", "align_score"]
+__all__ = ["AlignMode", "EngineConfig", "ScoringConfig", "align", "align_score",
+           "align_score_batch"]

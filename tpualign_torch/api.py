@@ -11,19 +11,23 @@ the full table up to ``FULL_TABLE_CELL_LIMIT`` cells; above it, it runs the
 bit-parallel Hirschberg split for the family, Myers-Miller over K7's affine
 capture fill (``ops/affine_align.py``) for affine gaps, and the split over
 K7's port (``ops/band_align.py``, ``ops/ends_free.py``) for every other
-config.  What is not ported raises NotImplementedError naming the ROADMAP
-item that ports it; nothing runs quietly on another engine or device.
+config.  ``align_score_batch`` scores many pairs in one kernel launch:
+the bit-parallel batch kernel (K5's port) for the family, the strip
+kernel's batch contract (K7's) for every other config, routed as
+``tpualign``'s.  What is not ported raises NotImplementedError naming the
+ROADMAP item that ports it; nothing runs quietly on another engine or
+device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
 from .config import UNPORTED_IMPLS, EngineConfig, ScoringConfig
-from .ops import (affine_align, band, band_align, bitpal, ends_free, hirschberg, oracle,
-                  pallas_diag, xla)
+from .ops import (affine_align, band, band_align, band_batch, bitpal, ends_free, hirschberg,
+                  oracle, pallas_diag, xla)
 
 #: ``align`` walks the exact full table up to this many DP cells (as
 #: ``tpualign.api.FULL_TABLE_CELL_LIMIT``), and bisects above it
@@ -141,3 +145,52 @@ def align(
         f"impl={impl!r} past the full table needs the checkpointed portable "
         "traceback, which is not ported yet: ROADMAP queue 1 item 12 "
         "(portable engines)")
+
+
+def align_score_batch(
+    texts: Sequence,
+    queries: Sequence,
+    scoring: ScoringConfig = ScoringConfig(),
+    engine: EngineConfig = EngineConfig(),
+) -> np.ndarray:
+    """Scores of the pairs ``(texts[p], queries[p])`` (text across the
+    columns, query down the rows, as ``align_score(texts[p], queries[p])``)
+    as a ``(P,)`` int64 array, with the semantics of
+    ``tpualign.align_score_batch``.  Runs on ``engine.device``.
+
+    Routed as ``tpualign/api.py:306-347``: affine gaps without a matrix or
+    an ends-free mode under ``impl="xla"`` take the batched row scan
+    (:func:`tpualign_torch.ops.xla.score_batch_affine`); an engine that
+    resolves to ``bitpal`` takes the bit-parallel batch kernel
+    (:func:`tpualign_torch.ops.bitpal.score_batch`) for a family config;
+    an engine that
+    resolves to ``band`` or ``bitpal`` then takes the strip kernel's batch
+    (:func:`tpualign_torch.ops.band_batch.score_batch`), each going on to
+    the next on ValueError; everything else takes a loop of
+    :func:`align_score` over the pairs.  The port's own choices: the strip
+    batch takes affine configs (under ``impl="auto"`` too), matrices and
+    ends-free modes with them, masked local scoring and pairs past one
+    strip, which ``tpualign`` sends to the row scan or its per-pair loop,
+    with the same scores; an empty batch returns an empty array (where
+    ``tpualign`` fails an assertion)."""
+    if len(texts) != len(queries):
+        raise ValueError(f"{len(texts)} texts but {len(queries)} queries")
+    if not len(texts):
+        return np.zeros(0, np.int64)
+    impl = resolve_impl(engine, scoring)
+    dev = engine.device
+    if (engine.impl == "xla" and scoring.is_affine
+            and not (scoring.has_matrix or scoring.is_ends_free)):
+        return xla.score_batch_affine(texts, queries, scoring, device=dev)
+    if impl == "bitpal":
+        try:
+            return bitpal.score_batch(texts, queries, scoring, device=dev)
+        except ValueError:  # outside the family, its headroom or one block
+            pass
+    if impl in ("band", "bitpal"):
+        try:
+            return band_batch.score_batch(texts, queries, scoring, device=dev)
+        except ValueError:  # past the int32 headroom
+            pass
+    return np.asarray([align_score(t, q, scoring, engine) for t, q in zip(texts, queries)],
+                      dtype=np.int64)

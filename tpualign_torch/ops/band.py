@@ -46,6 +46,7 @@ from .. import _build
 from ..config import ScoringConfig
 from . import xla
 from .bitpal import _device
+from .pairs import int8_codes
 
 #: kernel geometry: one block of up to MAX_THREADS threads (a multiple of
 #: WARP), each owning k consecutive rows of a strip, k a power of two up to
@@ -385,7 +386,7 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     """Alignment score of two code sequences on ``device`` (``"cuda"`` runs
     the kernel, ``"cpu"`` the plain version); the counterpart of
     ``tpualign.ops.band.score``."""
-    s1, s2 = xla.int8_codes(s1), xla.int8_codes(s2)
+    s1, s2 = int8_codes(s1), int8_codes(s2)
     t1, t2 = torch.from_numpy(s1), torch.from_numpy(s2)
     xla.check_codes(t1, t2, cfg)
     dev = _device(device)

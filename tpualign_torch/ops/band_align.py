@@ -56,6 +56,7 @@ import torch
 from ..config import AlignMode, ScoringConfig
 from . import band, hirschberg, oracle, xla
 from .bitpal import _device
+from .pairs import int8_codes
 
 #: SW hits scoring at most this many times the best substitution take the
 #: window walk first (``tpualign``'s ``SW_WINDOW_LIMIT``) ...
@@ -80,7 +81,7 @@ def _check_align_cfg(cfg: ScoringConfig) -> None:
 def _codes(s1, s2, cfg: ScoringConfig):
     """Both sequences as int8 code arrays, refused (ValueError) past the
     int32 headroom or outside a matrix's alphabet."""
-    s1, s2 = xla.int8_codes(s1), xla.int8_codes(s2)
+    s1, s2 = int8_codes(s1), int8_codes(s2)
     xla.check_codes(torch.from_numpy(s1), torch.from_numpy(s2), cfg)
     band._check_cfg(cfg, s1.size + s2.size)
     return s1, s2

@@ -31,18 +31,21 @@ tensors:
   the k-way Hirschberg split reads).
 
 :func:`fill_g_plain` is the plain version of both, :func:`fill_plain` it at
-g = 1 (K1's contract).
+g = 1 (K1's contract).  A third kernel (``csrc/bitpal_batch.cu``) fills a
+batch of pairs, one thread block each: :func:`batch_fill` (K5's port), with
+the plain version :func:`batch_fill_plain`, behind :func:`score_batch`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
 from ..config import ScoringConfig
+from . import pairs as packing
 
 WORD = 64  # query rows per int64 word
 ALPHABET = 5  # match planes for codes 0..4 (.bdna: 0 = gap byte, 1..4 = ATGC)
@@ -384,10 +387,19 @@ def _eq_planes(query: torch.Tensor, nq: int) -> torch.Tensor:
     """``(5, nw)`` int64: bit ``b`` of word ``w`` of plane ``c`` set iff
     ``query[64w + b] == c``; rows past ``nq`` are set in no plane."""
     nw = -(-nq // WORD)
-    dev = query.device
-    q = torch.full((nw * WORD,), -1, dtype=torch.int64, device=dev)
+    q = torch.full((nw * WORD,), -1, dtype=torch.int64, device=query.device)
     q[:nq] = query
-    hits = q.view(1, nw, WORD) == torch.arange(ALPHABET, device=dev).view(-1, 1, 1)
+    return _eq_planes_batch(q.view(1, -1))[0]
+
+
+def _eq_planes_batch(queries: torch.Tensor) -> torch.Tensor:
+    """``(P, 5, nw)`` int64: the match planes of each row of ``queries``
+    ``(P, nw * 64)``, rows past a pair's query padded with a code outside
+    0..4 (set in no plane)."""
+    P, rows = queries.shape
+    dev = queries.device
+    q = queries.long().view(P, 1, rows // WORD, WORD)
+    hits = q == torch.arange(ALPHABET, device=dev).view(1, -1, 1, 1)
     # distinct powers of two never carry, so the sum is the OR (bit 63 wraps
     # to the sign bit as intended)
     weights = torch.ones(WORD, dtype=torch.int64, device=dev) << torch.arange(WORD, device=dev)
@@ -495,3 +507,180 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     dev = _device(device)
     fn = score_fn(s1.size, s2.size, cfg, device=dev)
     return int(fn(torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)))
+
+
+def _check_batch_args(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor,
+                      nq: int) -> None:
+    if texts.dtype != torch.int8 or texts.dim() != 2 or texts.shape[1] < 1:
+        raise ValueError(f"texts must be (P, m_cap) int8, got {texts.dtype} "
+                         f"{tuple(texts.shape)}")
+    P = texts.shape[0]
+    nw = -(-nq // WORD) if nq >= 1 else 0
+    if P < 1 or nw < 1:
+        raise ValueError(f"the batch fill needs a pair and a query row, got {P} pairs, nq {nq}")
+    if tlen.dtype != torch.int64 or tuple(tlen.shape) != (P,):
+        raise ValueError(f"tlen must be int64 of shape ({P},), got {tlen.dtype} "
+                         f"{tuple(tlen.shape)}")
+    if eq.dtype != torch.int64 or tuple(eq.shape) != (P, ALPHABET, nw):
+        raise ValueError(f"eq must be int64 of shape ({P}, {ALPHABET}, {nw}), got "
+                         f"{eq.dtype} {tuple(eq.shape)}")
+    if not (texts.device == tlen.device == eq.device):
+        raise ValueError(f"texts on {texts.device}, tlen on {tlen.device}, eq on {eq.device}")
+    if not (texts.is_contiguous() and tlen.is_contiguous() and eq.is_contiguous()):
+        raise ValueError("texts, tlen and eq must be contiguous")
+
+
+def batch_fill_plain(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor, nq: int,
+                     g: int) -> torch.Tensor:
+    """Plain PyTorch version of the batch fill (K5's contract):
+    :func:`fill_g_plain`'s wavefront with a leading pair axis.
+
+    ``texts``: ``(P, m_cap)`` int8 codes, pair ``p``'s text in
+    ``texts[p, :tlen[p]]``; ``tlen``: ``(P,)`` int64 text lengths in
+    ``1..m_cap``; ``eq``: ``(P, 5, nw)`` int64 match planes
+    (:func:`_eq_planes` of each pair's query, ``nw`` words of ``nq`` rows,
+    rows past a pair's query set in no plane).  Returns ``(P, B, nw)``
+    int64: pair ``p``'s final column ``v(i, tlen[p])`` as the
+    :func:`n_planes` planes of ``enc = v + g`` over every word.
+
+    Step ``d`` runs word ``w`` of every pair at column ``d - w``; a pair's
+    words keep their state outside its columns ``1..tlen[p]``, so each pair
+    freezes past its own text."""
+    _check_batch_args(texts, tlen, eq, nq)
+    _check_g(g)
+    P, m_cap = texts.shape
+    nw = eq.shape[2]
+    dev = eq.device
+    codes = texts.long()
+    cols = torch.arange(m_cap, device=dev)
+    live_cols = cols < tlen.view(-1, 1)
+    # code ALPHABET selects an all-zero plane: codes outside 0..4 and the
+    # padding match nothing
+    codes = torch.where(live_cols & (codes >= 0) & (codes < ALPHABET), codes, ALPHABET)
+    eqx = torch.cat([eq, eq.new_zeros(P, 1, nw)], dim=1)
+    pad = torch.full((P, nw), ALPHABET, dtype=torch.int64, device=dev)
+    off = torch.zeros((P, nw), dtype=torch.bool, device=dev)
+    # reversed padded texts: word w at step d reads rev[:, m_cap + nw - d + w]
+    rev = torch.cat([pad, codes, pad], dim=1).flip(1)
+    live_rev = torch.cat([off, live_cols, off], dim=1).flip(1)
+    zero = torch.zeros((P, 1), dtype=torch.int64, device=dev)
+    B = n_planes(g)
+    V = [torch.zeros((P, nw), dtype=torch.int64, device=dev) for _ in range(B)]
+    h = [torch.zeros((P, nw), dtype=torch.int64, device=dev) for _ in range(B)]
+    for d in range(1, m_cap + nw):
+        lo = m_cap + nw - d
+        E = eqx.gather(1, rev[:, lo : lo + nw].unsqueeze(1)).squeeze(1)
+        live = live_rev[:, lo : lo + nw]
+        # word 0's h_top is the top boundary h = -g: enc 0
+        u = [torch.cat([zero, x[:, :-1]], dim=1) for x in h]
+        Vn, U = _plane_step(E, *V, *u) if g == 1 else _g_plane_step(g, E, V, u)
+        V = [torch.where(live, vn, v) for vn, v in zip(Vn, V)]
+        h = [(x >> 63) & 1 for x in U]
+    return torch.stack(V, dim=1)
+
+
+def batch_fill(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
+               geometry: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The batch fill's final columns (K5's contract,
+    :func:`batch_fill_plain`) on the device of its tensors: the CUDA kernel
+    ``bitpal_batch_fill`` (``csrc/bitpal_batch.cu``), one thread block per
+    pair and the whole batch in one launch, for CUDA tensors;
+    :func:`batch_fill_plain` for CPU tensors.
+
+    ``geometry``: ``(k, threads)`` words per thread (1, 2, 4, 8 or 16) and
+    threads (up to 1024, ``k * threads >= nw``) of every block; default
+    :func:`kernel_geometry` of ``nw``.  It never changes the result.  On
+    CUDA it allocates the output, launches on the current stream without
+    synchronising, and counts the launch in ``batch_fill.launches``.  A
+    launch the device refuses raises; nothing falls back to the plain
+    version."""
+    _check_batch_args(texts, tlen, eq, nq)
+    _check_g(g)
+    if texts.device.type == "cpu":
+        return batch_fill_plain(texts, tlen, eq, nq, g)
+    if texts.device.type != "cuda":
+        raise ValueError(f"the fills run on cpu or cuda tensors, got {texts.device}")
+    P, m_cap = texts.shape
+    nw = eq.shape[2]
+    k, threads = geometry or kernel_geometry(nw)
+    lib = _build.load()
+    planes = torch.empty((P, n_planes(g), nw), dtype=torch.int64, device=texts.device)
+    with torch.cuda.device(texts.device):
+        err = lib.bitpal_batch_fill(
+            texts.data_ptr(), m_cap, tlen.data_ptr(), eq.data_ptr(), P, nw, g, k, threads,
+            planes.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bitpal_batch_fill launch failed with CUDA error {err}")
+    batch_fill.launches += 1
+    return planes
+
+
+batch_fill.launches = 0
+
+
+def _batch_scores(planes: torch.Tensor, mt: torch.Tensor, nq: torch.Tensor, g: int,
+                 cfg: ScoringConfig) -> torch.Tensor:
+    """``(P,)`` int64 scores under ``cfg`` from the batch fill's planes:
+    each pair's final column summed over its own ``nq[p]`` rows
+    (:func:`row_deltas`), ``H(nq, mt) = sum enc - g (mt + nq)`` in the unit
+    scheme, mapped back by :func:`_from_unit`."""
+    P, _, nw = planes.shape
+    shifts = torch.arange(WORD, device=planes.device)
+    enc = sum(((planes[:, b, :, None] >> shifts) & 1) << b for b in range(planes.shape[1]))
+    rows = torch.arange(nw * WORD, device=planes.device)
+    total = enc.reshape(P, -1).masked_fill(rows >= nq.view(-1, 1), 0).sum(1)
+    return _from_unit(cfg, mt + nq, total - g * (mt + nq))
+
+
+def score_batch(texts, queries, cfg: ScoringConfig = ScoringConfig(), *,
+                device) -> np.ndarray:
+    """Scores of the pairs ``(texts[p], queries[p])`` under a (1, 0, -g)
+    family config on ``device`` (``"cuda"`` runs one launch of the batch
+    kernel, ``"cpu"`` the plain version), as ``(P,)`` int64: the
+    counterpart of ``tpualign.ops.bitpal.score_batch``, each query on the
+    bit axis of its pair.
+
+    Refuses what ``tpualign.ops.bitpal.score_batch_fn`` refuses outside the
+    TPU's memory caps (ValueError: a config outside the family, the int32
+    headroom rule over the longest text and query), and a query bucket past
+    one block (:func:`kernel_geometry`).  A pair with an empty side scores
+    ``gap * (m + n)`` in closed form; codes are 0..4, and code 0 matches 0
+    (``tpualign``'s batch kernel builds no plane for it)."""
+    m, n = packing.batch_lengths(texts, queries)
+    if not m.size:
+        return np.zeros(0, np.int64)
+    fam = family(cfg)
+    if fam is None:
+        raise ValueError(_NOT_FAMILY)
+    mult, g = fam
+    m_cap, n_cap = max(1, int(m.max())), max(1, int(n.max()))
+    if (abs(cfg.mismatch) + 2 * mult * g) * (m_cap + n_cap) >= 2**31:
+        raise ValueError("scoring magnitudes too large for int32 headroom")
+    nw = -(-n_cap // WORD)
+    kernel_geometry(nw)  # refuses a query bucket past one block
+    dev = _device(device)
+    out = cfg.gap * (m + n)
+    live = (m > 0) & (n > 0)
+    if not live.any():
+        return out
+    pairs = packing.pack_pairs(texts, queries, np.flatnonzero(live))
+    codes = torch.cat([pairs.texts, pairs.queries])
+    if int(codes.min()) < 0 or int(codes.max()) >= ALPHABET:
+        raise ValueError("bitpal scores .bdna codes 0..4")
+    texts_pad, mt, eq, nq = batch_inputs(pairs.to(dev))
+    planes = batch_fill(texts_pad, mt, eq, pairs.n_cap, g)
+    out[live] = _batch_scores(planes, mt, nq, g, cfg).cpu().numpy()
+    return out
+
+
+def batch_inputs(pairs: packing.Pairs):
+    """The batch fill's arguments for packed pairs, on their device:
+    ``(texts, tlen, eq, nq)``, the texts padded to ``(P, m_cap)`` int8,
+    their lengths, the match planes of the queries over ``ceil(n_cap /
+    64)`` words, and the query lengths (int64)."""
+    mt, nq = pairs.lengths[0].long(), pairs.lengths[1].long()
+    texts = packing.pad_pairs(pairs.texts, pairs.offsets[0], mt, pairs.m_cap).to(torch.int8)
+    queries = packing.pad_pairs(pairs.queries, pairs.offsets[1], nq,
+                                -(-pairs.n_cap // WORD) * WORD, fill=-1)
+    return texts, mt, _eq_planes_batch(queries), nq

@@ -22,6 +22,7 @@ from .. import _build
 from ..config import ScoringConfig
 from . import xla
 from .bitpal import _device
+from .pairs import int8_codes
 
 MAX_THREADS = 1024
 WARP = 32
@@ -114,7 +115,7 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     the kernel, ``"cpu"`` the plain version); the counterpart of
     ``tpualign.ops.pallas_diag.score``.  The shorter sequence goes on the
     diagonal axis (the score is symmetric under the swap)."""
-    a, b = xla.int8_codes(s1), xla.int8_codes(s2)
+    a, b = int8_codes(s1), int8_codes(s2)
     _ensure_pair_modes(cfg)
     dev = _device(device)
     if a.size == 0 or b.size == 0:

@@ -16,17 +16,25 @@ resolves by the same scan over the gap-free candidates (valid because
 ``gap_open <= 0``, see ``ops/oracle.py:_affine_row``).  Values are int64,
 exact for any config; the query's codes are read to the host once, so the
 row loop never waits on the device.
+
+:func:`score_batch` runs the same recurrence over a batch of pairs at once
+(one row of every pair a step, rows past a pair's query frozen): the plain
+version of the batch kernel ``band_batch_fill``
+(:func:`tpualign_torch.ops.band_batch.batch_fill`) and, behind
+:func:`score_batch_affine`, the port of ``tpualign/ops/xla.py``'s
+``score_batch_affine``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import AlignMode, ScoringConfig
 from .bitpal import _device
+from .pairs import Pairs, batch_lengths, pack_pairs, pad_pairs
 
 #: -inf stand-in for the affine gap rows: far below any score, and far from
 #: int64's limits after a few gap charges
@@ -53,17 +61,6 @@ def gap_run(cfg: ScoringConfig, length: int) -> int:
     if cfg.is_affine:
         return cfg.gap_open + cfg.gap_extend * length
     return cfg.gap * length
-
-
-def int8_codes(seq) -> np.ndarray:
-    """A 1-D code sequence as a contiguous int8 array (ValueError if a code
-    does not fit), the form the band and diagonal kernels read."""
-    a = np.asarray(seq)
-    if a.ndim != 1:
-        raise ValueError(f"sequence must be 1-D, got shape {a.shape}")
-    if a.size and (a.min() < -128 or a.max() > 127):
-        raise ValueError("sequence codes must fit int8")
-    return np.ascontiguousarray(a, dtype=np.int8)
 
 
 def check_pair(a: torch.Tensor, b: torch.Tensor, names: Tuple[str, str]) -> None:
@@ -239,3 +236,117 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     if a.size == 0 or b.size == 0:
         return _empty_score(a.size, b.size, cfg)
     return int(score_tensors(t1.to(dev), t2.to(dev), cfg))
+
+
+def score_batch(pairs: Pairs, cfg: ScoringConfig, ends) -> torch.Tensor:
+    """Plain PyTorch version of the batch kernel: ``(P,)`` int64 on the
+    pairs' device, pair ``p``'s result under the band kernel's contract
+    (:mod:`tpualign_torch.ops.band`'s docstring) for its text (columns)
+    against its query (rows), ``ends`` the flags ``(zr, zc, er, ec)`` of
+    every pair.
+
+    One row of every pair a step over ``(P, m_cap + 1)`` tensors, as
+    :func:`rows_scan` runs one pair: rows past a pair's query keep its H
+    (and F), as ``tpualign``'s ``_batch_affine_impl`` does; columns past a
+    pair's text hold padding whose values never flow left, and the maxima
+    read columns ``1..m_p`` only.  Matrix codes must lie in the matrix
+    (:func:`check_codes`)."""
+    zr, zc, er, ec = ends
+    local, affine = cfg.is_local, cfg.is_affine
+    dev = pairs.texts.device
+    m = pairs.lengths[0].long().view(-1, 1)
+    n = pairs.lengths[1].long().view(-1, 1)
+    n_min = int(n.min())
+    t = pad_pairs(pairs.texts, pairs.offsets[0], m, pairs.m_cap)
+    q = pad_pairs(pairs.queries, pairs.offsets[1], n, pairs.n_cap).t().contiguous()
+    if cfg.has_matrix:
+        mat = torch.tensor(cfg.matrix, dtype=torch.int64, device=dev).view(-1)
+        t_k = t * len(cfg.matrix)
+
+        def sub(i):
+            return mat[t_k + q[i].view(-1, 1)]
+    else:
+        def sub(i):
+            return torch.where(t == q[i].view(-1, 1), cfg.match, cfg.mismatch)
+    P = t.shape[0]
+    j = torch.arange(pairs.m_cap + 1, dtype=torch.int64, device=dev)
+    if affine:
+        open_, ext = cfg.gap_open, cfg.gap_extend
+        jg = j * ext
+        open_jext = jg + open_
+        h = torch.zeros((P, pairs.m_cap + 1), dtype=torch.int64, device=dev)
+        if not (local or zr):
+            h[:, 1:] = open_jext[1:]
+        f = h + open_
+        e = torch.empty_like(h)
+        e[:, 0] = NEG
+    else:
+        g = cfg.gap
+        jg = j * g
+        h = (torch.zeros((P, pairs.m_cap + 1), dtype=torch.int64, device=dev)
+             if (local or zr) else jg.expand(P, -1).clone())
+    best = torch.zeros_like(h) if local else None
+    col = torch.full((P, 1), NEG, dtype=torch.int64, device=dev) if ec else None
+    t_row = torch.empty_like(h)
+    for i in range(1, pairs.n_cap + 1):
+        if affine:
+            fn = torch.maximum(h + open_, f).add_(ext)
+            torch.maximum(h[:, :-1] + sub(i - 1), fn[:, 1:], out=t_row[:, 1:])
+        else:
+            torch.maximum(h[:, :-1] + sub(i - 1), h[:, 1:] + g, out=t_row[:, 1:])
+        if local:
+            t_row.clamp_(min=0)
+        t_row[:, 0] = 0 if (local or zc) else (open_ + i * ext if affine else i * g)
+        c = torch.cummax(t_row - jg, 1).values
+        if affine:
+            torch.add(c[:, :-1], open_jext[1:], out=e[:, 1:])
+            hn = torch.maximum(t_row, e)
+        else:
+            hn = c.add_(jg)
+        if i > n_min:  # some pair's query has ended: freeze its rows
+            live = n >= i
+            h = torch.where(live, hn, h)
+            if affine:
+                f = torch.where(live, fn, f)
+        else:
+            h = hn
+            if affine:
+                f = fn
+        if local:
+            torch.maximum(best, h, out=best)
+        if ec:
+            col = torch.maximum(col, h.gather(1, m))
+    in_text = (j >= 1) & (j <= m)
+    if local:
+        return torch.where(in_text, best, 0).amax(1)
+    if er or ec:
+        parts = ([torch.where(in_text, h, NEG).amax(1)] if er else []) + (
+            [col.view(-1)] if ec else [])
+        return torch.stack(parts).amax(0)
+    return h.gather(1, m).view(-1)
+
+
+def score_batch_affine(texts: Sequence, queries: Sequence, cfg: ScoringConfig, *,
+                       device) -> np.ndarray:
+    """Gotoh scores of a batch of pairs by one batched row scan on
+    ``device``: the port of ``tpualign.ops.xla.score_batch_affine``, with
+    its envelope (ValueError for a linear, matrix or ends-free config) and
+    its closed form for a pair with an empty side.  ``texts[p]`` runs
+    across the columns, ``queries[p]`` down the rows; returns ``(P,)``
+    int64."""
+    if not cfg.is_affine:
+        raise ValueError("score_batch_affine requires an affine config")
+    if cfg.has_matrix or cfg.is_ends_free:
+        raise ValueError("score_batch_affine serves pair-scored global/local configs; "
+                         "matrix/ends-free configs run on the band or xla engines")
+    m, n = batch_lengths(texts, queries)
+    dev = _device(device)
+    live = (m > 0) & (n > 0)
+    out = np.zeros(m.size, np.int64)
+    if not cfg.is_local:  # an empty side: one gap run, or nothing
+        total = m + n
+        out = np.where(total > 0, gap_run(cfg, total), 0)
+    if live.any():
+        pairs = pack_pairs(texts, queries, np.flatnonzero(live)).to(dev)
+        out[live] = score_batch(pairs, cfg, (False,) * 4).cpu().numpy()
+    return out

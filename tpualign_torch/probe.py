@@ -23,7 +23,14 @@ Prints, each part on lines of its own:
 7. the same for one ``align`` of the pair under that scoring (the
    locate, the anchored start locate and the core's split over
    ``band_capture_fill``, then the leaf walks), with the host-clock split
-   that the call records in ``stats``.
+   that the call records in ``stats``;
+8. the same for one warm ``align_score_batch`` of the short-read mix
+   (:func:`read_pairs`: 8,192 reads against their reference windows) under
+   infix (2, -1, -2) (``band_batch_fill``), with its host-clock split into
+   packing, the launch and the read-back.
+
+:func:`serve_pairs` and :func:`read_pairs` are the two batches that
+``chip_smoke.py`` drives ``align_score_batch`` with.
 
 Nothing is compared here: ``chip_smoke.py`` checks the kernel.  Exits
 non-zero without a CUDA device.
@@ -39,14 +46,51 @@ import time
 import numpy as np
 import torch
 
-from . import align, align_score
+from . import align, align_score, align_score_batch
 from .config import AlignMode, ScoringConfig
-from .ops import bitpal, hirschberg
+from .ops import band, band_batch, bitpal, hirschberg, pairs
 
 PAIR_LENGTHS = (126440, 127240)  # bdna/64gb-{1,2}.bdna
+#: the short-read mix: a read mapper's candidate checks, each a read of
+#: READ_LEN bases against a reference window of WINDOW bases that holds it
+READS, READ_LEN, WINDOW = 8192, 150, (150, 350)
+READ_SUBSTITUTIONS = 0.05
 SWEEP_TEXT = 20000
 SWEEP_ROWS = (64, 2048, 8192, 16384, 32768, 49152, 65536, 127240, 131072,
               262144, 524288, 1048576)
+
+
+def serve_pairs():
+    """``examples/serve_batch.py``'s batch, drawn as it draws it: 16 pairs,
+    each length uniform in 5,000..24,999 from ``default_rng(0)``, codes
+    1..4 from ``default_rng(i)`` as ``tpualign.io.bdna.random_pair`` draws
+    them.  Returns ``(texts, queries)``."""
+    rng = np.random.default_rng(0)
+    texts, queries = [], []
+    for i in range(16):
+        m, n = int(rng.integers(5_000, 25_000)), int(rng.integers(5_000, 25_000))
+        pair = np.random.default_rng(i)
+        texts.append(pair.integers(1, 5, size=m, dtype=np.int8))
+        queries.append(pair.integers(1, 5, size=n, dtype=np.int8))
+    return texts, queries
+
+
+def read_pairs(count: int = READS, seed: int = 0):
+    """A read mapper's candidate checks: ``count`` reads of ``READ_LEN``
+    bases (the queries), each cut from a random reference window of
+    ``WINDOW`` bases (the texts) at a random offset, with
+    ``READ_SUBSTITUTIONS`` of its bases changed to another base; codes
+    1..4.  Returns ``(texts, queries)``, views of two arrays."""
+    rng = np.random.default_rng(seed)
+    lo, hi = WINDOW
+    lengths = rng.integers(lo, hi + 1, count)
+    windows = rng.integers(1, 5, (count, hi), dtype=np.int8)
+    starts = (rng.random(count) * (lengths - READ_LEN + 1)).astype(np.int64)
+    reads = np.take_along_axis(windows, starts[:, None] + np.arange(READ_LEN), axis=1)
+    changed = rng.random((count, READ_LEN)) < READ_SUBSTITUTIONS
+    other = (reads - 1 + rng.integers(1, 4, (count, READ_LEN), dtype=np.int8)) % 4 + 1
+    reads = np.where(changed, other, reads).astype(np.int8)
+    return [w[:k] for w, k in zip(windows, lengths)], list(reads)
 
 
 def _smi(query: str) -> str:
@@ -166,6 +210,38 @@ def main() -> None:
     stats = {}
     _traced("align SW", lambda: align(s1, s2, sw, stats=stats))
     print(f"[align SW, traced, host clock] {stats}")
+
+    # 8: one warm align_score_batch of the short-read mix under infix,
+    # traced, and its host-clock split
+    texts, queries = read_pairs()
+    infix = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.INFIX)
+    align_score_batch(texts, queries, infix)
+    _traced("align_score_batch reads infix",
+            lambda: align_score_batch(texts, queries, infix))
+    print(f"[align_score_batch reads infix, host clock] {_batch_split(texts, queries, infix)}")
+
+
+def _batch_split(texts, queries, cfg) -> str:
+    """``band_batch.score_batch``'s steps, each closed by a synchronize, on
+    the host clock: packing on the host, the copy to the card, the launch,
+    and the read-back with the closed-form floors."""
+    marks = [time.perf_counter()]
+    m, n = pairs.batch_lengths(texts, queries)
+    live = (m > 0) & (n > 0)
+    packed = pairs.pack_pairs(texts, queries, np.flatnonzero(live))
+    marks.append(time.perf_counter())
+    packed = packed.to("cuda")
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    raw = band_batch.batch_fill(packed, cfg, band._ends_flags(cfg, False))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    scores, floor = raw.cpu().numpy(), band_batch.floors(cfg, m[live], n[live])
+    scores = scores if floor is None else np.maximum(scores, floor)
+    marks.append(time.perf_counter())
+    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return (f"pack {ms[0]:.3f} ms, copy {ms[1]:.3f} ms, kernel {ms[2]:.3f} ms, "
+            f"read-back {ms[3]:.3f} ms; {len(scores)} pairs, score sum {int(scores.sum())}")
 
 
 def _traced(tag: str, call) -> None:
