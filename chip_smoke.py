@@ -2,7 +2,9 @@
 
 Builds the port's CUDA kernels from ``tpualign_torch/csrc`` with ``nvcc``
 (``bitpal_gfill``: K1's port at g = 1 and K2's at g >= 2;
-``bitpal_capture_fill``, K4's; ``bitpal_batch_fill``, K5's; ``band_fill``,
+``bitpal_capture_fill``, K4's; ``bitpal_rc_fill``, K3a's;
+``bitpal_rc_chunk``, K3b's; ``bitpal_gfill_chunk``, K4's state in and
+out; ``bitpal_batch_fill``, K5's; ``band_fill``,
 K6's; ``band_capture_fill``, K7's, and ``band_batch_fill``, its batch
 contract; ``diag_fill``, K8's), holds each against its plain PyTorch version on
 the card at a range of shapes (and the scores and alignments against the
@@ -45,7 +47,19 @@ path's shape:
   window) under infix (2, -1, -2) and (1, 0, -1): one launch each, the
   kernel held against its batched plain version at that shape, every score
   against the port's per-pair ``align_score``; every batch instantiation
-  against its plain version on small ragged batches.
+  against its plain version on small ragged batches;
+- ``tpualign_torch.align_score`` (this slice's main path) on the family's
+  short-query and long-text routes, which follow ``tpualign``'s rule:
+  20,000 x 20,000 and 1,000,000 x 10,000 at (1, 0, -1) through
+  ``bitpal_rc_fill`` (K3a's port, 4 columns a step), 4,000,000 x 2,000
+  and 2,000,000 x 200 through ``bitpal_rc_chunk`` (K3b's, a launch a
+  chunk), 2,000,000 x 100,000 at (1, 0, -2) through ``bitpal_gfill_chunk``
+  (K4's state in and out); each held word for word against a kernel
+  already held (K1's or K2's ``bitpal_gfill``, or one ``bitpal_rc_fill``
+  launch), every instantiation of the three against its plain version on
+  small shapes chunk by chunk, and K3a and K3b at 2,000 x 200,000 against
+  one plain run.  K1's own 20,000 x 20,000 hold runs with
+  ``cols_per_step=1``.
 
 With ``--corpus`` naming the reference's ``bdna`` directory the 64gb pair is
 read from it and the scores must be the reference's 73888 and the JAX
@@ -94,8 +108,9 @@ BAND_BATCH_SOURCE = "tpualign_torch/csrc/band_batch.cu"
 #: bitpal_gfill, band_fill, band_capture_fill (40 linear, 36 affine: local
 #: stops at 8 rows a thread), diag_fill, bitpal_batch_fill (5 words per
 #: thread x 3 plane counts), band_batch_fill (40 less local affine at 16
-#: rows a thread)
-N_INSTANTIATIONS = 30 + 40 + 76 + 1 + 15 + 38
+#: rows a thread), bitpal_rc_kernel (3 rc x 5 words per thread),
+#: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes, x 5)
+N_INSTANTIATIONS = 30 + 40 + 76 + 1 + 15 + 38 + 15 + 30
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -131,8 +146,8 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"((?:bitpal_g|band_|diag_)fill_kernel|(?:bitpal|band)_batch_kernel)",
-                             mangled)
+            base = re.search(r"((?:bitpal_g|band_|diag_)fill_kernel|(?:bitpal|band)_batch_kernel"
+                             r"|bitpal_(?:rc|chunk)_kernel)", mangled)
             args = re.search(r"kernelI(.*?)EEv", mangled)
             targs = re.findall(r"L[ib](\d+)E", args.group(1) + "E") if args else []
             name = f"{base.group(1) if base else mangled}<{','.join(targs)}>"
@@ -189,6 +204,298 @@ def band_ops(cfg, cells, cell=False):
     return per * cells
 
 
+RC_SOURCE = "tpualign_torch/csrc/bitpal_rc.cu"
+RC_REPLACES = {
+    "bitpal_rc_fill": "tpualign/ops/bitpal.py:677",  # _rc_kernel_body (K3a)
+    "bitpal_rc_chunk": "tpualign/ops/bitpal.py:1449",  # _rc_chunk_kernel_body (K3b)
+    "bitpal_gfill_chunk": "tpualign/ops/bitpal.py:1038",  # _chunk_kernel_body (K4)
+}
+#: (text, query) lengths of the staggered fills' phase
+RC_SHAPES = dict(moderate=(200000, 2000), k4_plain=(30000, 2000), k3a=(1000000, 10000),
+                 k3b=(4000000, 2000), short=(2000000, 200), k4=(2000000, 100000))
+
+
+def rc_phase(ctx, shapes, a20, b20, want20):
+    """The staggered fills of ``csrc/bitpal_rc.cu`` (K3a's port
+    ``bitpal_rc_fill``, K3b's ``bitpal_rc_chunk``, K4's state in and out
+    ``bitpal_gfill_chunk``): every instantiation against its plain version
+    on small shapes, chunk by chunk at odd chunk lengths; K3a and K3b at a
+    moderate shape and ``bitpal_gfill_chunk`` at a smaller one against one
+    plain run; then ``align_score`` on each route that runs them, with the
+    counts set to 0 just before it, its kernel held word for word against
+    a kernel already held (K1's ``fill_g``, ``bitpal_rc_fill``, K2's
+    ``fill_g``).  ``ctx``: the smoke's ``dev``, ``rng``, ``smi``,
+    ``cuda_ms``, ``host_ms``, ``sync``, ``reset_counts``, ``read_counts``,
+    ``only``.  Returns the kernels' entries of the ``kernels`` line."""
+    import torch
+
+    import tpualign_torch
+    from tpualign_torch.config import ScoringConfig
+    from tpualign_torch.ops import bitpal
+
+    dev, rng, smi = ctx.dev, ctx.rng, ctx.smi
+    t_phase = time.perf_counter()
+    held = {name: dict(max_abs_err=0) for name in RC_REPLACES}
+    cpu = torch.device("cpu")
+
+    def hold(name, got, want, nq, g, where):
+        """``(planes, hand)`` (hand None for final planes) word for word."""
+        ctx.sync()
+        gp, wp = [x.to(cpu) for x in got[0]], [x.to(cpu) for x in want[0]]
+        err = int((bitpal.row_deltas(gp, nq, g) - bitpal.row_deltas(wp, nq, g)).abs().max())
+        same = all(torch.equal(x, y) for x, y in zip(gp, wp))
+        if got[1] is not None:
+            gh, wh = got[1].to(cpu).long(), want[1].to(cpu).long()
+            err = max(err, int((gh - wh).abs().max()))
+            same = same and torch.equal(gh, wh)
+        if err or not same:
+            raise AssertionError(f"{name} differs at {where} (max abs err {err})")
+        held[name]["max_abs_err"] = max(held[name]["max_abs_err"], err)
+
+    def inputs(mt, nq, lo=1):
+        text = rng.integers(lo, 5, mt).astype(np.int8)
+        query = rng.integers(lo, 5, nq).astype(np.int8)
+        t, q = torch.from_numpy(text).to(dev), torch.from_numpy(query).to(dev)
+        return t, bitpal._eq_planes(q, nq), text, query
+
+    def chunk_holds(t, eq, nq, g, rc, lengths, geometry=None, plain_states=None):
+        """The chunk entry chunk by chunk (chunk lengths cycled) from the
+        boundary to the last step, each state held against the plain
+        chunk's from the same state; returns the plain's final state and
+        the plain's host ms."""
+        name = "bitpal_rc_chunk" if rc > 1 else "bitpal_gfill_chunk"
+        entry = bitpal.fill_rc_chunk if rc > 1 else bitpal.fill_g_chunk
+        nw, mt = eq.shape[1], t.shape[0]
+        tc, eqc = t.to(cpu), eq.to(cpu)
+        edges, t0, i = [], 0, 0
+        while t0 < bitpal.total_steps(mt, nw, rc):
+            edges.append((t0, lengths[i % len(lengths)]))
+            t0, i = t0 + lengths[i % len(lengths)], i + 1
+        t1 = time.perf_counter()
+        plain = [bitpal.init_state(nw, g, cpu)]
+        for t0, steps in edges:
+            plain.append(bitpal.chunk_plain(tc, eqc, nq, g, rc, t0, steps, plain[-1]))
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        state = bitpal.init_state(nw, g, dev)
+        for (t0, steps), want in zip(edges, plain[1:]):
+            state = (entry(t, eq, nq, rc, t0, steps, state, geometry) if rc > 1
+                     else entry(t, eq, nq, g, t0, steps, state, geometry))
+            hold(name, state, want, nq, g, f"{nq} x {mt}, steps {t0 + 1}..{t0 + steps}, "
+                                          f"rc {rc}, g {g}, geometry {geometry}")
+        return plain[-1], plain_ms, len(edges)
+
+    # small shapes: every instantiation <rc, k> of bitpal_rc_fill and
+    # bitpal_rc_chunk and <B, k> of bitpal_gfill_chunk, one warp and several
+    # (k = 1: 8 warps), codes 0..4, odd chunk lengths
+    n_small = 0
+    many = {1: 8, 2: 4, 4: 2, 8: 2, 16: 2}
+    for kind, k, warps in itertools.product(("rc", "g2", "g3", "g4"), (1, 2, 4, 8, 16),
+                                            (1, None)):
+        warps = warps or many[k]
+        for sub in ((2, 3, 4) if kind == "rc" else (None,)):
+            rc = sub or 1
+            g = 1 if kind in ("rc", "g2") else int(rng.choice({"g3": (2, 3),
+                                                                "g4": (4, 5, 6, 7)}[kind]))
+            words = 32 * k * warps
+            nw = int(rng.integers(words - 32 * k + 1 if warps > 1 else 1, words + 1))
+            nq = 64 * nw - int(rng.integers(0, 64))
+            t, eq, _, _ = inputs(int(rng.integers(30, 150)), nq, lo=0)
+            lengths = [2 * int(x) + 1 for x in rng.integers(0, 40, 3)]
+            final, _, _ = chunk_holds(t, eq, nq, g, rc, lengths, (k, 32 * warps))
+            if rc > 1:
+                hold("bitpal_rc_fill", (bitpal.fill_rc(t, eq, nq, rc, (k, 32 * warps)), None),
+                     (final.planes, None), nq, 1, f"{nq} x {t.shape[0]}, rc {rc}, k {k}, "
+                                                  f"{warps} warps")
+            n_small += 1
+    print(f"[staggered fills vs plain] {n_small} small cases: bitpal_rc_fill equal to the "
+          f"plain fill and bitpal_rc_chunk and bitpal_gfill_chunk to chunk_plain chunk by "
+          f"chunk at odd chunk lengths (every <rc, k> and <B, k>, one warp and several, codes "
+          f"0..4); {time.perf_counter() - t_phase:.1f} s")
+
+    # moderate shapes: one plain run in chunks holds K3a's one launch and
+    # K3b's chunks (rc 4), and K4's chunks at g = 2
+    mt, nq = shapes["moderate"]
+    t, eq, _, _ = inputs(mt, nq)
+    nw = eq.shape[1]
+    steps = -(-bitpal.total_steps(mt, nw, 4) // 4) | 1  # four chunks, odd length
+    final, rc_plain_ms, n_chunks = chunk_holds(t, eq, nq, 1, 4, [steps])
+    rc_mod_ms, rc_mod_runs, planes = ctx.cuda_ms(lambda: bitpal.fill_rc(t, eq, nq, 4))
+    hold("bitpal_rc_fill", (planes, None), (final.planes, None), nq, 1, f"{nq} x {mt}")
+    mt4, nq4 = shapes["k4_plain"]
+    t4, eq4, _, _ = inputs(mt4, nq4)
+    steps4 = -(-bitpal.total_steps(mt4, eq4.shape[1], 1) // 3) | 1
+    final4, g_plain_ms, n4 = chunk_holds(t4, eq4, nq4, 2, 1, [steps4])
+    hold("bitpal_gfill_chunk", (bitpal.fill_g(t4, eq4, nq4, 2), None), (final4.planes, None),
+         nq4, 2, f"{nq4} x {mt4}, bitpal_gfill")
+    print(f"[staggered fills, moderate] {nq} x {mt} rc 4: bitpal_rc_fill and {n_chunks} "
+          f"bitpal_rc_chunk chunks of {steps} steps equal to one plain run (chunk_plain "
+          f"{rc_plain_ms:.1f} ms); {nq4} x {mt4} g = 2: {n4} bitpal_gfill_chunk chunks equal "
+          f"to chunk_plain ({g_plain_ms:.1f} ms), the last chunk's planes to bitpal_gfill's; "
+          f"bitpal_rc_fill median of 5 {rc_mod_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in rc_mod_runs)})")
+    held["bitpal_rc_fill"].update(plain_ms=rc_plain_ms, plain_shape=f"{nq}x{mt}")
+    held["bitpal_rc_chunk"].update(plain_ms=rc_plain_ms, plain_shape=f"{nq}x{mt}")
+    held["bitpal_gfill_chunk"].update(plain_ms=g_plain_ms, plain_shape=f"{nq4}x{mt4}")
+
+    def words_bound(mt, nw, g, state_bytes=0):
+        """Bytes: the text, the match planes, the final planes (and the
+        chunks' states); operations: ~25 64-bit operations a word-column at
+        g = 1 (50 at 3 or 4 planes), two 32-bit ones each."""
+        B = bitpal.n_planes(g)
+        return bound(mt + (bitpal.ALPHABET + B) * nw * 8 + state_bytes,
+                     mt * nw * (25 if g == 1 else 50) * 2)
+
+    def counted(name, s1, s2, cfg, kernel, launches=None):
+        ctx.reset_counts()
+        t0 = time.perf_counter()
+        got = tpualign_torch.align_score(s1, s2, cfg)
+        wall = time.perf_counter() - t0
+        counts = ctx.read_counts()
+        n = counts[kernel]
+        if n < 1 or sum(counts.values()) != n or (launches is not None and n != launches):
+            raise AssertionError(f"{name}: align_score did not run {kernel} alone "
+                                 f"({launches} launches): {counts}")
+        return got, counts, wall
+
+    def on_route(s1, s2, cfg=None):
+        kind, rc, s1q = bitpal.route(s1.size, s2.size, cfg or ScoringConfig())
+        q, x = (s1, s2) if s1q else (s2, s1)
+        qd, xd = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+        return kind, rc, xd, bitpal._eq_planes(qd, q.size), q.size, x.size
+
+    def fmt(ms, cells):
+        return f"{ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS)"
+
+    # 20,000 x 20,000 through align_score: K3a's route now
+    got, counts, wall = counted("20k", a20, b20, ScoringConfig(), "fill_rc", 1)
+    if got != want20:
+        raise AssertionError(f"{a20.size} x {b20.size} through K3a: {got} != oracle {want20}")
+    kind, rc, x, eq, nq, mt = on_route(a20, b20)
+    ms20, _, p20 = ctx.cuda_ms(lambda: bitpal.fill_rc(x, eq, nq, rc))
+    k1_20, _, k1p = ctx.cuda_ms(lambda: bitpal.fill_g(x, eq, nq, 1))
+    hold("bitpal_rc_fill", (p20, None), (k1p, None), nq, 1, f"{nq} x {mt} against fill_g")
+    b20_ms, b20_by = words_bound(mt, eq.shape[1], 1)
+    print(f"[path: align_score K3a] {mt} x {nq}: score {got} equal to the oracle's; "
+          f"launches {counts}; wall {wall:.3f} s")
+    print(f"[timing] {smi}: {nq} x {mt}: bitpal_rc_fill rc {rc} {fmt(ms20, mt * nq)}; "
+          f"cols_per_step=1 (K1, bitpal_gfill g = 1) {fmt(k1_20, mt * nq)}; bound "
+          f"{b20_ms:.4f} ms ({b20_by})")
+
+    # 1,000,000 x 10,000 through align_score: K3a, 10k on the bit axis; its
+    # planes against K1's on the same query and text
+    mt, nq = shapes["k3a"]
+    s1, s2 = (rng.integers(1, 5, k).astype(np.int8) for k in (mt, nq))
+    got, counts3a, wall = counted("K3a", s1, s2, ScoringConfig(), "fill_rc", 1)
+    kind, rc, x, eq, nq, mt = on_route(s1, s2)
+    if kind != "rc":
+        raise AssertionError(f"{s1.size} x {s2.size} took {kind}")
+    rc_ms, rc_runs, planes = ctx.cuda_ms(lambda: bitpal.fill_rc(x, eq, nq, rc), runs=3)
+    k1_ms, _, k1p = ctx.cuda_ms(lambda: bitpal.fill_g(x, eq, nq, 1), runs=1)
+    hold("bitpal_rc_fill", (planes, None), (k1p, None), nq, 1, f"{nq} x {mt} against fill_g")
+    if got != int(bitpal._reduce_score(k1p, nq, mt)):
+        raise AssertionError(f"{mt} x {nq}: align_score {got} != fill_g's score")
+    warp_geom = (8, 32)
+    warp_ms, _, wplanes = ctx.cuda_ms(lambda: bitpal.fill_rc(x, eq, nq, rc, warp_geom), runs=3)
+    hold("bitpal_rc_fill", (wplanes, None), (k1p, None), nq, 1, f"{nq} x {mt}, one warp")
+    del planes, wplanes, k1p
+    # cols_per_step=1: K1 on the port's own orientation (1M on the bit axis)
+    own = bitpal._orientation(s1.size, s2.size)
+    q1, x1 = (s1, s2) if own else (s2, s1)
+    xq = torch.from_numpy(x1).to(dev)
+    eq1 = bitpal._eq_planes(torch.from_numpy(q1).to(dev), q1.size)
+    own_ms, _, _ = ctx.cuda_ms(lambda: bitpal.fill_g(xq, eq1, q1.size, 1), runs=1)
+    del eq1, xq
+    b3a = words_bound(mt, eq.shape[1], 1)
+    k, threads = bitpal.wave_geometry(eq.shape[1])
+    print(f"[path: align_score K3a] {mt} x {nq}: score {got} equal to fill_g's on the same "
+          f"query and text, planes word for word; launches {counts3a}; wall {wall:.3f} s")
+    print(f"[timing] {smi}: {nq} x {mt}: bitpal_rc_fill rc {rc} (k {k}, {threads} threads) "
+          f"median of 3 {fmt(rc_ms, mt * nq)} (runs {', '.join(f'{v:.3f}' for v in rc_runs)}); "
+          f"one warp {warp_geom} {fmt(warp_ms, mt * nq)}; bitpal_gfill g = 1 on the same "
+          f"orientation {fmt(k1_ms, mt * nq)}; cols_per_step=1 (K1 on the port's orientation, "
+          f"{q1.size} rows) {fmt(own_ms, mt * nq)}; bound {b3a[0]:.4f} ms ({b3a[1]})")
+    held["bitpal_rc_fill"].update(launches=counts3a["fill_rc"], ms=rc_ms, shape=f"{nq}x{mt}",
+                                  bound_ms=b3a[0], bound_by=b3a[1], library_ms=None,
+                                  one_warp_ms=warp_ms, k1_same_orientation_ms=k1_ms,
+                                  k1_own_orientation_ms=own_ms, ms_20k=ms20, k1_ms_20k=k1_20)
+
+    # 4,000,000 x 2,000 through align_score: K3b's chunks; 3 chunks against
+    # one bitpal_rc_fill launch, and the route's chunks timed against it
+    mt, nq = shapes["k3b"]
+    s1, s2 = (rng.integers(1, 5, k).astype(np.int8) for k in (mt, nq))
+    kind, rc, x, eq, nq, mt = on_route(s1, s2)
+    nw = eq.shape[1]
+    t_steps = bitpal.chunk_steps(rc)
+    n_route = -(-bitpal.total_steps(mt, nw, rc) // t_steps)
+    got, counts3b, wall = counted("K3b", s1, s2, ScoringConfig(), "fill_rc_chunk", n_route)
+    one_ms, _, one = ctx.cuda_ms(lambda: bitpal.fill_rc(x, eq, nq, rc), runs=3)
+    three = -(-bitpal.total_steps(mt, nw, rc) // 3)
+    hold("bitpal_rc_chunk", (bitpal.fill_chunked(x, eq, nq, 1, rc, three), None), (one, None),
+         nq, 1, f"{nq} x {mt}, 3 chunks against one bitpal_rc_fill")
+    ch_ms, ch_runs, chunked = ctx.cuda_ms(lambda: bitpal.fill_chunked(x, eq, nq, 1, rc, t_steps),
+                                          runs=3)
+    hold("bitpal_rc_chunk", (chunked, None), (one, None), nq, 1,
+         f"{nq} x {mt}, {n_route} chunks against one bitpal_rc_fill")
+    if got != int(bitpal._reduce_score(one, nq, mt)):
+        raise AssertionError(f"{mt} x {nq}: align_score {got} != bitpal_rc_fill's score")
+    b3b = words_bound(mt, nw, 1, n_route * 2 * (2 * nw * 8 + nw))
+    print(f"[path: align_score K3b] {mt} x {nq}: score {got} equal to one bitpal_rc_fill "
+          f"launch's; launches {counts3b} ({n_route} chunks of {t_steps} steps); 3 chunks "
+          f"and the route's {n_route} equal to one launch word for word; wall {wall:.3f} s")
+    print(f"[timing] {smi}: {nq} x {mt}: {n_route} bitpal_rc_chunk chunks median of 3 "
+          f"{fmt(ch_ms, mt * nq)} (runs {', '.join(f'{v:.3f}' for v in ch_runs)}); one "
+          f"bitpal_rc_fill launch {fmt(one_ms, mt * nq)}; chunking costs "
+          f"{ch_ms / one_ms - 1:+.4f}; bound {b3b[0]:.4f} ms ({b3b[1]})")
+    held["bitpal_rc_chunk"].update(launches=counts3b["fill_rc_chunk"], ms=ch_ms,
+                                   shape=f"{nq}x{mt}", bound_ms=b3b[0], bound_by=b3b[1],
+                                   library_ms=None, one_launch_ms=one_ms)
+    del one, chunked
+
+    # 2,000,000 x 200 (ROADMAP item 5): K3b's chunks against K1
+    mt, nq = shapes["short"]
+    s1, s2 = (rng.integers(1, 5, k).astype(np.int8) for k in (mt, nq))
+    kind, rc, x, eq, nq, mt = on_route(s1, s2)
+    got, counts_s, wall = counted("2M x 200", s1, s2, ScoringConfig(), "fill_rc_chunk")
+    k1p = bitpal.fill_g(x, eq, nq, 1)
+    hold("bitpal_rc_chunk", (bitpal.fill_chunked(x, eq, nq, 1, rc, bitpal.chunk_steps(rc)), None),
+         (k1p, None), nq, 1, f"{nq} x {mt} against fill_g")
+    if got != int(bitpal._reduce_score(k1p, nq, mt)):
+        raise AssertionError(f"{mt} x {nq}: align_score {got} != fill_g's score")
+    print(f"[path: align_score K3b short query] {mt} x {nq}: score {got} equal to fill_g's, "
+          f"planes word for word; launches {counts_s}; wall {wall:.3f} s")
+
+    # 2,000,000 x 100,000 at (1, 0, -2) through align_score: K4's chunks
+    # with their state, against one bitpal_gfill launch at g = 2
+    mt, nq = shapes["k4"]
+    cfg2 = ScoringConfig(gap=-2)
+    s1, s2 = (rng.integers(1, 5, k).astype(np.int8) for k in (mt, nq))
+    kind, rc, x, eq, nq, mt = on_route(s1, s2, cfg2)
+    nw = eq.shape[1]
+    t_steps = bitpal.chunk_steps(1)
+    n_route = -(-bitpal.total_steps(mt, nw, 1) // t_steps)
+    got, counts4, wall = counted("K4", s1, s2, cfg2, "fill_g_chunk", n_route)
+    ch4_ms, _, chunked = ctx.cuda_ms(lambda: bitpal.fill_chunked(x, eq, nq, 2, 1, t_steps),
+                                     runs=1)
+    one4_ms, _, one = ctx.cuda_ms(lambda: bitpal.fill_g(x, eq, nq, 2), runs=1)
+    hold("bitpal_gfill_chunk", (chunked, None), (one, None), nq, 2,
+         f"{nq} x {mt}, {n_route} chunks against one bitpal_gfill")
+    want = bitpal._from_unit(cfg2, mt + nq, int(bitpal._reduce_score(one, nq, mt, 2)))
+    if got != want:
+        raise AssertionError(f"{mt} x {nq} g = 2: align_score {got} != bitpal_gfill's {want}")
+    b4 = words_bound(mt, nw, 2, n_route * 2 * (3 * nw * 8 + nw))
+    print(f"[path: align_score K4 chunks] {mt} x {nq} (1, 0, -2): score {got} equal to one "
+          f"bitpal_gfill launch's; launches {counts4} ({n_route} chunks of {t_steps} steps), "
+          f"planes word for word; wall {wall:.3f} s")
+    print(f"[timing] {smi}: {nq} x {mt} g = 2: {n_route} bitpal_gfill_chunk chunks "
+          f"{fmt(ch4_ms, mt * nq)}; one bitpal_gfill launch {fmt(one4_ms, mt * nq)}; chunking "
+          f"costs {ch4_ms / one4_ms - 1:+.4f}; bound {b4[0]:.4f} ms ({b4[1]})")
+    held["bitpal_gfill_chunk"].update(launches=counts4["fill_g_chunk"], ms=ch4_ms,
+                                      shape=f"{nq}x{mt}", bound_ms=b4[0], bound_by=b4[1],
+                                      library_ms=None, one_launch_ms=one4_ms)
+    print(f"[phase i] {time.perf_counter() - t_phase:.1f} s")
+    return [{"name": name, "route": "cuda", "source": RC_SOURCE, "replaces": RC_REPLACES[name],
+             **held[name]} for name in RC_REPLACES]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--corpus", default=None,
@@ -210,7 +517,9 @@ def main() -> None:
     counted = {"fill_g": bitpal.fill_g, "capture_fill": bitpal.capture_fill,
                "band_fill": band.band_fill, "diag_fill": pallas_diag.diag_fill,
                "band_capture_fill": band.capture_fill,
-               "bitpal_batch_fill": bitpal.batch_fill, "band_batch_fill": band_batch.batch_fill}
+               "bitpal_batch_fill": bitpal.batch_fill, "band_batch_fill": band_batch.batch_fill,
+               "fill_rc": bitpal.fill_rc, "fill_rc_chunk": bitpal.fill_rc_chunk,
+               "fill_g_chunk": bitpal.fill_g_chunk}
 
     def reset_counts():
         for fn in counted.values():
@@ -315,10 +624,15 @@ def main() -> None:
           f"for word (words per thread {per_thread}); {n_oracle} scores equal to the oracle")
     a = rng.integers(1, 5, 20000).astype(np.int8)
     b = rng.integers(1, 5, 20000).astype(np.int8)
-    got, want = bitpal.score(a, b, device="cuda"), oracle.score(a, b)
-    if got != want:
-        raise AssertionError(f"20000 x 20000: kernel score {got} != oracle {want}")
-    print(f"[K1 vs oracle] 20000 x 20000 score {got} equal to the oracle's")
+    # pinned to K1 (cols_per_step=1): by tpualign's rule this pair takes K3a,
+    # held in phase (i)
+    reset_counts()
+    got, want20 = bitpal.score(a, b, device="cuda", cols_per_step=1), oracle.score(a, b)
+    if got != want20 or not only(read_counts(), "fill_g"):
+        raise AssertionError(f"20000 x 20000: kernel score {got} != oracle {want20}, or not "
+                             f"one bitpal_gfill launch: {read_counts()}")
+    print(f"[K1 vs oracle] 20000 x 20000 score {got} (cols_per_step=1: one bitpal_gfill "
+          f"launch) equal to the oracle's")
 
     # phase 4: align_score at the default scoring on the 64gb-shape pair
     s1, s2, source = load_pair(args.corpus)
@@ -1176,6 +1490,13 @@ def main() -> None:
     time_k5("B (1, 0, -1)", "B", 1, ScoringConfig())
     print(f"[phase h] {time.perf_counter() - t0:.1f} s")
 
+    # phase (i): this slice's main path, align_score on the staggered fills'
+    # routes (K3a, K3b, K4's chunks with their state)
+    ctx = argparse.Namespace(dev=dev, rng=rng, smi=smi, cuda_ms=cuda_ms, host_ms=host_ms,
+                             sync=torch.cuda.synchronize, reset_counts=reset_counts,
+                             read_counts=read_counts, only=only)
+    rc_kernels = rc_phase(ctx, RC_SHAPES, a20, b20, want20)
+
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:
             raise AssertionError(f"the port imported {pkg}")
@@ -1233,7 +1554,7 @@ def main() -> None:
                    for tag, ph in batch_phases.items() if ph["kernel"] == kernel},
     } for kernel, source, replaces, held, main in (
         ("bitpal_batch_fill", BATCH_SOURCE, BATCH_REPLACES, k5, "A (1, 0, -1)"),
-        ("band_batch_fill", BAND_BATCH_SOURCE, CAPTURE_REPLACES, kb, "A SW"))]}))
+        ("band_batch_fill", BAND_BATCH_SOURCE, CAPTURE_REPLACES, kb, "A SW"))] + rc_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -4,8 +4,9 @@
 
 Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points),
 ``band_capture_affine.cu`` and ``band_batch.cu`` (with the template they
-share, ``band_fill.cuh``), ``diag_fill.cu``, and ``bitpal_gfill.cu`` and
-``bitpal_batch.cu`` (with the step they share, ``bitpal_step.cuh``) with
+share, ``band_fill.cuh``), ``diag_fill.cu``, and ``bitpal_gfill.cu``,
+``bitpal_batch.cu`` and ``bitpal_rc.cu`` (with the step they share,
+``bitpal_step.cuh``) with
 ``g++`` as C++20 through a shim ``cuda_runtime.h``: one ``std::thread``
 per CUDA thread of a block, the blocks of a grid one after another,
 ``__syncthreads`` as a ``std::barrier``, the warp shuffles through a slot
@@ -18,7 +19,8 @@ count, captured rows at the strip edges, ragged batches with 1 x 1 pairs
 and pairs past one strip), and each result is held against the plain
 version (``band.score_plain``, ``band.capture_plain``,
 ``xla.score_batch``, ``pallas_diag.score_plain``,
-``bitpal.fill_g_plain``, ``bitpal.batch_fill_plain``).  Prints one line
+``bitpal.fill_g_plain``, ``bitpal.batch_fill_plain``,
+``bitpal.fill_rc_plain``, and ``bitpal.chunk_plain`` chunk by chunk).  Prints one line
 per kernel and exits non-zero on the first mismatch.
 
 A rehearsal of the kernels' logic before a card runs them, not a test of
@@ -115,7 +117,7 @@ template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, 
 
 LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<(\w+), (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
 SOURCES = ("band_fill.cu", "band_capture_affine.cu", "band_batch.cu", "diag_fill.cu",
-           "bitpal_gfill.cu", "bitpal_batch.cu")
+           "bitpal_gfill.cu", "bitpal_batch.cu", "bitpal_rc.cu")
 HEADERS = ("band_fill.cuh", "bitpal_step.cuh")
 
 
@@ -149,6 +151,9 @@ def build() -> ctypes.CDLL:
     dll.band_batch_fill.argtypes = [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3
     dll.bitpal_gfill.argtypes = [vp, vp, i64] + [i32] * 4 + [vp, vp]
     dll.bitpal_batch_fill.argtypes = [vp, i64, vp, vp] + [i32] * 5 + [vp, vp]
+    dll.bitpal_rc_fill.argtypes = [vp, vp, i64] + [i32] * 4 + [vp, vp]
+    for entry in (dll.bitpal_rc_chunk, dll.bitpal_gfill_chunk):
+        entry.argtypes = [vp, vp, i64] + [i32] * 4 + [i64, i64] + [vp] * 5
     return dll
 
 
@@ -305,6 +310,64 @@ def _bitpal_cases(dll, rng, cases):
                      f"{mts.tolist()}, queries {nqs.tolist()}, k {k}")
 
 
+def _wave_cases(dll, rng, cases):
+    """``bitpal_rc_fill`` against ``fill_rc_plain``, and ``bitpal_rc_chunk``
+    and ``bitpal_gfill_chunk`` chunk by chunk against ``chunk_plain`` (the
+    state after every chunk, word for word, and the last chunk's planes
+    against the one-launch plain fill): rc 2..4 and g 1..7 in turn, every
+    words-per-thread count, one warp and several, chunk edges anywhere from
+    the ramp to past the end, codes 0..4."""
+    for c in range(cases):
+        rc, g = 2 + c % 3, 1 + c % 7
+        k = [1, 2, 4, 8, 16, 1, 2][(c // 3) % 7]
+        # one warp at every k, or up to four at k <= 2 with words in the
+        # last (and at times a spare warp past them)
+        warps = 1 if k > 2 else int(rng.integers(1, 5))
+        lo = 0 if warps == 1 else 32 * k * (warps - 1) * bitpal.WORD
+        nq, mt = int(rng.integers(lo + 1, 32 * k * warps * bitpal.WORD + 1)), int(rng.integers(1, 80))
+        nw = -(-nq // bitpal.WORD)
+        threads = 32 * (warps + int(rng.integers(0, 2)) * (c % 4 == 0))
+        q = torch.from_numpy(rng.integers(0, 5, nq).astype(np.int8))
+        t = torch.from_numpy(rng.integers(0, 5, mt).astype(np.int8))
+        eq = bitpal._eq_planes(q, nq)
+        where = f"rc {rc}, g {g}, {nq} x {mt}, k {k}, {threads} threads"
+        planes = torch.empty((2, nw), dtype=torch.int64)
+        err = dll.bitpal_rc_fill(t.data_ptr(), eq.data_ptr(), mt, nw, rc, k, threads,
+                                 planes.data_ptr(), None)
+        want = torch.stack(bitpal.fill_rc_plain(t, eq, nq, rc))
+        if err or not torch.equal(planes, want):
+            sys.exit(f"bitpal_rc_fill differs from fill_rc_plain: {where}")
+        for entry, gg, r in ((dll.bitpal_rc_chunk, 1, rc), (dll.bitpal_gfill_chunk, g, 1)):
+            total = bitpal.total_steps(mt, nw, r)
+            state = bitpal.init_state(nw, gg, "cpu")
+            t0 = 0
+            while t0 < total:
+                t_steps = int(rng.integers(1, 40)) if c % 2 else int(rng.integers(1, nw + 3))
+                v_out = torch.empty((bitpal.n_planes(gg), nw), dtype=torch.int64)
+                h_out = torch.empty(nw, dtype=torch.uint8)
+                v_in = torch.stack(state.planes)
+                # the shim keeps __shared__ arrays between launches, a card
+                # does not: a launch on other inputs first leaves its own
+                # values there, so a chunk that reads what it never wrote fails
+                junk = torch.from_numpy(rng.integers(0, 256, nw).astype(np.uint8))
+                entry(t.data_ptr(), eq.data_ptr(), mt, nw, r if r > 1 else gg, k, threads,
+                      t0 + 1, t_steps, v_in.data_ptr(), junk.data_ptr(), v_out.data_ptr(),
+                      h_out.data_ptr(), None)
+                err = entry(t.data_ptr(), eq.data_ptr(), mt, nw, r if r > 1 else gg, k, threads,
+                            t0, t_steps, v_in.data_ptr(), state.hand.data_ptr(),
+                            v_out.data_ptr(), h_out.data_ptr(), None)
+                state = bitpal.chunk_plain(t, eq, nq, gg, r, t0, t_steps, state)
+                if err or not (torch.equal(v_out, torch.stack(state.planes))
+                               and torch.equal(h_out, state.hand)):
+                    sys.exit(f"chunk (rc {r}, g {gg}) differs from chunk_plain at steps "
+                             f"{t0 + 1}..{t0 + t_steps}: {where}")
+                t0 += t_steps
+            want = bitpal.fill_g_plain(t, eq, nq, gg)[0] if r == 1 else bitpal.fill_rc_plain(
+                t, eq, nq, r)
+            if not all(torch.equal(a, b) for a, b in zip(state.planes, want)):
+                sys.exit(f"chunks (rc {r}, g {gg}) in turn differ from one fill: {where}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cases", type=int, default=120)
@@ -362,6 +425,9 @@ def main() -> None:
     _bitpal_cases(dll, rng, args.cases // 2)
     print(f"[rehearse] bitpal_gfill equal to fill_g_plain and bitpal_batch_fill to "
           f"batch_fill_plain in {args.cases // 2} cases each")
+    _wave_cases(dll, rng, args.cases // 2)
+    print(f"[rehearse] bitpal_rc_fill equal to fill_rc_plain, bitpal_rc_chunk and "
+          f"bitpal_gfill_chunk to chunk_plain chunk by chunk in {args.cases // 2} cases each")
 
 
 if __name__ == "__main__":

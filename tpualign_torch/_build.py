@@ -110,6 +110,11 @@ def load() -> ctypes.CDLL:
         lib.bitpal_capture_fill.argtypes = [
             vp, vp, i64, i32, i32, i32, i32, vp, i32, vp, vp, vp]
         lib.bitpal_capture_fill.restype = i32
+        lib.bitpal_rc_fill.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
+        lib.bitpal_rc_fill.restype = i32
+        for entry in (lib.bitpal_rc_chunk, lib.bitpal_gfill_chunk):
+            entry.argtypes = [vp, vp, i64, i32, i32, i32, i32, i64, i64, vp, vp, vp, vp, vp]
+            entry.restype = i32
         lib.band_fill.argtypes = [
             vp, i32, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32,
             vp, vp, vp]

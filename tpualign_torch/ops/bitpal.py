@@ -34,11 +34,25 @@ tensors:
 g = 1 (K1's contract).  A third kernel (``csrc/bitpal_batch.cu``) fills a
 batch of pairs, one thread block each: :func:`batch_fill` (K5's port), with
 the plain version :func:`batch_fill_plain`, behind :func:`score_batch`.
+
+``csrc/bitpal_rc.cu`` staggers each word one step behind the word above
+(K3a's schedule), so that a chunk of steps resumes from an explicit
+:class:`WaveState`:
+
+- :func:`fill_rc` (K3a's port): the g = 1 final column at ``rc`` = 2..4
+  columns a step; plain version :func:`fill_rc_plain`.
+- :func:`fill_rc_chunk` (K3b's port) and :func:`fill_g_chunk` (K4's state
+  in and out, any g): one chunk of steps from a state to a state; plain
+  version :func:`chunk_plain`.
+
+:func:`score_fn` routes by ``tpualign``'s rule (:func:`route`): K3a for
+short queries at g = 1, a launch a chunk past :data:`TEXT_CAP`, K1/K2
+otherwise.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +69,13 @@ MAX_G = 7
 #: consecutive words, K a power of two up to MAX_K (registers per thread)
 MAX_THREADS = 1024
 MAX_K = 16
+#: most text columns a word advances per step (K3a's ``cols_per_step``)
+MAX_RC = 4
+#: text length past which a score runs a chunk of steps a launch.  Equal
+#: to ``tpualign``'s ``TEXT_SMEM_CAP`` so that both packages take the same
+#: route on the same inputs; on the card the whole text lies in device
+#: memory, so the cap bounds how long one launch runs, not a memory
+TEXT_CAP = 3 << 19
 
 _JAX_WORD = 31  # rows per int32 word in the JAX package's planes
 
@@ -251,32 +272,77 @@ def fill_g_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
     without ``cap_rows``).  Row ``r`` is bit ``(r-1) % 64`` of the h_out
     planes of word ``(r-1) // 64``.
 
-    A vectorised wavefront: step ``d`` runs a few tensor ops over all words,
-    word ``w`` at column ``d - w``, taking its ``h_top`` from the ``h_out``
-    word ``w - 1`` produced one step earlier.  Words outside their columns
-    ``1..mt`` keep their state; the h_out they produce feeds only words that
-    are outside their columns too."""
+    :func:`_wave_plain` at one column a step over every step, from the
+    column-0 boundary; :func:`chunk_plain` runs the same steps a chunk at a
+    time."""
     _check_fill_args(text, eq, nq)
     _check_g(g)
     rows = _check_cap_rows([] if cap_rows is None else cap_rows, nq)
     nw, mt = eq.shape[1], text.shape[0]
+    planes, _, caps = _wave_plain(text, eq, g, 1, 0, total_steps(mt, nw, 1),
+                                  init_state(nw, g, eq.device), rows)
+    return planes, caps
+
+
+class WaveState(NamedTuple):
+    """The wavefront between two steps, for a fill resumed a chunk at a
+    time: ``planes``, the :func:`n_planes` ``(nw,)`` int64 vertical-delta
+    planes of every word at the last column it has reached; ``hand``,
+    ``(nw,)`` uint8, the enc of the h_out each word produced at the last
+    step (``rc`` columns of B bits, column ``c`` at bits ``c*B .. c*B+B-1``),
+    which word ``w + 1`` takes at the next step."""
+
+    planes: tuple
+    hand: torch.Tensor
+
+
+def init_state(nw: int, g: int, device) -> WaveState:
+    """The column-0 boundary: ``v = -g`` (enc 0) in every row, no hand-off."""
+    z = torch.zeros(nw, dtype=torch.int64, device=device)
+    return WaveState(tuple(z.clone() for _ in range(n_planes(g))),
+                     torch.zeros(nw, dtype=torch.uint8, device=device))
+
+
+def total_steps(mt: int, nw: int, rc: int) -> int:
+    """Steps of the wavefront: word ``w`` covers columns
+    ``rc*(t-1-w) + 1 .. rc*(t-w)`` at step ``t``, so the last word's last
+    window ends at step ``ceil(mt / rc) + nw - 1``."""
+    return -(-mt // rc) + nw - 1
+
+
+def _wave_plain(text, eq, g: int, rc: int, t0: int, t1: int, state: WaveState, rows=()):
+    """Steps ``t0 + 1 .. t1`` of the wavefront from ``state``:
+    ``(planes, hand, caps)``.
+
+    Word ``w`` at step ``t`` advances its window ``s = t - 1 - w``, the
+    columns ``rc*s + 1 .. rc*s + rc`` in turn (a word trails its
+    predecessor by one step, K3a's in-lane stagger), taking each column's
+    h_top from the h_out word ``w - 1`` produced for that column one step
+    earlier; word 0's h_top is the top boundary (enc 0).  Columns outside
+    ``1..mt`` leave the planes as they are; the h_out they produce feeds
+    only columns outside ``1..mt`` too.  A vectorised step runs every word
+    at once.  Captures (``rows``, one column a step from the boundary
+    only) are :func:`fill_g_plain`'s."""
+    nw, mt = eq.shape[1], text.shape[0]
     dev = eq.device
-    codes = text.long()
-    # code ALPHABET selects an all-zero plane: codes outside 0..4 and the
-    # padding around the text match nothing
-    codes = torch.where((codes >= 0) & (codes < ALPHABET), codes, ALPHABET)
-    eqx = torch.cat([eq, eq.new_zeros(1, nw)])
-    pad = torch.full((nw,), ALPHABET, dtype=torch.int64, device=dev)
-    off = torch.zeros(nw, dtype=torch.bool, device=dev)
-    on = torch.ones(mt, dtype=torch.bool, device=dev)
-    # reversed padded text: word w at step d reads rev[mt + nw - d + w], the
-    # code of column d - w, so each step's codes are one contiguous slice
-    rev = torch.cat([pad, codes, pad]).flip(0)
-    live_rev = torch.cat([off, on, off]).flip(0)
-    zero = torch.zeros(1, dtype=torch.int64, device=dev)
     B = n_planes(g)
-    V = [torch.zeros(nw, dtype=torch.int64, device=dev) for _ in range(B)]
-    h = [torch.zeros(nw, dtype=torch.int64, device=dev) for _ in range(B)]
+    # the text indices these steps read, rc*(t-1) + c - rc*w, lie in [lo, hi);
+    # reversed, word w's index is at a + rc*w for a = hi - 1 - rc*(t-1) - c,
+    # so each step's codes are one strided slice
+    lo, hi = rc * (t0 - nw + 1), rc * t1
+    idx = torch.arange(lo, hi, device=dev)
+    inside = (idx >= 0) & (idx < mt)
+    codes = text.long()[idx.clamp(0, max(mt - 1, 0))] if mt else idx
+    # code ALPHABET selects an all-zero plane: codes outside 0..4 and the
+    # columns outside 1..mt match nothing
+    codes = torch.where(inside & (codes >= 0) & (codes < ALPHABET), codes, ALPHABET)
+    rev, live_rev = codes.flip(0), inside.flip(0)
+    eqx = torch.cat([eq, eq.new_zeros(1, nw)])
+    span = rc * (nw - 1) + 1
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    V = list(state.planes)
+    hand = state.hand.long()
+    h = [[(hand >> (c * B + b)) & 1 for b in range(B)] for c in range(rc)]
     # capture c at step d lands in column d - cw[c] + nw - 2 of caps_pad, so
     # that every step writes in place without a mask; column j is nw + j - 2
     J = len(rows)
@@ -284,20 +350,75 @@ def fill_g_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
     cb = torch.tensor([(r - 1) % WORD for r in rows], dtype=torch.int64, device=dev)
     cidx = torch.arange(J, device=dev)
     caps_pad = torch.zeros((J, mt + 2 * nw), dtype=torch.int8, device=dev)
-    for d in range(1, mt + nw):
-        lo = mt + nw - d
-        E = eqx.gather(0, rev[lo : lo + nw].unsqueeze(0)).squeeze(0)
-        live = live_rev[lo : lo + nw]
-        # word 0's h_top is the top boundary h = -g: enc 0
-        u = [torch.cat([zero, x[:-1]]) for x in h]
-        Vn, U = _plane_step(E, *V, *u) if g == 1 else _g_plane_step(g, E, V, u)
-        V = [torch.where(live, vn, v) for vn, v in zip(Vn, V)]
-        # >> 63 is arithmetic on negative words: mask it
-        h = [(x >> 63) & 1 for x in U]
-        if J:
-            enc = sum(((U[b][cw] >> cb) & 1) << b for b in range(B))
-            caps_pad[cidx, d - cw + nw - 2] = enc.to(torch.int8)
-    return tuple(V), caps_pad[:, nw - 1 : nw - 1 + mt]
+    for t in range(t0 + 1, t1 + 1):
+        hn = []
+        for c in range(rc):
+            a = hi - 1 - rc * (t - 1) - c
+            E = eqx.gather(0, rev[a : a + span : rc].unsqueeze(0)).squeeze(0)
+            live = live_rev[a : a + span : rc]
+            u = [torch.cat([zero, x[:-1]]) for x in h[c]]
+            Vn, U = _plane_step(E, *V, *u) if g == 1 else _g_plane_step(g, E, V, u)
+            V = [torch.where(live, vn, v) for vn, v in zip(Vn, V)]
+            # >> 63 is arithmetic on negative words: mask it
+            hn.append([(x >> 63) & 1 for x in U])
+            if J:
+                enc = sum(((U[b][cw] >> cb) & 1) << b for b in range(B))
+                caps_pad[cidx, t - cw + nw - 2] = enc.to(torch.int8)
+        h = hn
+    packed = sum(h[c][b] << (c * B + b) for c in range(rc) for b in range(B))
+    return tuple(V), packed.to(torch.uint8), caps_pad[:, nw - 1 : nw - 1 + mt]
+
+
+def _check_rc(rc: int) -> None:
+    if not isinstance(rc, int) or not 2 <= rc <= MAX_RC:
+        raise ValueError(f"rc must be an int in 2..{MAX_RC}, got {rc!r}")
+
+
+def _check_chunk(eq, g: int, rc: int, t0: int, t_steps: int, state: WaveState) -> None:
+    if not isinstance(rc, int) or not 1 <= rc <= MAX_RC or (rc > 1 and g != 1):
+        raise ValueError(f"a chunk runs rc in 1..{MAX_RC} columns a step, more than one "
+                         f"only at g = 1; got rc {rc!r} at g = {g}")
+    if t0 < 0 or t_steps < 1:
+        raise ValueError(f"a chunk needs t0 >= 0 and t_steps >= 1, got {t0}, {t_steps}")
+    nw = eq.shape[1]
+    planes, hand = state
+    if len(planes) != n_planes(g) or any(
+            p.dtype != torch.int64 or tuple(p.shape) != (nw,) or p.device != eq.device
+            for p in planes):
+        raise ValueError(f"state planes must be {n_planes(g)} int64 ({nw},) tensors on "
+                         f"{eq.device}")
+    if hand.dtype != torch.uint8 or tuple(hand.shape) != (nw,) or hand.device != eq.device:
+        raise ValueError(f"state hand must be uint8 of shape ({nw},) on {eq.device}")
+
+
+def fill_rc_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int):
+    """Plain PyTorch version of K3a's contract: the g = 1 final column's
+    planes ``(b0, b1)`` (``enc = v + 1``), each word advancing ``rc``
+    columns a step (:func:`_wave_plain`).  Equals :func:`fill_plain`'s
+    planes word for word: only the order of the DP's steps differs."""
+    _check_fill_args(text, eq, nq)
+    _check_rc(rc)
+    nw, mt = eq.shape[1], text.shape[0]
+    return _wave_plain(text, eq, 1, rc, 0, total_steps(mt, nw, rc),
+                       init_state(nw, 1, eq.device))[0]
+
+
+def chunk_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, rc: int, t0: int,
+                t_steps: int, state: WaveState) -> WaveState:
+    """Plain PyTorch version of the resumable fills (K3b's contract at
+    g = 1 and ``rc`` 2..4, K4's state in and out at ``rc`` 1 and any g):
+    steps ``t0 + 1 .. t0 + t_steps`` of :func:`_wave_plain` from ``state``,
+    returning the state after them.  ``text`` is the whole ``(mt,)`` text:
+    the steps read the columns their windows cover.  From
+    :func:`init_state`, chunks run in turn up to :func:`total_steps` give
+    :func:`fill_g_plain`'s planes (:func:`fill_rc_plain`'s at ``rc`` > 1),
+    whatever the chunk lengths; steps past the end change only the
+    hand-offs."""
+    _check_fill_args(text, eq, nq)
+    _check_g(g)
+    _check_chunk(eq, g, rc, t0, t_steps, state)
+    planes, hand, _ = _wave_plain(text, eq, g, rc, t0, t0 + t_steps, state)
+    return WaveState(planes, hand)
 
 
 def fill_plain(text: torch.Tensor, eq: torch.Tensor, nq: int):
@@ -383,6 +504,147 @@ def capture_fill(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
 capture_fill.launches = 0
 
 
+def wave_geometry(nw: int) -> Tuple[int, int]:
+    """``(k, threads)`` of the staggered kernels (``csrc/bitpal_rc.cu``)
+    for ``nw`` words: :func:`kernel_geometry`'s words per thread, the
+    threads rounded up to whole warps (the hand-off is a warp shuffle;
+    threads past the last word carry nothing anyone reads).  Up to 32
+    threads the block is one warp and runs without a block barrier."""
+    k, threads = kernel_geometry(nw)
+    return k, -(-threads // 32) * 32
+
+
+def _check_geometry(nw: int, geometry) -> Tuple[int, int]:
+    k, threads = geometry or wave_geometry(nw)
+    if k not in (1, 2, 4, 8, 16) or threads % 32 or not 32 <= threads <= MAX_THREADS \
+            or k * threads < nw:
+        raise ValueError(f"geometry (k, threads) = {(k, threads)} does not cover {nw} words "
+                         f"in whole warps of one block")
+    return k, threads
+
+
+def _wave_launch(name: str, text, eq, g: int, rc: int, geometry, t0: int = 0,
+                 t_steps: Optional[int] = None, state: Optional[WaveState] = None):
+    """Launch the entry ``name`` of ``csrc/bitpal_rc.cu`` on the current
+    stream: ``bitpal_rc_fill`` (``state`` None) returns the planes, a chunk
+    entry the state after the chunk.  The entries take ``rc``, or ``g`` at
+    one column a step (``bitpal_gfill_chunk``)."""
+    if text.device.type != "cuda":
+        raise ValueError(f"the fills run on cpu or cuda tensors, got {text.device}")
+    nw, mt = eq.shape[1], text.shape[0]
+    k, threads = _check_geometry(nw, geometry)
+    lib = _build.load()
+    dev = text.device
+    planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
+    entry, head = getattr(lib, name), (text.data_ptr(), eq.data_ptr(), mt, nw,
+                                       rc if rc > 1 else g, k, threads)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if state is None:
+            err = entry(*head, planes.data_ptr(), stream)
+        else:
+            v_in = torch.stack(state.planes)
+            hand = torch.empty(nw, dtype=torch.uint8, device=dev)
+            err = entry(*head, t0, t_steps, v_in.data_ptr(), state.hand.data_ptr(),
+                        planes.data_ptr(), hand.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    return planes.unbind(0) if state is None else WaveState(planes.unbind(0), hand)
+
+
+def fill_rc(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int, geometry=None):
+    """K3a's contract, the g = 1 final column at ``rc`` columns a step, on
+    the device of its tensors: the CUDA kernel ``bitpal_rc_fill``
+    (``csrc/bitpal_rc.cu``) for CUDA tensors, :func:`fill_rc_plain` for CPU
+    tensors.  Returns the planes ``(b0, b1)``.
+
+    ``geometry``: ``(k, threads)``, default :func:`wave_geometry`; it never
+    changes the result.  On CUDA it allocates the output, launches on the
+    current stream without synchronising, and counts the launch in
+    ``fill_rc.launches``.  A launch the device refuses raises; nothing falls
+    back to another kernel or the plain version."""
+    _check_fill_args(text, eq, nq)
+    _check_rc(rc)
+    if text.device.type == "cpu":
+        return fill_rc_plain(text, eq, nq, rc)
+    planes = _wave_launch("bitpal_rc_fill", text, eq, 1, rc, geometry)
+    fill_rc.launches += 1
+    return planes
+
+
+fill_rc.launches = 0
+
+
+def fill_rc_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int, t0: int,
+                  t_steps: int, state: WaveState, geometry=None) -> WaveState:
+    """K3b's contract, one chunk of K3a's fill resumed from ``state``
+    (:func:`chunk_plain` at g = 1), on the device of its tensors: the CUDA
+    kernel ``bitpal_rc_chunk`` (``csrc/bitpal_rc.cu``) for CUDA tensors,
+    :func:`chunk_plain` for CPU tensors.  Returns the state after steps
+    ``t0 + 1 .. t0 + t_steps``; on CUDA as :func:`fill_rc`, counted in
+    ``fill_rc_chunk.launches``."""
+    _check_fill_args(text, eq, nq)
+    _check_rc(rc)
+    _check_chunk(eq, 1, rc, t0, t_steps, state)
+    if text.device.type == "cpu":
+        return chunk_plain(text, eq, nq, 1, rc, t0, t_steps, state)
+    out = _wave_launch("bitpal_rc_chunk", text, eq, 1, rc, geometry, t0, t_steps, state)
+    fill_rc_chunk.launches += 1
+    return out
+
+
+fill_rc_chunk.launches = 0
+
+
+def fill_g_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, t0: int,
+                 t_steps: int, state: WaveState, geometry=None) -> WaveState:
+    """K4's state in and out: one chunk of the (1, 0, -g) fill at one
+    column a step, resumed from ``state`` (:func:`chunk_plain` at rc 1),
+    word 0's h_top the top boundary.  On the device of its tensors: the
+    CUDA kernel ``bitpal_gfill_chunk`` (``csrc/bitpal_rc.cu``) for CUDA
+    tensors, :func:`chunk_plain` for CPU tensors; on CUDA as
+    :func:`fill_rc`, counted in ``fill_g_chunk.launches``."""
+    _check_fill_args(text, eq, nq)
+    _check_g(g)
+    _check_chunk(eq, g, 1, t0, t_steps, state)
+    if text.device.type == "cpu":
+        return chunk_plain(text, eq, nq, g, 1, t0, t_steps, state)
+    out = _wave_launch("bitpal_gfill_chunk", text, eq, g, 1, geometry, t0, t_steps, state)
+    fill_g_chunk.launches += 1
+    return out
+
+
+fill_g_chunk.launches = 0
+
+
+def chunk_steps(rc: int, text_cap: Optional[int] = None) -> int:
+    """Steps a chunk of the chunked routes: ``tpualign``'s ``t_steps``
+    (``_score_chunked_rc_fn``, ``_score_chunked_fn``), half the cap's
+    columns, without its rounding to the TPU kernel's unroll."""
+    text_cap = TEXT_CAP if text_cap is None else text_cap
+    return max(1, min(text_cap, TEXT_CAP // 2) // rc)
+
+
+def fill_chunked(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, rc: int,
+                 t_steps: int):
+    """The final column's planes through chunks of ``t_steps`` steps in
+    turn, from the column-0 boundary: :func:`fill_rc_chunk` at ``rc`` > 1,
+    :func:`fill_g_chunk` at ``rc`` 1.  The last chunk stops at the last
+    step (``tpualign``'s runs a whole chunk, the shape of its scan).  On
+    the card the state stays there between chunks and nothing
+    synchronises."""
+    nw, mt = eq.shape[1], text.shape[0]
+    total = total_steps(mt, nw, rc)
+    state = init_state(nw, g, eq.device)
+    for t0 in range(0, total, t_steps):
+        steps = min(t_steps, total - t0)
+        if rc > 1:
+            state = fill_rc_chunk(text, eq, nq, rc, t0, steps, state)
+        else:
+            state = fill_g_chunk(text, eq, nq, g, t0, steps, state)
+    return state.planes
+
+
 def _eq_planes(query: torch.Tensor, nq: int) -> torch.Tensor:
     """``(5, nw)`` int64: bit ``b`` of word ``w`` of plane ``c`` set iff
     ``query[64w + b] == c``; rows past ``nq`` are set in no plane."""
@@ -456,17 +718,94 @@ _NOT_FAMILY = (
 )
 
 
-def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
+_NOT_UNIT = "bitpal engine requires unit-equivalent global scoring"
+
+# tpualign's TPU layout, for its routing rule: 31 rows per int32 word, words
+# placed column-major in (rows, 128) tiles rounded to (8, 128), the step
+# count rounded to its unroll of 32
+_TPU_LANES, _TPU_GRAIN, _TPU_UNROLL = 128, 1024, 32
+
+
+def _tpu_layout(nq: int, mt: int) -> Tuple[int, int, int]:
+    """``(nw, rows, total)`` of ``tpualign.ops.bitpal._layout``."""
+    nw = -(-nq // _JAX_WORD)
+    rows = -(-nw // _TPU_GRAIN) * _TPU_GRAIN // _TPU_LANES
+    total = -(-(mt + 2 * (nw - 1)) // _TPU_UNROLL) * _TPU_UNROLL
+    return nw, rows, total
+
+
+def _tpu_orientation(m: int, n: int) -> bool:
+    """``tpualign.ops.bitpal._orientation``: True if ``s1`` becomes the
+    query, by the TPU's padded work (steps x slots); ties go to ``s1``."""
+
+    def cost(nq, mt):
+        _, rows, total = _tpu_layout(nq, mt)
+        return total * rows * _TPU_LANES
+
+    return cost(m, n) <= cost(n, m)
+
+
+def route(m: int, n: int, cfg: ScoringConfig = ScoringConfig(),
+          cols_per_step: Optional[int] = None, text_cap: Optional[int] = None):
+    """``(kind, rc, s1_is_query)``: how :func:`score_fn` scores lengths
+    ``m, n >= 1`` under a family ``cfg``, by ``tpualign``'s rule
+    (``_score_fn_build``) kept here in its own terms:
+
+    - the query is the side ``tpualign``'s orientation picks, and ``mt``
+      the other length; ``rc`` is ``cols_per_step``, or by default 4 at
+      g = 1 when the query fills at most 16 rows of 128 31-bit words (up
+      to 63,488 bases) and 1 otherwise;
+    - ``"fill_g"`` (K1 at g = 1, K2 at g >= 2): one launch at one column a
+      step, when ``mt <= text_cap`` and ``rc`` is 1 or g >= 2.  This route
+      alone keeps the port's own :func:`_orientation`;
+    - ``"rc"`` (K3a): one launch at ``rc`` 2..4 columns a step, g = 1,
+      ``mt <= text_cap``;
+    - ``"rc_chunk"`` (K3b): ``mt > text_cap``, ``rc`` > 1, a launch a
+      chunk;
+    - ``"g_chunk"`` (K4 with its state): ``mt > text_cap``, ``rc`` 1, any
+      g, a launch a chunk.
+
+    ``text_cap`` None is :data:`TEXT_CAP`.  Raises ValueError as
+    ``tpualign`` does for a config outside the family
+    or a ``cols_per_step`` it refuses, and where the ``"fill_g"`` route's
+    orientation finds neither side fits one block."""
+    fam = family(cfg)
+    if fam is None:
+        raise ValueError(_NOT_UNIT)
+    g = fam[1]
+    text_cap = TEXT_CAP if text_cap is None else text_cap
+    s1_is_query = _tpu_orientation(m, n)
+    nq, mt = (m, n) if s1_is_query else (n, m)
+    rc = cols_per_step
+    if rc is None:
+        rc = 4 if g == 1 and _tpu_layout(nq, mt)[1] <= 16 else 1
+    elif not 1 <= rc <= MAX_RC:
+        raise ValueError("cols_per_step must be in 1..4")
+    elif rc > 1 and g > 1:
+        raise ValueError("cols_per_step > 1 requires the g=1 family")
+    if mt > text_cap:
+        return ("rc_chunk" if rc > 1 else "g_chunk"), rc, s1_is_query
+    if rc > 1:
+        return "rc", rc, s1_is_query
+    return "fill_g", 1, _orientation(m, n)
+
+
+def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device,
+             cols_per_step: Optional[int] = None, text_cap: Optional[int] = None):
     """``(s1, s2) -> score`` for fixed lengths ``m = len(s1)``,
     ``n = len(s2)``: takes int8 code tensors on ``device`` and returns the
     score as a 0-d int64 tensor there, without synchronising.
 
-    Refuses what ``tpualign.ops.bitpal.score_fn`` refuses (ValueError for a
-    config outside the family or past the int32 headroom rule, kept so both
-    packages refuse the same inputs).  Every g runs :func:`fill_g`."""
+    Refuses what ``tpualign.ops.bitpal.score_fn`` refuses, with its
+    messages (ValueError for a config outside the family, past the int32
+    headroom rule, or a ``cols_per_step`` outside 1..4 or above 1 at
+    g >= 2), and a query past one block (:func:`kernel_geometry`).  Takes
+    :func:`route`'s route: :func:`fill_g`, :func:`fill_rc`, or
+    :func:`fill_chunked` over :func:`fill_rc_chunk` or :func:`fill_g_chunk`
+    in chunks of :func:`chunk_steps` steps."""
     fam = family(cfg)
     if fam is None:
-        raise ValueError(_NOT_FAMILY)
+        raise ValueError(_NOT_UNIT)
     mult, g = fam
     # the JAX package maps scores in int32 on device; the port computes in
     # int64 but refuses the same inputs
@@ -475,8 +814,11 @@ def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
     dev = _device(device)
     if m == 0 or n == 0:
         return lambda s1, s2: torch.tensor(cfg.gap * (m + n), device=dev)
-    s1_is_query = _orientation(m, n)
+    kind, rc, s1_is_query = route(m, n, cfg, cols_per_step, text_cap)
     nq, mt = (m, n) if s1_is_query else (n, m)
+    if kind != "fill_g":
+        wave_geometry(-(-nq // WORD))  # refuses a query past one block
+    t_steps = chunk_steps(rc, text_cap)
 
     def fn(s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
         if (s1.numel(), s2.numel()) != (m, n):
@@ -484,7 +826,12 @@ def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device):
                              f"({s1.numel()}, {s2.numel()})")
         query, text = (s1, s2) if s1_is_query else (s2, s1)
         eq = _eq_planes(query, nq)
-        planes = fill_g(text, eq, nq, g)
+        if kind == "fill_g":
+            planes = fill_g(text, eq, nq, g)
+        elif kind == "rc":
+            planes = fill_rc(text, eq, nq, rc)
+        else:
+            planes = fill_chunked(text, eq, nq, g, rc, t_steps)
         return _from_unit(cfg, mt + nq, _reduce_score(planes, nq, mt, g))
 
     return fn
@@ -499,13 +846,17 @@ def _codes(seq) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.int8)
 
 
-def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
+def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device,
+          cols_per_step: Optional[int] = None, text_cap: Optional[int] = None) -> int:
     """NW score of two code sequences on ``device`` (``"cuda"`` runs the
-    kernel, ``"cpu"`` the plain version); the counterpart of
-    ``tpualign.ops.bitpal.score``."""
+    kernels, ``"cpu"`` their plain versions) by :func:`score_fn`'s route;
+    the counterpart of ``tpualign.ops.bitpal.score``."""
+    if family(cfg) is None:
+        raise ValueError(_NOT_FAMILY)
     s1, s2 = _codes(s1), _codes(s2)
     dev = _device(device)
-    fn = score_fn(s1.size, s2.size, cfg, device=dev)
+    fn = score_fn(s1.size, s2.size, cfg, device=dev, cols_per_step=cols_per_step,
+                  text_cap=text_cap)
     return int(fn(torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)))
 
 
