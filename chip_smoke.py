@@ -6,7 +6,8 @@ Builds the port's CUDA kernels from ``tpualign_torch/csrc`` with ``nvcc``
 ``bitpal_rc_chunk``, K3b's; ``bitpal_gfill_chunk``, K4's state in and
 out; ``bitpal_batch_fill``, K5's; ``band_fill``,
 K6's; ``band_capture_fill``, K7's, and ``band_batch_fill``, its batch
-contract; ``diag_fill``, K8's), holds each against its plain PyTorch version on
+contract; ``diag_fill``, K8's; ``diag_ckpt_fill``, K9's), holds each against
+its plain PyTorch version on
 the card at a range of shapes (and the scores and alignments against the
 port's NumPy oracle), then drives the port's paths through its public
 entry points, each with the launch counts set to 0 just before it and read
@@ -59,7 +60,17 @@ path's shape:
   launch), every instantiation of the three against its plain version on
   small shapes chunk by chunk, and K3a and K3b at 2,000 x 200,000 against
   one plain run.  K1's own 20,000 x 20,000 hold runs with
-  ``cols_per_step=1``.
+  ``cols_per_step=1``;
+- the checkpointed diagonal fill ``diag_ckpt_fill`` (K9's port, this
+  slice's main path): ``traceback_diag.align_diag`` at (1, 0, -1) on the
+  64gb-shape pair, valid, re-scoring to ``align_score``'s and with the
+  strings of ``align(..., EngineConfig(impl="xla"))`` (the checkpointed
+  row-scan traceback), and ``tpualign_torch.align`` under positive-mismatch
+  SW (3, 1, -2) on that pair (one launch); the kernel held word for word
+  against ``ckpt_plain`` (run on the card) at both, ``align_diag`` at
+  20,000 x 20,000 under (1, 0, -1) and SW (2, -1, -2), and every config
+  (NW, SW, positive mismatch, positive gap) on small shapes at strides 8,
+  16, 24 and 1024.
 
 With ``--corpus`` naming the reference's ``bdna`` directory the 64gb pair is
 read from it and the scores must be the reference's 73888 and the JAX
@@ -109,8 +120,9 @@ BAND_BATCH_SOURCE = "tpualign_torch/csrc/band_batch.cu"
 #: stops at 8 rows a thread), diag_fill, bitpal_batch_fill (5 words per
 #: thread x 3 plane counts), band_batch_fill (40 less local affine at 16
 #: rows a thread), bitpal_rc_kernel (3 rc x 5 words per thread),
-#: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes, x 5)
-N_INSTANTIATIONS = 30 + 40 + 76 + 1 + 15 + 38 + 15 + 30
+#: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes, x 5),
+#: diag_ckpt_kernel
+N_INSTANTIATIONS = 30 + 40 + 76 + 1 + 15 + 38 + 15 + 30 + 1
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -496,6 +508,205 @@ def rc_phase(ctx, shapes, a20, b20, want20):
              **held[name]} for name in RC_REPLACES]
 
 
+CKPT_SOURCE = "tpualign_torch/csrc/diag_ckpt.cu"
+CKPT_REPLACES = "tpualign/ops/pallas_diag.py:242"  # _diag_ckpt_kernel_body (K9)
+#: (text, query) lengths and strides of phase (j)'s small holds: n < m,
+#: n > m, one column, one row, n past 1024 threads (n < m, n > m)
+CKPT_SHAPES = ((300, 200), (200, 300), (1, 400), (400, 1), (1500, 1100), (700, 1300))
+CKPT_STRIDES = (8, 16, 24, 1024)
+
+
+def ckpt_phase(ctx, s1, s2, score, a20, b20):
+    """The checkpointed diagonal fill of ``csrc/diag_ckpt.cu`` (K9's port
+    ``diag_ckpt_fill``) and the paths that run it: the kernel against
+    ``ckpt_plain`` word for word (dead slots, ``v`` and ``dbest`` included)
+    on small shapes under NW, SW, positive-mismatch SW and positive-gap
+    local; ``align_diag`` at 20,000 x 20,000 under (1, 0, -1) and SW (2,
+    -1, -2); at the 64gb shape ``align_diag`` at (1, 0, -1) and ``align``
+    under positive-mismatch SW (3, 1, -2), each one launch, the kernel held
+    against ``ckpt_plain`` at that shape (the plain version on the card),
+    each alignment valid and against ``align_checkpointed``'s strings
+    (``impl="xla"``) or a kernel's score.  ``ctx``: as ``rc_phase``'s.
+    Returns the kernel's entry of the ``kernels`` line."""
+    import torch
+
+    import tpualign_torch
+    from tpualign_torch.config import AlignMode, EngineConfig, ScoringConfig
+    from tpualign_torch.ops import oracle, pallas_diag, traceback_diag
+
+    dev, rng, smi = ctx.dev, ctx.rng, ctx.smi
+    t_phase = time.perf_counter()
+    held = dict(max_abs_err=0)
+
+    def hold(got, want, where):
+        """K9's outputs against ckpt_plain's, word for word."""
+        torch.cuda.synchronize()
+        err = 0
+        for a, b in zip(got, want):
+            if (a is None) != (b is None) or (a is not None and a.shape != b.shape):
+                raise AssertionError(f"diag_ckpt_fill's outputs differ in shape at {where}")
+            if a is not None:
+                err = max(err, int((a.long() - b.long()).abs().max()))
+        if err:
+            raise AssertionError(f"diag_ckpt_fill differs from ckpt_plain at {where} "
+                                 f"(max abs err {err})")
+        held["max_abs_err"] = max(held["max_abs_err"], err)
+
+    def timed_fill(t, q, cfg, K):
+        """One kernel run, CUDA events: ``(ms, outputs)``."""
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = pallas_diag.ckpt_fill(t, q, cfg, K)
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1), out
+
+    nw = ScoringConfig()
+    sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+    masked = ScoringConfig(match=3, mismatch=1, gap=-2, mode=AlignMode.LOCAL)
+    cfgs = {"NW": ScoringConfig(match=2, mismatch=-1, gap=-2), "SW": sw,
+            "positive-mismatch SW": masked,
+            "positive-gap local": ScoringConfig(match=1, mismatch=-3, gap=1,
+                                                mode=AlignMode.LOCAL)}
+    n_small = 0
+    for (m, n), K, (name, cfg) in itertools.product(CKPT_SHAPES, CKPT_STRIDES, cfgs.items()):
+        t = torch.from_numpy(rng.integers(0, 5, m).astype(np.int8)).to(dev)
+        q = torch.from_numpy(rng.integers(0, 5, n).astype(np.int8)).to(dev)
+        hold(pallas_diag.ckpt_fill(t, q, cfg, K), pallas_diag.ckpt_plain(t, q, cfg, K),
+             f"{name} {m} x {n}, K = {K}")
+        n_small += 1
+    print(f"[diag_ckpt_fill vs plain] {n_small} cases equal to ckpt_plain word for word "
+          f"(checkpoints with their dead slots, v and dbest): NW, SW, positive-mismatch SW, "
+          f"positive-gap local; {len(CKPT_SHAPES)} shapes (n < m, n > m, 1 x k, k x 1, n past "
+          f"1024 threads) x strides {CKPT_STRIDES}; {time.perf_counter() - t_phase:.1f} s")
+
+    K = 1024
+    timing = {}
+    # 20,000 x 20,000: align_diag, one launch; its strings against the
+    # checkpointed row scan's (impl="xla"); K9 against ckpt_plain there
+    t20, q20 = torch.from_numpy(a20).to(dev), torch.from_numpy(b20).to(dev)
+    for name, cfg in (("NW (1, 0, -1)", nw), ("SW (2, -1, -2)", sw)):
+        ctx.reset_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        got = traceback_diag.align_diag(a20, b20, cfg, device="cuda", stats=stats)
+        wall = time.perf_counter() - t0
+        counts = ctx.read_counts()
+        if not ctx.only(counts, "diag_ckpt_fill"):
+            raise AssertionError(f"align_diag {name} did not run one diag_ckpt_fill: {counts}")
+        t0 = time.perf_counter()
+        want = tpualign_torch.align(a20, b20, cfg, EngineConfig(impl="xla"))
+        xla_wall = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"align_diag {name} at 20k differs from align_checkpointed")
+        ok = (core_ok if cfg.is_local else alignment_ok)(a20, b20, got[1], got[2],
+                                                        oracle.BASES)
+        witness = tpualign_torch.align_score(a20, b20, cfg)
+        if not ok or not got[0] == oracle.alignment_score(got[1], got[2], cfg) == witness:
+            raise AssertionError(f"align_diag {name} at 20k: valid {ok}, score {got[0]}, "
+                                 f"align_score {witness}")
+        k_ms, k_out = timed_fill(t20, q20, cfg, K)
+        p_ms, p_out = ctx.host_ms(lambda: pallas_diag.ckpt_plain(t20, q20, cfg, K))
+        hold(k_out, p_out, f"20000 x 20000 {name}")
+        timing[f"20k {name}"] = (k_ms, p_ms)
+        print(f"[path: align_diag {name}] {a20.size} x {b20.size}: alignment valid, score "
+              f"{got[0]} equal to align_score's, strings equal to align_checkpointed's "
+              f"(impl='xla', wall {xla_wall:.3f} s); launches {counts}; wall {wall:.3f} s; "
+              f"split {json.dumps(stats)}")
+        print(f"[timing] {smi}: diag_ckpt_fill {name} at {b20.size} x {a20.size}, K = {K}: "
+              f"{k_ms:.3f} ms; equal to ckpt_plain word for word (plain {p_ms:.1f} ms)")
+        del k_out, p_out
+
+    # the 64gb shape: align_diag at (1, 0, -1), one launch; valid,
+    # re-scoring to K1's align_score, its strings equal to the checkpointed
+    # row scan's; K9 held against ckpt_plain (run on the card) at the shape
+    m, n = s1.size, s2.size
+    ts, qs = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
+    ctx.reset_counts()
+    diag_stats = {}
+    t0 = time.perf_counter()
+    sc, a1, a2 = traceback_diag.align_diag(s1, s2, nw, device="cuda", stats=diag_stats)
+    diag_wall = time.perf_counter() - t0
+    diag_counts = ctx.read_counts()
+    if not ctx.only(diag_counts, "diag_ckpt_fill"):
+        raise AssertionError(f"align_diag did not run one diag_ckpt_fill: {diag_counts}")
+    if not alignment_ok(s1, s2, a1, a2, oracle.BASES):
+        raise AssertionError("64gb-shape align_diag alignment is not valid")
+    rescored = oracle.alignment_score(a1, a2, nw)
+    if not sc == rescored == score:
+        raise AssertionError(f"64gb-shape align_diag score {sc} (re-scored {rescored}) != "
+                             f"align_score's {score}")
+    print(f"[main path: align_diag (1, 0, -1)] {m} x {n}: alignment valid, {len(a1)} columns, "
+          f"score {sc} equal to align_score's (bitpal_gfill); launches {diag_counts}; wall "
+          f"{diag_wall:.3f} s; split {json.dumps(diag_stats)}")
+    k_ms, k_out = timed_fill(ts, qs, nw, K)
+    p_ms, p_out = ctx.host_ms(lambda: pallas_diag.ckpt_plain(ts, qs, nw, K))
+    hold(k_out, p_out, f"{m} x {n} NW")
+    groups = k_out.cka.shape[0]
+    ck_bytes = 2 * k_out.cka.numel() * 4
+    del k_out, p_out
+    print(f"[timing] {smi}: diag_ckpt_fill NW at {n} x {m}, K = {K} ({groups} groups, "
+          f"{ck_bytes} bytes of checkpoints): {k_ms:.3f} ms ({m * n / k_ms / 1e6:.3f} GCUPS; "
+          f"{k_ms * 1e3 / (m + n):.3f} us a diagonal); the path's run "
+          f"{diag_stats['fill_ms']:.3f} ms; equal to ckpt_plain word for word on the card "
+          f"(plain {p_ms:.1f} ms)")
+    ctx.reset_counts()
+    xla_stats = {}
+    t0 = time.perf_counter()
+    want = tpualign_torch.align(s1, s2, nw, EngineConfig(impl="xla"), stats=xla_stats)
+    xla_wall = time.perf_counter() - t0
+    xla_counts = ctx.read_counts()
+    if sum(xla_counts.values()) or want != (sc, a1, a2):
+        raise AssertionError(f"align_checkpointed at the 64gb shape: launches {xla_counts}, "
+                             f"strings equal {want == (sc, a1, a2)}")
+    del want, a1, a2
+    print(f"[path: align_checkpointed (1, 0, -1)] {m} x {n} (impl='xla'): strings equal to "
+          f"align_diag's; launches {xla_counts}; wall {xla_wall:.3f} s; split "
+          f"{json.dumps(xla_stats)}")
+
+    # align under positive-mismatch SW (3, 1, -2) at the 64gb shape: the
+    # diagonal-band traceback, one diag_ckpt_fill launch and nothing else
+    ctx.reset_counts()
+    sw_stats = {}
+    t0 = time.perf_counter()
+    sc, a1, a2 = tpualign_torch.align(s1, s2, masked, stats=sw_stats)
+    sw_wall = time.perf_counter() - t0
+    sw_counts = ctx.read_counts()
+    if not ctx.only(sw_counts, "diag_ckpt_fill"):
+        raise AssertionError(f"positive-mismatch SW align did not run one diag_ckpt_fill "
+                             f"alone: {sw_counts}")
+    witness = tpualign_torch.align_score(s1, s2, masked)
+    valid = core_ok(s1, s2, a1, a2, oracle.BASES)
+    if not valid or not sc == oracle.alignment_score(a1, a2, masked) == witness:
+        raise AssertionError(f"positive-mismatch SW align: valid {valid}, score {sc}, "
+                             f"align_score {witness}")
+    print(f"[path: align positive-mismatch SW (3, 1, -2)] {m} x {n}: alignment valid, "
+          f"{len(a1)} columns, score {sc} equal to align_score's (band_fill); launches "
+          f"{sw_counts}; wall {sw_wall:.3f} s; split {json.dumps(sw_stats)}")
+    del a1, a2
+    sw_ms, k_out = timed_fill(ts, qs, masked, K)
+    sw_plain_ms, p_out = ctx.host_ms(lambda: pallas_diag.ckpt_plain(ts, qs, masked, K))
+    hold(k_out, p_out, f"{m} x {n} positive-mismatch SW")
+    del k_out, p_out
+    print(f"[timing] {smi}: diag_ckpt_fill positive-mismatch SW at {n} x {m}, K = {K}: "
+          f"{sw_ms:.3f} ms ({m * n / sw_ms / 1e6:.3f} GCUPS); the path's run "
+          f"{sw_stats['fill_ms']:.3f} ms; equal to ckpt_plain word for word, v and dbest "
+          f"included (plain {sw_plain_ms:.1f} ms)")
+    print(f"[phase j] {time.perf_counter() - t_phase:.1f} s")
+    # the least time: inputs and checkpoints once; 4 operations a cell
+    # (band_ops, linear), SW 6 (the floor and the row maximum's compare)
+    b_ms, by = bound(m + n + ck_bytes, band_ops(nw, m * n))
+    sw_b_ms, _ = bound(m + n + ck_bytes + 8 * (n + 1), band_ops(masked, m * n, cell=True))
+    return {"name": "diag_ckpt_fill", "route": "cuda", "source": CKPT_SOURCE,
+            "replaces": CKPT_REPLACES, "launches": diag_counts["diag_ckpt_fill"], **held,
+            "ms": k_ms, "plain_ms": p_ms, "shape": f"{n}x{m}", "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None,
+            "sw": dict(launches=sw_counts["diag_ckpt_fill"], ms=sw_ms, plain_ms=sw_plain_ms,
+                       bound_ms=sw_b_ms),
+            "ms_20k": timing, "align_diag_s": diag_wall, "align_checkpointed_s": xla_wall,
+            "align_sw_s": sw_wall}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--corpus", default=None,
@@ -519,7 +730,7 @@ def main() -> None:
                "band_capture_fill": band.capture_fill,
                "bitpal_batch_fill": bitpal.batch_fill, "band_batch_fill": band_batch.batch_fill,
                "fill_rc": bitpal.fill_rc, "fill_rc_chunk": bitpal.fill_rc_chunk,
-               "fill_g_chunk": bitpal.fill_g_chunk}
+               "fill_g_chunk": bitpal.fill_g_chunk, "diag_ckpt_fill": pallas_diag.ckpt_fill}
 
     def reset_counts():
         for fn in counted.values():
@@ -1248,7 +1459,8 @@ def main() -> None:
     bk["ms_20k"] = further_ms
 
     # phase (f): align at 20,000 x 20,000 past the family, each through
-    # band_capture_fill alone, valid, and scoring the port's oracle's optimum
+    # band_capture_fill alone (positive-mismatch SW: one diag_ckpt_fill
+    # launch), valid, and scoring the port's oracle's optimum
     aligns = [
         ("dna NW", ScoringConfig(matrix=matrices.dna(2, -1, -3), gap=-3), "auto"),
         ("semiglobal", ScoringConfig(match=2, mismatch=-1, gap=-2,
@@ -1266,6 +1478,9 @@ def main() -> None:
         ("affine dna", dataclasses.replace(cfg_aff, matrix=matrices.dna(2, -1, -3)), "auto"),
     ]
     for name, cfg, impl in aligns:
+        # tpualign's route for a positive-mismatch SW: the diagonal-band
+        # traceback over K9, one launch (phase (j) holds it)
+        kernel = "diag_ckpt_fill" if name == "positive-mismatch SW" else "band_capture_fill"
         max_rows = hirschberg.MAX_QUERY_ROWS
         if name.startswith("family"):  # hirschberg refuses it: the band split takes it
             hirschberg.MAX_QUERY_ROWS = b20.size - 1
@@ -1277,8 +1492,12 @@ def main() -> None:
             hirschberg.MAX_QUERY_ROWS = max_rows
         wall = time.perf_counter() - t0
         counts = read_counts()
-        if counts["band_capture_fill"] < 2 or sum(counts.values()) != counts["band_capture_fill"]:
-            raise AssertionError(f"{name}: align did not run band_capture_fill alone: {counts}")
+        if kernel == "diag_ckpt_fill":
+            ran = only(counts, kernel)
+        else:
+            ran = counts[kernel] >= 2 and sum(counts.values()) == counts[kernel]
+        if not ran:
+            raise AssertionError(f"{name}: align did not run {kernel} alone: {counts}")
         whole = not (cfg.is_local or cfg.is_ends_free)
         valid = (alignment_ok(a20, b20, a1, a2, oracle.BASES) if whole
                  else core_ok(a20, b20, a1, a2, oracle.BASES))
@@ -1497,6 +1716,10 @@ def main() -> None:
                              read_counts=read_counts, only=only)
     rc_kernels = rc_phase(ctx, RC_SHAPES, a20, b20, want20)
 
+    # phase (j): this slice's main path, the checkpointed diagonal fill
+    # (K9) under align_diag and align's positive-mismatch SW route
+    ckpt_kernel = ckpt_phase(ctx, s1, s2, score, a20, b20)
+
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:
             raise AssertionError(f"the port imported {pkg}")
@@ -1554,7 +1777,8 @@ def main() -> None:
                    for tag, ph in batch_phases.items() if ph["kernel"] == kernel},
     } for kernel, source, replaces, held, main in (
         ("bitpal_batch_fill", BATCH_SOURCE, BATCH_REPLACES, k5, "A (1, 0, -1)"),
-        ("band_batch_fill", BAND_BATCH_SOURCE, CAPTURE_REPLACES, kb, "A SW"))] + rc_kernels}))
+        ("band_batch_fill", BAND_BATCH_SOURCE, CAPTURE_REPLACES, kb, "A SW"))]
+        + rc_kernels + [ckpt_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -163,6 +163,9 @@ def test_package_imports_and_scores_without_jax():
         "from tpualign_torch.ops import hirschberg\n"
         "hirschberg.BASE_CELLS = 64\n"
         "print(hirschberg.align(s1, s2, device='cpu')[0])\n"
+        "from tpualign_torch.ops import traceback, traceback_diag\n"
+        "print(traceback_diag.align_diag(s1, s2, k_stride=16, device='cpu')[0])\n"
+        "print(traceback.align_checkpointed(s1, s2, k=16, device='cpu')[0])\n"
         "for impl in ('auto', 'band'):\n"
         "    print(*tpualign_torch.align_score_batch([s1, s2], [s2, s1],\n"
         "                                            engine=EngineConfig(impl, 'cpu')))\n"
@@ -175,7 +178,7 @@ def test_package_imports_and_scores_without_jax():
     )
     assert out.returncode == 0, out.stderr
     want = oracle.score(s1, s2)
-    assert [int(x) for x in out.stdout.split()] == [want] * 7 + [want, oracle.score(s2, s1)] * 2
+    assert [int(x) for x in out.stdout.split()] == [want] * 9 + [want, oracle.score(s2, s1)] * 2
 
 
 def test_scoring_config_fields_match_jax_package():

@@ -155,5 +155,8 @@ def test_api_align_refusals(monkeypatch):
     b1, b2 = _pair(90, 140, seed=4)
     sc, a1, a2 = align(b1, b2, engine=CPU)
     assert calls and sc == oracle.score(b1, b2) == toracle.alignment_score(a1, a2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        align(s1, s2, engine=EngineConfig(impl="oracle", device="cpu"))
+    # impl="oracle" past the full table takes the checkpointed row-scan
+    # traceback, as tpualign's align does: the oracle's strings
+    monkeypatch.setattr(tpualign.api, "FULL_TABLE_CELL_LIMIT", 100)
+    assert align(s1, s2, engine=EngineConfig(impl="oracle", device="cpu")) == tpualign.align(
+        s1, s2, engine=jconfig.EngineConfig(impl="oracle")) == oracle.traceback(s1, s2)

@@ -77,6 +77,19 @@ def test_rows_scan_returns_last_row_best_and_column():
     assert col.tolist() == table[1:, -1].tolist()
 
 
+@pytest.mark.parametrize("size", [2048, 2049, 2050, 4097, 70001])
+def test_blocked_prefix_max_equals_cummax(size):
+    """The in-row scan CUDA runs in blocks (``xla._PrefixMax``) gives
+    ``torch.cummax``'s values, the tail block partial or not."""
+    rng = np.random.default_rng(size)
+    scan = txla._PrefixMax(size, torch.device("cpu"), blocked=True)
+    assert scan.rows == (0 if size <= 4 * txla.SCAN_BLOCK else -(-size // txla.SCAN_BLOCK))
+    jg = torch.arange(size, dtype=torch.int64) * -3
+    for _ in range(3):
+        t = torch.from_numpy(rng.integers(-10**6, 10**6, size))
+        assert torch.equal(scan(t, jg), torch.cummax(t - jg, 0).values)
+
+
 def test_refuses_codes_outside_the_matrix():
     cfg = ScoringConfig(matrix=ASYM)
     with pytest.raises(ValueError, match="matrix alphabet"):

@@ -4,7 +4,8 @@
 
 Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points),
 ``band_capture_affine.cu`` and ``band_batch.cu`` (with the template they
-share, ``band_fill.cuh``), ``diag_fill.cu``, and ``bitpal_gfill.cu``,
+share, ``band_fill.cuh``), ``diag_fill.cu`` and ``diag_ckpt.cu`` (with
+their wavefront, ``diag_fill.cuh``), and ``bitpal_gfill.cu``,
 ``bitpal_batch.cu`` and ``bitpal_rc.cu`` (with the step they share,
 ``bitpal_step.cuh``) with
 ``g++`` as C++20 through a shim ``cuda_runtime.h``: one ``std::thread``
@@ -18,7 +19,7 @@ into a call of the shim's launcher.  The kernels then run through
 count, captured rows at the strip edges, ragged batches with 1 x 1 pairs
 and pairs past one strip), and each result is held against the plain
 version (``band.score_plain``, ``band.capture_plain``,
-``xla.score_batch``, ``pallas_diag.score_plain``,
+``xla.score_batch``, ``pallas_diag.score_plain``, ``pallas_diag.ckpt_plain``,
 ``bitpal.fill_g_plain``, ``bitpal.batch_fill_plain``,
 ``bitpal.fill_rc_plain``, and ``bitpal.chunk_plain`` chunk by chunk).  Prints one line
 per kernel and exits non-zero on the first mismatch.
@@ -117,8 +118,8 @@ template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, 
 
 LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<(\w+), (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
 SOURCES = ("band_fill.cu", "band_capture_affine.cu", "band_batch.cu", "diag_fill.cu",
-           "bitpal_gfill.cu", "bitpal_batch.cu", "bitpal_rc.cu")
-HEADERS = ("band_fill.cuh", "bitpal_step.cuh")
+           "diag_ckpt.cu", "bitpal_gfill.cu", "bitpal_batch.cu", "bitpal_rc.cu")
+HEADERS = ("band_fill.cuh", "diag_fill.cuh", "bitpal_step.cuh")
 
 
 def build() -> ctypes.CDLL:
@@ -147,6 +148,7 @@ def build() -> ctypes.CDLL:
     dll.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 8
                                         + [vp, i32] + [vp] * 6)
     dll.diag_fill.argtypes = [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp]
+    dll.diag_ckpt_fill.argtypes = [vp, i32, vp, i32] + [i32] * 6 + [vp] * 6
     i64 = ctypes.c_int64
     dll.band_batch_fill.argtypes = [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3
     dll.bitpal_gfill.argtypes = [vp, vp, i64] + [i32] * 4 + [vp, vp]
@@ -368,6 +370,29 @@ def _wave_cases(dll, rng, cases):
                 sys.exit(f"chunks (rc {r}, g {gg}) in turn differ from one fill: {where}")
 
 
+def _ckpt_case(dll, rng, cfg, m, n, K):
+    """diag_ckpt_fill against ckpt_plain word for word: both checkpoint
+    arrays (dead slots included) and, local, v and dbest.  The outputs
+    start as garbage, so a slot the kernel leaves unwritten shows."""
+    s1 = torch.from_numpy(rng.integers(0, 5, m).astype(np.int8))
+    s2 = torch.from_numpy(rng.integers(0, 5, n).astype(np.int8))
+    groups = -(-(n + m) // K)
+    diag = np.empty(3 * (n + 1), np.int32)
+    ck = rng.integers(-99, 99, (2, groups, n + 1)).astype(np.int32)
+    best = rng.integers(-99, 99, (2, n + 1)).astype(np.int32)
+    err = dll.diag_ckpt_fill(s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch,
+                             cfg.gap, int(cfg.is_local), K, pallas_diag.kernel_threads(n),
+                             diag.ctypes.data, ck[0].ctypes.data, ck[1].ctypes.data,
+                             best[0].ctypes.data, best[1].ctypes.data, None)
+    want = pallas_diag.ckpt_plain(s1, s2, cfg, K)
+    ok = (not err and np.array_equal(ck[0], want.cka.numpy())
+          and np.array_equal(ck[1], want.ckb.numpy()))
+    if cfg.is_local:
+        ok = ok and np.array_equal(best[0], want.v.numpy()) and np.array_equal(
+            best[1], want.dbest.numpy())
+    return ok, f"{cfg} {m} x {n}, K = {K}"
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cases", type=int, default=120)
@@ -417,6 +442,23 @@ def main() -> None:
             sys.exit(f"diag_fill differs from score_plain: {cfg} {m} x {n}: "
                      f"{int(out[0])} != {want}")
     print(f"[rehearse] diag_fill equal to score_plain in {args.cases // 4} cases")
+    ckpt_cfgs = [ScoringConfig(), ScoringConfig(match=2, mismatch=-1, gap=-2,
+                                                mode=AlignMode.LOCAL),
+                 ScoringConfig(match=3, mismatch=1, gap=-2, mode=AlignMode.LOCAL),
+                 ScoringConfig(match=1, mismatch=-3, gap=1, mode=AlignMode.LOCAL)]
+    fixed = [(1, 30, 8), (30, 1, 8), (1, 1, 8), (40, 1100, 16), (7, 7, 1024)]
+    for c in range(args.cases // 4 + len(fixed)):
+        cfg = ckpt_cfgs[c % 4]
+        if c < len(fixed):
+            m, n, K = fixed[c]
+        else:  # n < m and n > m, strides 8, 16, 24
+            m, n = (int(x) for x in rng.integers(1, 150, 2))
+            K = 8 * int(rng.integers(1, 4))
+        ok, info = _ckpt_case(dll, rng, cfg, m, n, K)
+        if not ok:
+            sys.exit(f"diag_ckpt_fill differs from ckpt_plain: {info}")
+    print(f"[rehearse] diag_ckpt_fill equal to ckpt_plain in {args.cases // 4 + len(fixed)} "
+          f"cases (NW, SW, positive mismatch and gap local; n past 1024 threads)")
     for c in range(args.cases):
         ok, info = _band_batch_case(dll, rng, c)
         if not ok:

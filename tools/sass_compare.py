@@ -8,9 +8,9 @@ Usage, from the repo root:
 
 A version is one source or several joined by ``+``, built into one library
 with the port's flags (``tools/ab_band_fill.py:build``).  Each
-instantiation of the named kernel is keyed by its template arguments and
-compared instruction for instruction with the first version's (addresses
-and encodings cut).  Prints the count of instantiations with the same SASS
+instantiation of the named kernel is keyed by its template arguments (a
+kernel that is no template has one) and compared instruction for
+instruction with the first version's (addresses and encodings cut).  Prints the count of instantiations with the same SASS
 and the ones that differ; exits 1 if any differs or a version lacks one.
 """
 
@@ -39,14 +39,14 @@ def main() -> int:
     versions = [v.split("=", 1) for v in args.versions]
     procs = [(label, ab_band_fill.build(label, srcs, tmp)) for label, srcs in versions]
     by_version = {}
-    key = re.compile(re.escape(args.kernel) + r"I(.*)E")
+    key = re.compile(re.escape(args.kernel) + r"(?:I(.*)E|E)")  # a template or a function
     for label, proc in procs:
         log = proc.communicate()[0]
         if proc.returncode:
             print(log)
             raise RuntimeError(f"nvcc failed for {label}")
         kernels = ab_band_fill.sass(os.path.join(tmp, f"{label}.so"))
-        by_version[label] = {hit.group(1): instrs for name, instrs in kernels.items()
+        by_version[label] = {hit.group(1) or "": instrs for name, instrs in kernels.items()
                              if (hit := key.search(name))}
         print(f"[sass {label}] {len(by_version[label])} instantiations of {args.kernel}, "
               f"{sum(map(len, by_version[label].values()))} instructions")

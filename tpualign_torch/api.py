@@ -9,14 +9,17 @@ refuses a config or a shape with ValueError.  Every engine runs on
 version on the CPU.  ``align`` serves every ``ScoringConfig`` too: it walks
 the full table up to ``FULL_TABLE_CELL_LIMIT`` cells; above it, it runs the
 bit-parallel Hirschberg split for the family, Myers-Miller over K7's affine
-capture fill (``ops/affine_align.py``) for affine gaps, and the split over
-K7's port (``ops/band_align.py``, ``ops/ends_free.py``) for every other
-config.  ``align_score_batch`` scores many pairs in one kernel launch:
-the bit-parallel batch kernel (K5's port) for the family, the strip
-kernel's batch contract (K7's) for every other config, routed as
-``tpualign``'s.  What is not ported raises NotImplementedError naming the
-ROADMAP item that ports it; nothing runs quietly on another engine or
-device.
+capture fill (``ops/affine_align.py``) for affine gaps, the split over
+K7's port (``ops/band_align.py``, ``ops/ends_free.py``) for the other
+configs, the diagonal-band traceback over K9's port
+(``ops/traceback_diag.py``) for local configs with a positive mismatch or
+gap, and the checkpointed row-scan traceback (``ops/traceback.py``) for
+``impl="oracle"``/``"xla"`` and as the last fallback.
+``align_score_batch`` scores many pairs in one kernel launch: the
+bit-parallel batch kernel (K5's port) for the family, the strip kernel's
+batch contract (K7's) for every other config, routed as ``tpualign``'s.
+What is not ported raises NotImplementedError naming the ROADMAP item
+that ports it; nothing runs quietly on another engine or device.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 
 from .config import UNPORTED_IMPLS, EngineConfig, ScoringConfig
 from .ops import (affine_align, band, band_align, band_batch, bitpal, ends_free, hirschberg,
-                  oracle, pallas_diag, xla)
+                  oracle, pallas_diag, traceback, traceback_diag, xla)
 
 #: ``align`` walks the exact full table up to this many DP cells (as
 #: ``tpualign.api.FULL_TABLE_CELL_LIMIT``), and bisects above it
@@ -108,20 +111,32 @@ def align(
     (:func:`tpualign_torch.ops.affine_align.align` or ``align_local``); the
     (1, 0, -g) family (``bitpal``) to the bit-parallel Hirschberg split;
     ``band`` and ``pallas`` to :func:`tpualign_torch.ops.band_align.align_local`
-    or ``align_global``.  Where the bit-parallel split refuses a pair
-    (ValueError), the port goes on to the band split: its own choice, since
-    ``tpualign`` sends such a pair to its checkpointed traceback, which is
-    not ported.  The alignments are optimal; under linear gaps their tie
-    order may differ from the oracle's, under affine gaps the strings are
-    ``tpualign``'s.  ``impl="oracle"`` or ``"xla"`` under linear gaps raise
-    NotImplementedError naming their ROADMAP item.
+    or ``align_global``, except local configs with a positive mismatch or
+    gap, which ``tpualign``'s band split refuses
+    (``tpualign/ops/band_align.py:950-954``) and which go to the
+    diagonal-band traceback
+    (:func:`tpualign_torch.ops.traceback_diag.align_diag`, K9's port); on
+    ValueError from the band split, ``align_diag`` too; on ValueError from
+    it (past ``pallas_diag.MAX_DIAG_ELEMS`` rows, past the int32 headroom,
+    a positive global gap), and for ``impl="oracle"`` or ``"xla"``, the
+    checkpointed row-scan traceback
+    (:func:`tpualign_torch.ops.traceback.align_checkpointed`).  Where the
+    bit-parallel split refuses a pair (ValueError), the port goes on to the
+    band split: its own choice, where ``tpualign`` goes to the checkpointed
+    traceback.  The alignments are optimal; the two checkpointed
+    tracebacks return the oracle's strings, the splits under linear gaps
+    may take another tie, and under affine gaps the strings are
+    ``tpualign``'s.
 
     ``stats``, when given, gets the split of the path past the full table:
     the tree's counts and host-clock seconds
     (:func:`tpualign_torch.ops.hirschberg.tree`,
-    :func:`tpualign_torch.ops.affine_align.align`) and, for local configs,
-    the located cells (:func:`tpualign_torch.ops.band_align.align_local`,
-    :func:`tpualign_torch.ops.affine_align.align_local`)."""
+    :func:`tpualign_torch.ops.affine_align.align`), for local configs the
+    located cells (:func:`tpualign_torch.ops.band_align.align_local`,
+    :func:`tpualign_torch.ops.affine_align.align_local`), and the
+    checkpointed tracebacks' fill, copy and walk
+    (:func:`tpualign_torch.ops.traceback_diag.align_diag`,
+    :func:`tpualign_torch.ops.traceback.align_checkpointed`)."""
     s1 = np.asarray(s1, dtype=np.int8)
     s2 = np.asarray(s2, dtype=np.int8)
     if (s1.size + 1) * (s2.size + 1) <= FULL_TABLE_CELL_LIMIT:
@@ -138,13 +153,18 @@ def align(
         except ValueError:  # outside the family, its codes or its one block
             impl = "band"
     if impl in ("band", "pallas"):
-        if scoring.is_local:
-            return band_align.align_local(s1, s2, scoring, device=dev, stats=stats)
-        return band_align.align_global(s1, s2, scoring, device=dev, stats=stats)
-    raise NotImplementedError(
-        f"impl={impl!r} past the full table needs the checkpointed portable "
-        "traceback, which is not ported yet: ROADMAP queue 1 item 12 "
-        "(portable engines)")
+        if not (scoring.is_local and (scoring.mismatch > 0 or scoring.gap > 0)):
+            try:
+                if scoring.is_local:
+                    return band_align.align_local(s1, s2, scoring, device=dev, stats=stats)
+                return band_align.align_global(s1, s2, scoring, device=dev, stats=stats)
+            except ValueError:  # past the int32 headroom
+                pass
+        try:
+            return traceback_diag.align_diag(s1, s2, scoring, device=dev, stats=stats)
+        except ValueError:  # outside the diagonal kernel's envelope
+            pass
+    return traceback.align_checkpointed(s1, s2, scoring, device=dev, stats=stats)
 
 
 def align_score_batch(

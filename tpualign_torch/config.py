@@ -170,3 +170,13 @@ class EngineConfig:
                              f"{IMPLS + tuple(UNPORTED_IMPLS)}")
         if torch.device(self.device).type not in ("cpu", "cuda"):
             raise ValueError(f"device must be a cpu or cuda device, got {self.device!r}")
+
+
+def ensure_pair_modes(cfg: ScoringConfig, engine: str) -> None:
+    """ValueError for matrix and ends-free configs in an engine that serves
+    pair-scored global and local configs only, as
+    ``tpualign.config.ensure_pair_modes``."""
+    if cfg.has_matrix or cfg.is_ends_free:
+        raise ValueError(
+            f"{engine} serves pair-scored global/local configs; "
+            "matrix/ends-free configs run on the band or xla engines")

@@ -12,29 +12,41 @@ rolled, staged window of ``s1`` have no counterpart.  Its contract, shared
 by :func:`diag_fill` and :func:`score_plain`: ``s1`` (m,) int8 across the
 columns, ``s2`` (n,) int8 down the rows, ``n <= m``; the result is
 ``H(n, m)`` (global) or the max over every cell and 0 (local).
+
+The checkpointed fill (``csrc/diag_ckpt.cu``, K9's port, the forward pass
+of :func:`tpualign_torch.ops.traceback_diag.align_diag`) runs the same
+wavefront without the swap (``s2``, the rows, is the diagonal axis,
+either sequence the longer) and keeps the diagonals ``cK`` and
+``cK - 1`` for ``c < groups = ceil((n + m) / K)``, and under local
+scoring each row's maximum and the diagonal that first reached it.  Its
+contract, shared by :func:`ckpt_fill` and :func:`ckpt_plain`, is in
+:func:`ckpt_plain`'s docstring.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from .. import _build
-from ..config import ScoringConfig
+from ..config import ScoringConfig, ensure_pair_modes
 from . import xla
 from .bitpal import _device
 from .pairs import int8_codes
 
 MAX_THREADS = 1024
 WARP = 32
-
-
-def _ensure_pair_modes(cfg: ScoringConfig) -> None:
-    """ValueError for matrix and ends-free configs, as
-    ``tpualign.config.ensure_pair_modes``."""
-    if cfg.has_matrix or cfg.is_ends_free:
-        raise ValueError(
-            "pallas_diag serves pair-scored global/local configs; "
-            "matrix/ends-free configs run on the band or xla engines")
+#: the checkpoints' value on slots outside the table (``tpualign``'s
+#: ``pallas_diag.NEG_INF``)
+NEG_INF = xla.CK_NEG
+#: checkpoint strides are multiples of this (``tpualign``'s unroll)
+UNROLL = 8
+#: the diagonal axis's cap, ``tpualign.ops.pallas_diag.MAX_DIAG_ELEMS``:
+#: the TPU kernel's VMEM budget, kept for the checkpointed fill because
+#: its checkpoints grow as n (n + m) / K and because past it ``align``
+#: goes on to the checkpointed row-scan traceback, as ``tpualign``'s does
+MAX_DIAG_ELEMS = 1024 * 1024
 
 
 def _check_cfg(cfg: ScoringConfig, total: int) -> None:
@@ -116,7 +128,7 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     ``tpualign.ops.pallas_diag.score``.  The shorter sequence goes on the
     diagonal axis (the score is symmetric under the swap)."""
     a, b = int8_codes(s1), int8_codes(s2)
-    _ensure_pair_modes(cfg)
+    ensure_pair_modes(cfg, "pallas_diag")
     dev = _device(device)
     if a.size == 0 or b.size == 0:
         return 0 if cfg.is_local else cfg.gap * (a.size + b.size)
@@ -124,3 +136,117 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     if b.size > a.size:
         a, b = b, a
     return int(diag_fill(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), cfg))
+
+
+class Checkpoints(NamedTuple):
+    """The checkpointed fill's outputs (:func:`ckpt_plain`)."""
+
+    cka: torch.Tensor  # (groups, n+1) int32: diagonal cK
+    ckb: torch.Tensor  # (groups, n+1) int32: diagonal cK - 1
+    v: Optional[torch.Tensor]  # (n+1,) int32, local: each row's max, floored at 0
+    dbest: Optional[torch.Tensor]  # (n+1,) int32, local: the diagonal that first reached it
+
+
+def _check_ckpt_args(s1: torch.Tensor, s2: torch.Tensor, K: int) -> None:
+    xla.check_pair(s1, s2, ("s1", "s2"))
+    if K < UNROLL or K % UNROLL:
+        raise ValueError(f"the checkpoint stride must be a positive multiple of {UNROLL}, "
+                         f"got {K}")
+
+
+def ckpt_plain(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int) -> Checkpoints:
+    """Plain PyTorch version of the checkpointed diagonal kernel, on the
+    tensors' device: ``s1`` (m,) int8 across the columns, ``s2`` (n,) int8
+    down the rows (the diagonal axis), stride ``K`` (a multiple of 8).
+
+    ``cka[c][k] = H(k, cK - k)`` and ``ckb[c][k] = H(k, cK - 1 - k)`` for
+    ``c < groups = ceil((n + m) / K)``, ``NEG_INF`` on slots outside the
+    table (row 0: diagonal 0, whose one cell is H(0, 0) = 0, and diagonal
+    -1, all ``NEG_INF``).  Under local scoring ``v[k]`` is the max over row
+    k's cells with j >= 1, floored at 0, and ``dbest[k]`` the first
+    diagonal k + j at which it was strictly reached, or 0 (the TPU
+    kernel's ``improved = masked > v``).  One row scan
+    (:func:`tpualign_torch.ops.xla.rows_scan`) gathers each row's cells on
+    the checkpoint diagonals and its first maximum."""
+    _check_ckpt_args(s1, s2, K)
+    local = cfg.is_local
+    scan = xla.rows_scan(s1, s2, cfg, zero_row=local, zero_col=local,
+                         want_row_max=local, diag_stride=K)
+    cka, ckb = scan.ck.int()
+    if not local:
+        return Checkpoints(cka, ckb, None, None)
+    row_max, row_arg = scan.row_max
+    reached = row_max > 0
+    zero = row_max.new_zeros(1)
+    v = torch.cat([zero, torch.where(reached, row_max, 0)]).int()
+    rows = torch.arange(1, s2.numel() + 1, dtype=torch.int64, device=s2.device)
+    dbest = torch.cat([zero, torch.where(reached, rows + row_arg, 0)]).int()
+    return Checkpoints(cka, ckb, v, dbest)
+
+
+def ckpt_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int) -> Checkpoints:
+    """The checkpointed kernel's outputs (:func:`ckpt_plain`) on the device
+    of its tensors: the CUDA kernel ``diag_ckpt_fill``
+    (``csrc/diag_ckpt.cu``) for CUDA tensors, :func:`ckpt_plain` for CPU
+    tensors.
+
+    On CUDA the wrapper allocates the diagonals and the outputs, launches
+    on the current stream without synchronising, and counts the launch in
+    ``ckpt_fill.launches``.  A launch the device refuses raises; nothing
+    falls back to the plain version."""
+    _check_ckpt_args(s1, s2, K)
+    if s1.device.type == "cpu":
+        return ckpt_plain(s1, s2, cfg, K)
+    if s1.device.type != "cuda":
+        raise ValueError(f"ckpt_fill runs on cpu or cuda tensors, got {s1.device}")
+    m, n = s1.numel(), s2.numel()
+    groups = -(-(n + m) // K)
+    dev = s1.device
+    lib = _build.load()
+    diag = torch.empty((3, n + 1), dtype=torch.int32, device=dev)
+    ck = torch.empty((2, groups, n + 1), dtype=torch.int32, device=dev)
+    best = torch.empty((2, n + 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.diag_ckpt_fill(
+            s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch, cfg.gap,
+            int(cfg.is_local), K, kernel_threads(n), diag.data_ptr(), ck[0].data_ptr(),
+            ck[1].data_ptr(), best[0].data_ptr(), best[1].data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"diag_ckpt_fill launch failed with CUDA error {err}")
+    ckpt_fill.launches += 1
+    if cfg.is_local:
+        return Checkpoints(ck[0], ck[1], best[0], best[1])
+    return Checkpoints(ck[0], ck[1], None, None)
+
+
+ckpt_fill.launches = 0
+
+
+def ckpt_stride(k_stride: int) -> int:
+    """``tpualign.ops.traceback_diag.align_diag``'s stride rule: clamped to
+    ``[UNROLL, 2^20]``, rounded up to a multiple of ``UNROLL``."""
+    k = max(UNROLL, min(int(k_stride), 1 << 20))
+    return -(-k // UNROLL) * UNROLL
+
+
+def forward_checkpoints(s1, s2, cfg: ScoringConfig = ScoringConfig(), *,
+                        k_stride: int = 1024, device) -> Checkpoints:
+    """The checkpointed fill of two non-empty code sequences on ``device``
+    (``"cuda"`` runs the kernel, ``"cpu"`` the plain version), ``s1``
+    across the columns and ``s2`` down the rows, no swap; the counterpart
+    of ``tpualign.ops.pallas_diag.forward_checkpoints``, with its refusals
+    (ValueError): matrix and ends-free configs, affine gaps, a positive
+    global gap, scores past the int32 headroom and ``len(s2) + 2 >
+    MAX_DIAG_ELEMS``.  ``k_stride`` rounds up to a multiple of ``UNROLL``;
+    the outputs stay on the device (:func:`ckpt_plain`)."""
+    a, b = int8_codes(s1), int8_codes(s2)
+    ensure_pair_modes(cfg, "pallas_diag")
+    if b.size + 2 > MAX_DIAG_ELEMS:
+        raise ValueError("s2 too long for the diagonal kernel's checkpoints "
+                         f"({b.size} > {MAX_DIAG_ELEMS - 2})")
+    _check_cfg(cfg, a.size + b.size)
+    dev = _device(device)
+    K = -(-int(k_stride) // UNROLL) * UNROLL
+    return ckpt_fill(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), cfg, K)

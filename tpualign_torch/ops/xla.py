@@ -11,9 +11,10 @@ against (:func:`tpualign_torch.ops.band.score_plain`,
 (length n).  One DP row is a handful of tensor ops over the whole row: the
 in-row left dependency ``H[j] = max(T[j], H[j-1] + g)`` unrolls to
 ``H = j*g + cummax(T - j*g)`` (``torch.cummax`` in place of
-``associative_scan``), and under affine gaps the horizontal gap ``E``
-resolves by the same scan over the gap-free candidates (valid because
-``gap_open <= 0``, see ``ops/oracle.py:_affine_row``).  Values are int64,
+``associative_scan``, in blocks on CUDA: :class:`_PrefixMax`), and under
+affine gaps the horizontal gap ``E`` resolves by the same scan over the
+gap-free candidates (valid because ``gap_open <= 0``, see
+``ops/oracle.py:_affine_row``).  Values are int64,
 exact for any config; the query's codes are read to the host once, so the
 row loop never waits on the device.
 
@@ -39,6 +40,37 @@ from .pairs import Pairs, batch_lengths, pack_pairs, pad_pairs
 #: -inf stand-in for the affine gap rows: far below any score, and far from
 #: int64's limits after a few gap charges
 NEG = -(2**40)
+#: on CUDA a row longer than ``4 * SCAN_BLOCK`` scans in blocks of this
+#: many columns: ``torch.cummax`` runs one long row on one thread block,
+#: 361.3 us for 126,441 columns against 63.8 us as a (247, 512) view with
+#: a running max over the blocks (``tools/bench_row_scan.py`` on an NVIDIA
+#: H100 80GB HBM3 at 700 W)
+SCAN_BLOCK = 512
+
+
+class _PrefixMax:
+    """``cummax(x)`` of rows of ``size`` values on ``device``: one
+    ``torch.cummax``, or, ``blocked`` (rows_scan: on CUDA) past
+    ``4 * SCAN_BLOCK`` values, the cummax of each block of ``SCAN_BLOCK``
+    (many thread blocks) and the running max of the blocks' maxima, the
+    same values."""
+
+    def __init__(self, size: int, device: torch.device, blocked: bool):
+        self.size = size
+        self.rows = -(-size // SCAN_BLOCK) if blocked and size > 4 * SCAN_BLOCK else 0
+        if self.rows:  # the tail past ``size`` stays NEG
+            self.buf = torch.full((self.rows * SCAN_BLOCK,), NEG, dtype=torch.int64,
+                                  device=device)
+
+    def __call__(self, t: torch.Tensor, jg: torch.Tensor) -> torch.Tensor:
+        """A fresh tensor: ``cummax(t - jg)``."""
+        if not self.rows:
+            return torch.cummax(t - jg, 0).values
+        torch.sub(t, jg, out=self.buf[: self.size])
+        v = self.buf.view(self.rows, SCAN_BLOCK).cummax(1).values
+        carry = v[:, -1].cummax(0).values
+        torch.maximum(v[1:], carry[:-1, None], out=v[1:])
+        return v.view(-1)[: self.size]
 
 
 def _profile(text: torch.Tensor, codes: list, cfg: ScoringConfig):
@@ -98,6 +130,9 @@ class Scan(NamedTuple):
     caps: Optional[torch.Tensor]  # (J, m+1): the captured rows
     cell: Optional[torch.Tensor]  # (3,): the located cell (v, i, j)
     f: Optional[torch.Tensor]  # (m+1,): affine, the last row F(n, 0..m)
+    cols: Optional[torch.Tensor]  # (n, C): H(1..n, 0), H(1..n, k), ...: every k-th column
+    ck: Optional[torch.Tensor]  # (2, groups, n+1): the diagonal checkpoints
+    row_max: Optional[Tuple[torch.Tensor, torch.Tensor]]  # (n,) twice: max and first argmax
 
 
 def rows_scan(
@@ -111,19 +146,29 @@ def rows_scan(
     want_col: bool = False,
     capture_rows=(),
     want_cell: bool = False,
+    want_row_max: bool = False,
+    col_stride: Optional[int] = None,
+    diag_stride: Optional[int] = None,
     tb: Optional[int] = None,
 ) -> Scan:
     """Fill the table of ``text`` (columns) against ``query`` (rows), both
     non-empty code tensors on one device, one row at a time.
 
     ``zero_row``: H(0, j) = 0 (else the gap charges of ``cfg``);
-    ``zero_col``: H(i, 0) = 0.  Local mode (``cfg.is_local``) adds the zero
-    floor.  Returns the last row H(n, 0..m); with ``want_best`` the max over
-    every row 1..n; with ``want_col`` the last column H(1..n, m);
-    ``capture_rows`` (DP rows in 1..n, increasing) adds those rows
-    H(r, 0..m), and ``want_cell`` the first max over the cells
-    ``i >= 1, j >= 1`` in row-major order, ``(v, i, j)``: each row's max
-    and its first argmax, then the first row with the greatest max.
+    ``zero_col``: H(i, 0) = 0 (else the gap charges).  Local mode
+    (``cfg.is_local``) adds the zero floor.  Returns the last row
+    H(n, 0..m); with ``want_best`` the max over every row 1..n; with
+    ``want_col`` the last column H(1..n, m); ``capture_rows`` (DP rows in
+    1..n, increasing) adds those rows H(r, 0..m), and ``want_cell`` the
+    first max over the cells ``i >= 1, j >= 1`` in row-major order,
+    ``(v, i, j)``: each row's max and its first argmax, then the first row
+    with the greatest max; ``want_row_max`` returns those two per row
+    (``(n,)`` each, the argmax as the column j >= 1).  ``col_stride`` k
+    keeps every row's columns 0, k, 2k, ... (the checkpointed traceback's
+    block edges); ``diag_stride`` K the diagonal checkpoints of the
+    diagonal kernel's contract (:mod:`tpualign_torch.ops.pallas_diag`):
+    ``ck[0][c][i] = H(i, cK - i)`` and ``ck[1][c][i] = H(i, cK - 1 - i)``
+    for c < ceil((n + m) / K), rows 0..n, ``CK_NEG`` outside the table.
 
     Affine gaps also return the last row of F, with F(n, 0) taken as
     H(n, 0); ``tb`` (default ``gap_open``, in ``[gap_open, 0]``) is the
@@ -140,9 +185,13 @@ def rows_scan(
     col = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_col else None
     slot = {r: s for s, r in enumerate(capture_rows)}
     caps = torch.empty((len(slot), m + 1), dtype=torch.int64, device=dev)
-    row_max = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_cell else None
-    row_arg = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_cell else None
+    want_row_max = want_row_max or want_cell
+    row_max = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_row_max else None
+    row_arg = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_row_max else None
+    cols = (torch.empty((len(codes), m // col_stride + 1), dtype=torch.int64, device=dev)
+            if col_stride else None)
     t = torch.empty(m + 1, dtype=torch.int64, device=dev)
+    prefix_max = _PrefixMax(m + 1, dev, blocked=dev.type == "cuda")
     if affine:
         open_, ext = cfg.gap_open, cfg.gap_extend
         tb = open_ if tb is None else tb
@@ -158,6 +207,7 @@ def rows_scan(
         g = cfg.gap
         jg = j * g
         h = torch.zeros(m + 1, dtype=torch.int64, device=dev) if zero_row else jg.clone()
+    ck = _DiagCheckpoints(h, len(codes), diag_stride) if diag_stride else None
     for i, b in enumerate(codes, start=1):
         if affine:
             f = torch.maximum(h + open_, f).add_(ext)
@@ -166,8 +216,8 @@ def rows_scan(
             torch.maximum(h[:-1] + table[row_of[b]], h[1:] + g, out=t[1:])
         if local:
             t.clamp_(min=0)
-        t[0] = 0 if (local or zero_col) else (tb + i * ext if affine else i * g)
-        c = torch.cummax(t - jg, 0).values
+        t[0] = 0 if zero_col else (tb + i * ext if affine else i * g)
+        c = prefix_max(t, jg)
         if affine:
             torch.add(c[:-1], open_jext[1:], out=e[1:])
             h = torch.maximum(t, e)
@@ -179,16 +229,55 @@ def rows_scan(
             col[i - 1] = h[-1]
         if i in slot:
             caps[slot[i]] = h
-        if want_cell:
+        if want_row_max:
             row_max[i - 1], row_arg[i - 1] = h[1:].max(0)
+        if col_stride:
+            cols[i - 1] = h[::col_stride]
+        if ck is not None:
+            ck.add(i, h)
     cell = None
+    if want_row_max:
+        row_arg += 1
     if want_cell:
         i = torch.argmax(row_max)
-        cell = torch.stack([row_max[i], i + 1, row_arg[i] + 1])
+        cell = torch.stack([row_max[i], i + 1, row_arg[i]])
     if affine:
         f[0] = h[0]
     return Scan(h, None if best is None else best.max(), col,
-                caps if slot else None, cell, f if affine else None)
+                caps if slot else None, cell, f if affine else None, cols,
+                None if ck is None else ck.result(),
+                (row_max, row_arg) if want_row_max else None)
+
+
+#: the diagonal checkpoints' value on slots outside the table
+#: (``tpualign.ops.pallas_diag.NEG_INF``)
+CK_NEG = -(2**30)
+
+
+class _DiagCheckpoints:
+    """The cells of rows 0..n on the diagonals cK and cK - 1, c <
+    ceil((n + m) / K), gathered one row at a time from a copy of the row
+    padded with ``CK_NEG`` at both ends (four small ops a row)."""
+
+    def __init__(self, h0: torch.Tensor, n: int, K: int):
+        m = h0.numel() - 1
+        dev = h0.device
+        groups = -(-(n + m) // K)
+        cK = torch.arange(groups, dtype=torch.int64, device=dev) * K + 1  # hp index of cK
+        self.idx = torch.cat([cK, cK - 1])  # row 0's columns cK and cK - 1, as hp indices
+        self.at = torch.empty_like(self.idx)
+        self.hp = torch.full((m + 3,), CK_NEG, dtype=torch.int64, device=dev)
+        self.out = torch.empty((n + 1, 2 * groups), dtype=torch.int64, device=dev)
+        self.m, self.groups, self.n = m, groups, n
+        self.add(0, h0)
+
+    def add(self, i: int, h: torch.Tensor) -> None:
+        self.hp[1:-1] = h
+        torch.clamp(self.idx - i, 0, self.m + 2, out=self.at)
+        torch.index_select(self.hp, 0, self.at, out=self.out[i])
+
+    def result(self) -> torch.Tensor:
+        return self.out.t().reshape(2, self.groups, self.n + 1)
 
 
 def _empty_score(m: int, n: int, cfg: ScoringConfig) -> int:
@@ -236,6 +325,33 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     if a.size == 0 or b.size == 0:
         return _empty_score(a.size, b.size, cfg)
     return int(score_tensors(t1.to(dev), t2.to(dev), cfg))
+
+
+def last_row(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, reverse: bool = False,
+             device) -> torch.Tensor:
+    """The last DP row H(n, 0..m) of ``s1`` (columns) against ``s2`` (rows)
+    by the row scan on ``device``, as ``(m+1,)`` int64 there; with
+    ``reverse`` the last row of the suffix problem (both sequences
+    reversed).  The counterpart of ``tpualign.ops.xla.last_row``: the
+    boundaries are the gap charges H(0, j) = j*gap and H(i, 0) = i*gap in
+    every mode (local scoring adds only the zero floor), and affine
+    configs are refused (ValueError)."""
+    if cfg.is_affine:
+        # splitting affine problems needs both the H and E rows
+        raise ValueError("last_row supports linear-gap configs only")
+    a = np.asarray(s1)
+    b = np.asarray(s2)
+    if a.ndim != 1 or b.ndim != 1:
+        raise ValueError("sequences must be 1-D")
+    if reverse:
+        a, b = a[::-1], b[::-1]
+    dev = _device(device)
+    t1 = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+    t2 = torch.from_numpy(np.ascontiguousarray(b, dtype=np.int64))
+    check_codes(t1, t2, cfg)
+    if b.size == 0:
+        return torch.arange(a.size + 1, dtype=torch.int64, device=dev) * cfg.gap
+    return rows_scan(t1.to(dev), t2.to(dev), cfg, zero_row=False, zero_col=False).h
 
 
 def score_batch(pairs: Pairs, cfg: ScoringConfig, ends) -> torch.Tensor:
