@@ -70,7 +70,17 @@ path's shape:
   against ``ckpt_plain`` (run on the card) at both, ``align_diag`` at
   20,000 x 20,000 under (1, 0, -1) and SW (2, -1, -2), and every config
   (NW, SW, positive mismatch, positive gap) on small shapes at strides 8,
-  16, 24 and 1024.
+  16, 24 and 1024;
+- K6's and K7's strip pipeline (``band_fill``, ``band_capture_fill``,
+  ``band_capture_affine``: one launch a fill, strips over many blocks,
+  each strip's bottom row handed down through a ring with progress
+  flags): held where races would show, at one block, blocks past the
+  strips, fewer blocks than strips over a ring of 2 rows, a partial last
+  strip and a table whose cells all tie, 20 launches each against one
+  plain run (phase (a3)); every 64gb-shape fill above runs the planner's
+  geometry (``band.pipeline_geometry``), and a small sweep of K6 SW's
+  geometry (threads x blocks, the one-block schedule beside it) prints at
+  the 64gb shape and at 20,000 x 20,000.
 
 With ``--corpus`` naming the reference's ``bdna`` directory the 64gb pair is
 read from it and the scores must be the reference's 73888 and the JAX
@@ -707,6 +717,105 @@ def ckpt_phase(ctx, s1, s2, score, a20, b20):
             "align_sw_s": sw_wall}
 
 
+#: the pipeline's race cases: (k, threads, blocks) of one block, blocks
+#: past the strips, fewer blocks than strips, the planner's blocks; "ring
+#: 2": fewer blocks than strips over a ring cut to 2 rows
+PIPE_RACES = [((1, 32, 1), False), ((2, 32, 64), False), ((1, 32, 3), False),
+              ((4, 64, 2), False), ((1, 64), False), ((1, 32, 3), True)]
+PIPE_REPEAT = 20
+#: K6 SW's sweep (k, threads, blocks; None: the planner's blocks)
+K6_SWEEP_64GB = [(8, 64, None), (8, 128, None), (8, 256, None), (4, 128, None),
+                 (16, 128, None), (8, 128, 62)]
+K6_SWEEP_20K = [(4, 128, None), (8, 64, None), (8, 128, None), (16, 128, None), (8, 128, 10)]
+
+
+def pipeline_phase(ctx, hold_capture):
+    """The strip pipeline of K6 and K7 (``band_fill``, ``band_capture_fill``,
+    ``band_capture_affine``) where a race would show: SW, positive-mismatch
+    SW, affine global and local and global linear on 1,037 rows (a partial
+    last strip) x 1,500 columns at each of ``PIPE_RACES``, and a table whose
+    cells all tie at 0 (the located cell must be the first row's, across
+    strips and blocks) over fewer blocks than strips and over a ring of 2
+    rows.  Each launch ``PIPE_REPEAT`` times, word for word against one
+    plain run (the score, and the captured rows at the strip edges, the
+    last row and column, the located cell and F's last row)."""
+    import torch
+
+    from tpualign_torch.config import AlignMode, ScoringConfig
+    from tpualign_torch.ops import band
+
+    t0 = time.perf_counter()
+    sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+    aff = ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2)
+    tie = ScoringConfig(match=1, mismatch=-1, gap=-1, mode=AlignMode.LOCAL)
+    cases = [(cfg, 1500, 1037, geometry, shallow)
+             for cfg in (sw, ScoringConfig(match=3, mismatch=1, gap=-2, mode=AlignMode.LOCAL),
+                         aff, aff.with_mode(AlignMode.LOCAL),
+                         ScoringConfig(match=2, mismatch=-1, gap=-2))
+             for geometry, shallow in PIPE_RACES]
+    cases += [(tie, 900, 700, (1, 32, 5), False), (tie, 900, 700, (2, 32, 40), True)]
+    n_launch = 0
+    for cfg, lm, ln, geometry, shallow in cases:
+        if cfg is tie:
+            text, query = np.full(lm, 1, np.int8), np.full(ln, 2, np.int8)
+        else:
+            text, query = (ctx.rng.integers(1, 5, x).astype(np.int8) for x in (lm, ln))
+        t, q = torch.from_numpy(text).to(ctx.dev), torch.from_numpy(query).to(ctx.dev)
+        geometry = (min(geometry[0], band.max_k(cfg)),) + geometry[1:]
+        R = geometry[0] * geometry[1]
+        rows = sorted({1, R - 1, R, R + 1, 2 * R, ln - 1, ln} - {0})
+        budget = band.RING_BUDGET
+        if shallow:  # room for 2 rows of H (and F)
+            band.RING_BUDGET = 2 * 4 * (2 if cfg.is_affine else 1) * (lm + 1)
+        try:
+            plan = band.pipeline_plan(ln, lm, cfg.is_affine, geometry, band.max_k(cfg))
+            ends = band._ends_flags(cfg, False)
+            want = int(band.score_plain(t, q, cfg, ends))
+            want_c = band.capture_plain(t, q, cfg, rows, col=True, cell=True)
+            where = f"{cfg}, {ln} x {lm}, {plan}"
+            for _ in range(PIPE_REPEAT):
+                got = int(band.band_fill(t, q, cfg, ends, geometry))
+                if got != want:
+                    raise AssertionError(f"band_fill {got} != score_plain {want} at {where}")
+                hold_capture(band.capture_fill(t, q, cfg, rows, col=True, cell=True,
+                                               geometry=geometry), want_c, where)
+                n_launch += 2
+        finally:
+            band.RING_BUDGET = budget
+        if shallow and plan.depth != 2:
+            raise AssertionError(f"the ring was not cut to 2 rows: {plan}")
+    print(f"[pipeline vs plain] {len(cases)} cases x {PIPE_REPEAT} launches of band_fill and "
+          f"of the capture fill ({n_launch} launches), each word for word against one plain "
+          f"run: one block, blocks past the strips, fewer blocks than strips, a ring of 2 "
+          f"rows, a partial last strip, captured rows at strip edges, every cell tied; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def k6_sweep(ctx, tag, text, query, cfg, ends, grid, runs=3):
+    """K6's time over ``(k, threads, blocks)`` geometries (blocks None: the
+    planner's), every result equal to the first's; returns ``{geometry: ms}``."""
+    from tpualign_torch.ops import band
+
+    n, m = query.numel(), text.numel()
+    out, first = {}, None
+    for geometry in grid:
+        if geometry[2] is None:
+            geometry = geometry[:2]
+        plan = band.pipeline_plan(n, m, cfg.is_affine, geometry)
+        ms, runs_ms, res = ctx.cuda_ms(lambda: band.band_fill(text, query, cfg, ends, geometry),
+                                      runs=runs)
+        res = int(res)
+        if first is not None and res != first:
+            raise AssertionError(f"{tag}: band_fill at {geometry} gave {res}, not {first}")
+        first = res
+        key = f"{plan.k}x{plan.threads}x{plan.blocks}"
+        out[key] = ms
+        print(f"[sweep] {ctx.smi}: band_fill {tag} {n} x {m}, k = {plan.k}, {plan.threads} "
+              f"threads, {plan.blocks} blocks ({plan.strips} strips, ring {plan.depth}): median "
+              f"of {runs} {ms:.3f} ms")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--corpus", default=None,
@@ -1246,6 +1355,10 @@ def main() -> None:
           f"tb = gap_open and 0, 1-row and 1-column tables; captured rows, last row, last "
           f"column, located cell, last row of F); {time.perf_counter() - t0:.1f} s")
 
+    # phase (a3): the strip pipeline where races would show
+    pctx = argparse.Namespace(dev=dev, rng=rng, smi=smi, cuda_ms=cuda_ms)
+    pipeline_phase(pctx, hold_capture)
+
     # phase (c): Smith-Waterman on the 64gb-shape pair, align_score (band_fill)
     cfg_sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
     reset_counts()
@@ -1275,16 +1388,27 @@ def main() -> None:
                             abs(as_align - plain_cell[0]))
     if bk["max_abs_err"]:
         raise AssertionError(f"band_fill differs from the plain SW score: {bk}")
-    k_sw, threads_sw = band.kernel_geometry(query.size, band.max_k(cfg_sw))
+    sw_plan = band.pipeline_plan(query.size, text.size, False, None, band.max_k(cfg_sw))
     print(f"[path: align_score SW] {m} x {n} ({source}), (2, -1, -2) local: score "
           f"{score_sw} equal to capture_plain's on the card (band_fill in both "
-          f"orientations); launches {sw_counts}; wall {sw_wall:.3f} s; geometry k = {k_sw}, "
-          f"{threads_sw} threads, {-(-query.size // (k_sw * threads_sw))} strips")
+          f"orientations); launches {sw_counts}; wall {sw_wall:.3f} s; geometry k = "
+          f"{sw_plan.k}, {sw_plan.threads} threads, {sw_plan.blocks} blocks, "
+          f"{sw_plan.strips} strips, a ring of {sw_plan.depth} rows")
     print(f"[timing] {smi}: band_fill SW at {query.size} x {text.size}: median of 3 "
           f"{sw_ms:.3f} ms ({m * n / sw_ms / 1e6:.2f} GCUPS; runs {runs_str(sw_runs)} ms); "
           f"capture_plain with the located cell {sw_plain_ms:.1f} ms "
           f"({m * n / sw_plain_ms / 1e6:.3f} GCUPS)")
-    bk.update(ms=sw_ms, plain_ms=sw_plain_ms, shape=f"{query.size}x{text.size}")
+    bk.update(ms=sw_ms, plain_ms=sw_plain_ms, shape=f"{query.size}x{text.size}",
+              geometry=[sw_plan.k, sw_plan.threads, sw_plan.blocks])
+    # a small sweep of K6 SW's geometry (threads x blocks), the one-block
+    # schedule beside it, at this shape and at 20,000 x 20,000
+    bk["sweep_64gb"] = k6_sweep(pctx, "SW", tb, qb, p.cfg, p.ends, K6_SWEEP_64GB)
+    bk["sweep_64gb"].update(k6_sweep(pctx, "SW one block", tb, qb, p.cfg, p.ends,
+                                     [(16, 256, 1)], runs=1))
+    ta, tq = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    bk["sweep_20k"] = k6_sweep(pctx, "SW", ta, tq, cfg_sw, band._ends_flags(cfg_sw, False),
+                               K6_SWEEP_20K)
+    del ta, tq
     loc_ms, loc_runs, loc = cuda_ms(lambda: band.capture_fill(t1d, q2d, cfg_sw, cell=True),
                                     runs=3)
     hold_capture(loc, sw_plain, f"the SW locate at {n} x {m}")
@@ -1401,8 +1525,10 @@ def main() -> None:
           f"capture_plain word for word (H and F, plain {root_plain_ms:.1f} ms); the local "
           f"locate {n} x {m} {aloc_ms:.3f} ms ({m * n / aloc_ms / 1e6:.2f} GCUPS; runs "
           f"{runs_str(aloc_runs)})")
+    root_plan = band.pipeline_plan(mid, m, True, None, band.max_k(cfg_aff))
     ck.update(launches=aff_paths["global"]["launches"], ms=root_ms, plain_ms=root_plain_ms,
-              shape=f"{mid}x{m}", affine_local_launches=aff_paths["local"]["launches"],
+              shape=f"{mid}x{m}", geometry=[root_plan.k, root_plan.threads, root_plan.blocks],
+              affine_local_launches=aff_paths["local"]["launches"],
               affine_local_locate_ms=aloc_ms, sw_align_launches=n_cap_launch)
 
     # phase (d): further paths at 20,000 x 20,000, each through align_score
@@ -1447,8 +1573,8 @@ def main() -> None:
             bk["max_abs_err"] = max(bk["max_abs_err"], err)
             want = max((raw,) + p.floor)
             further_ms[name] = (kms, pms)
-            k_b, threads_b = band.kernel_geometry(query.size, band.max_k(cfg))
-            geometry = f"k = {k_b}, {threads_b} threads"
+            gp = band.pipeline_plan(query.size, text.size, cfg.is_affine, None, band.max_k(cfg))
+            geometry = f"k = {gp.k}, {gp.threads} threads, {gp.blocks} blocks"
         if err or got != want:
             raise AssertionError(f"{name}: align_score {got}, kernel vs plain err {err}, "
                                  f"plain score {want}")

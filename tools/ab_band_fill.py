@@ -1,28 +1,36 @@
-"""A/B of versions of ``tpualign_torch/csrc/band_fill.cu`` on one card, in
-one process: each version builds into a library of its own, and the script
-prints, per version, the registers and spills that ptxas reports for the
-16-rows-a-thread kernels, their SASS instruction counts (``cuobjdump``), and
-the times of the same fills, run in the order A B .. B A so that drift on
-the card shows as asymmetry.  Every version's result must equal the first
+"""A/B of versions of the band kernels' sources on one card, in one process:
+each version builds into a library of its own, and the script prints, per
+version, the registers and spills that ptxas reports for the
+16-rows-a-thread kernels, their SASS instruction counts (``cuobjdump``),
+whether ``band_batch_kernel``'s SASS equals the first version's, and the
+times of the same fills, run in the order A B .. B A so that drift on the
+card shows as asymmetry.  Every version's result must equal the first
 version's, or the script exits 1.
 
 Usage, from the repo root on a machine with a card and ``nvcc``:
 
-    python3 tools/ab_band_fill.py parent=OLD.cu \
-        change=tpualign_torch/csrc/band_fill.cu+tpualign_torch/csrc/band_capture_affine.cu
+    python3 tools/ab_band_fill.py \
+        parent=OLD/band_fill.cu+OLD/band_capture_affine.cu+OLD/band_batch.cu \
+        change=tpualign_torch/csrc/band_fill.cu+tpualign_torch/csrc/band_capture_affine.cu+tpualign_torch/csrc/band_batch.cu
 
-A version is one source or several joined by ``+``, built into one library.
+A version is one source or several joined by ``+``, built into one library
+(each source beside the ``band_fill.cuh`` it includes).  A version whose
+``band_fill.cuh`` defines ``pipe_args`` takes the pipelined entries'
+arguments (geometry ``band.pipeline_plan``'s, with its ring and flags);
+an older one the single-block entries' (``band.kernel_geometry``, one
+boundary row).
 
 Times are CUDA-event medians of ``--runs`` runs after one warm-up: K6
 (``band_fill``) under SW (2, -1, -2), the DNA matrix, affine NW and affine
 SW at 20,000 x 20,000, and SW at the 64gb shape unless ``--no-full``; K7
 (``band_capture_fill``, where a version has it) as the SW locate and as a
-global fill with 31 rows at 20,000 x 20,000, and where a version has
-``band_capture_affine`` as Myers-Miller's half fill (10,000 rows, the last
-rows H and F) and the affine SW locate.  Every K6 kernel of a later
-version is compared with the first version's instruction for instruction
-(addresses and encodings cut); with ``--out DIR`` the SASS of K6's SW
-kernel at 16 rows a thread goes to DIR, one file per version.
+global fill with 31 rows at 20,000 x 20,000 and as the SW locate at the
+64gb shape, and where a version has ``band_capture_affine`` as
+Myers-Miller's half fill (10,000 rows at 20k; 63,620 at the 64gb shape,
+the last rows H and F) and the affine SW locate at 20k; where a version
+has ``band_batch_fill``, the batch of mix (A) under SW and of mix (B)
+under infix (``tpualign_torch.probe``).  With ``--out DIR`` the SASS of
+K6's SW kernel at 16 rows a thread goes to DIR, one file per version.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tpualign_torch import _build, matrices  # noqa: E402
 from tpualign_torch.config import AlignMode, ScoringConfig  # noqa: E402
-from tpualign_torch.ops import band, hirschberg  # noqa: E402
+from tpualign_torch.ops import band, hirschberg, pairs  # noqa: E402
+from tpualign_torch.probe import read_pairs, serve_pairs  # noqa: E402
 
 SW = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
 SCORES = {
@@ -101,36 +110,72 @@ def sass(lib: str):
     return out
 
 
-def bind(lib: str) -> ctypes.CDLL:
+def pipelined(srcs: str) -> bool:
+    """Whether a version's band_fill.cuh is the pipelined one."""
+    head = os.path.join(os.path.dirname(srcs.split("+")[0]), "band_fill.cuh")
+    with open(head) as f:
+        return "pipe_args" in f.read()
+
+
+def bind(lib: str, pipe: bool) -> ctypes.CDLL:
     dll = ctypes.CDLL(lib)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    dll.band_fill.argtypes = [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, vp, vp]
+    dll.pipe = pipe
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    if pipe:
+        dll.band_fill.argtypes = [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp]
+    else:
+        dll.band_fill.argtypes = [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, vp, vp]
     dll.band_fill.restype = i32
     if hasattr(dll, "band_capture_fill"):
-        dll.band_capture_fill.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 6
-                                          + [vp, i32] + [vp] * 5)
+        dll.band_capture_fill.argtypes = (
+            [vp, i32, vp, i32, vp] + [i32] * 8 + [vp, i32, vp, vp, vp, vp, i32, vp, vp, vp]
+            if pipe else [vp, i32, vp, i32, vp, i32] + [i32] * 6 + [vp, i32] + [vp] * 5)
         dll.band_capture_fill.restype = i32
     if hasattr(dll, "band_capture_affine"):
-        dll.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 8
-                                            + [vp, i32] + [vp] * 6)
+        dll.band_capture_affine.argtypes = (
+            [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]
+            if pipe else [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, i32] + [vp] * 6)
         dll.band_capture_affine.restype = i32
+    if hasattr(dll, "band_batch_fill"):
+        dll.band_batch_fill.argtypes = [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3
+        dll.band_batch_fill.restype = i32
     return dll
+
+
+def scratch(dll, n, m, cfg, cell):
+    """A version's geometry arguments and scratch: ``(k, threads, blocks)``,
+    ring, depth, flags and the blocks' cells for a pipelined version;
+    ``(k, threads)`` and one boundary buffer for an older one."""
+    if not dll.pipe:
+        k, threads = band.kernel_geometry(n, band.max_k(cfg))
+        boundary = torch.empty((2, m + 1), dtype=torch.int32, device="cuda")
+        return (k, threads), (boundary,), lambda: (boundary.data_ptr(),)
+    plan = band.pipeline_plan(n, m, cfg.is_affine, None, band.max_k(cfg))
+    ring, sync, cells = band._pipe_scratch(plan, m, cfg.is_affine, "cuda", cell)
+
+    def args():
+        sync.zero_()
+        return (band._ptr(ring), plan.depth, sync.data_ptr(), band._ptr(cells))
+    return (plan.k, plan.threads, plan.blocks), (ring, sync, cells), args
 
 
 def score_call(dll, text, query, cfg, ends):
     m, n = text.numel(), query.numel()
-    k, threads = band.kernel_geometry(n, band.max_k(cfg))
+    geom, keep, pipe_args = scratch(dll, n, m, cfg, False)
     K = len(cfg.matrix) if cfg.has_matrix else 0
     matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).cuda()
-    boundary = torch.empty((2, m + 1), dtype=torch.int32, device="cuda")
     out = torch.empty(1, dtype=torch.int32, device="cuda")
 
     def run():
+        if dll.pipe:
+            out.fill_(0 if cfg.is_local else band.NEG)
+            extra = pipe_args()[:3]
+        else:
+            extra = pipe_args()
         err = dll.band_fill(text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
                             cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
-                            cfg.gap_extend or 0, band._flags(cfg, ends), k, threads,
-                            boundary.data_ptr(), out.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+                            cfg.gap_extend or 0, band._flags(cfg, ends), *geom, *extra,
+                            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"band_fill launch failed with CUDA error {err}")
         return out
@@ -142,13 +187,12 @@ def capture_call(dll, text, query, cfg, rows, cell, tb=0):
     ``band_capture_affine`` (with the top-edge open ``tb``) under affine
     ones.  Returns the captured rows, then the cell, then the F row."""
     m, n = text.numel(), query.numel()
-    k, threads = band.kernel_geometry(n, band.max_k(cfg))
+    geom, keep, pipe_args = scratch(dll, n, m, cfg, cell)
     krows = list(rows) if rows and rows[-1] == n else list(rows) + [n]
     cap_rows = torch.tensor(krows, dtype=torch.int32).cuda()
     caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device="cuda")
     found = torch.empty(3, dtype=torch.int32, device="cuda") if cell else None
     f_row = torch.empty(m + 1, dtype=torch.int32, device="cuda") if cfg.is_affine else None
-    boundary = torch.empty((2, m + 1), dtype=torch.int32, device="cuda")
     matrix = torch.zeros(1, dtype=torch.int32, device="cuda")
     head = (text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), 0, cfg.match,
             cfg.mismatch)
@@ -158,16 +202,41 @@ def capture_call(dll, text, query, cfg, rows, cell, tb=0):
 
     def run():
         stream = torch.cuda.current_stream().cuda_stream
+        extra = pipe_args()
         if cfg.is_affine:
-            err = dll.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags, k,
-                                          threads, *outs, f_row.data_ptr(),
-                                          boundary.data_ptr(), stream)
+            err = dll.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags, *geom,
+                                          *outs, f_row.data_ptr(), *extra, stream)
         else:
-            err = dll.band_capture_fill(*head, cfg.gap, flags, k, threads, *outs,
-                                        boundary.data_ptr(), stream)
+            err = dll.band_capture_fill(*head, cfg.gap, flags, *geom, *outs, *extra, stream)
         if err:
             raise RuntimeError(f"the capture fill's launch failed with CUDA error {err}")
         return torch.cat([caps.flatten()] + [t for t in (found, f_row) if t is not None])
+    return run
+
+
+def batch_call(dll, packed, cfg):
+    """``band_batch_fill`` over a packed batch (the same ABI in every
+    version): one block a pair, ``band.kernel_geometry`` of the longest
+    query."""
+    P = packed.offsets.shape[1]
+    k, threads = band.kernel_geometry(packed.n_cap, band.max_k(cfg))
+    boundary = torch.empty((P, 2, packed.m_cap + 1), dtype=torch.int32, device="cuda")
+    out = torch.empty(P, dtype=torch.int32, device="cuda")
+    matrix = torch.zeros(1, dtype=torch.int32, device="cuda")
+    off, ln = packed.offsets, packed.lengths
+    ends = band._ends_flags(cfg, False)
+
+    def run():
+        err = dll.band_batch_fill(packed.texts.data_ptr(), packed.queries.data_ptr(),
+                                  off[0].data_ptr(), off[1].data_ptr(), ln[0].data_ptr(),
+                                  ln[1].data_ptr(), P, packed.m_cap, matrix.data_ptr(), 0,
+                                  cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
+                                  cfg.gap_extend or 0, band._flags(cfg, ends), k, threads,
+                                  boundary.data_ptr(), out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"band_batch_fill launch failed with CUDA error {err}")
+        return out
     return run
 
 
@@ -228,17 +297,19 @@ def main() -> int:
             if args.out and SW_KERNEL in name:
                 with open(os.path.join(args.out, f"{label}.{name}.sass"), "w") as f:
                     f.write("\n".join(kernels[name]) + "\n")
-        # K6's kernels by template arguments, against the first version's
-        k6 = {hit.group(1): instrs for name, instrs in kernels.items()
-              if (hit := re.search(r"band_fill_kernelI(Li\d+E(?:Lb[01]E){3})", name))}
+        # the batch kernel's instantiations by template arguments, against
+        # the first version's (K6's and K7's SASS change with the pipeline)
+        kb = {hit.group(1): instrs for name, instrs in kernels.items()
+              if (hit := re.search(r"band_batch_kernelI(Li\d+E(?:Lb[01]E){3})", name))}
         if first is None:
-            first = label, k6
+            first = label, kb
             continue
-        same = [key for key, instrs in k6.items() if first[1].get(key) == instrs]
-        differ = sorted(set(k6) - set(same))
-        print(f"[sass {label} vs {first[0]}] K6 kernels with the same SASS: {len(same)} of "
-              f"{len(k6)}; differing: {differ}")
-    dlls = {label: bind(lib) for label, lib in libs.items()}
+        same = [key for key, instrs in kb.items() if first[1].get(key) == instrs]
+        differ = sorted(set(kb) ^ set(first[1]) | (set(kb) - set(same)))
+        print(f"[sass {label} vs {first[0]}] band_batch_kernel instantiations with the same "
+              f"SASS: {len(same)} of {len(first[1])}; differing or missing: {differ}")
+    dlls = {label: bind(lib, pipelined(src)) for (label, src), lib in
+            zip(versions, libs.values())}
 
     rng = np.random.default_rng(20)
     a = torch.from_numpy(rng.integers(1, 5, 20000).astype(np.int8)).cuda()
@@ -253,13 +324,23 @@ def main() -> int:
                   d, a, b[:10000], SCORES["affine NW"], [], False, tb=-5)),
               ("K7 affine SW locate 20k", lambda d: capture_call(
                   d, a, b, SCORES["affine SW"], [], True, tb=-5))]
+    for tag, (texts, queries), cfg in (
+            ("A SW", serve_pairs(), SW),
+            ("B infix", read_pairs(), ScoringConfig(match=2, mismatch=-1, gap=-2,
+                                                    mode=AlignMode.INFIX))):
+        packed = pairs.pack_pairs(texts, queries, np.arange(len(texts))).to("cuda")
+        cases.append((f"batch {tag}", lambda d, pk=packed, c=cfg: batch_call(d, pk, c)))
     if not args.no_full:
         g = np.random.default_rng(64)
         s1 = torch.from_numpy(g.integers(1, 5, 126440).astype(np.int8)).cuda()
         s2 = torch.from_numpy(g.integers(1, 5, 127240).astype(np.int8)).cuda()
         p = band.plan(s1.numel(), s2.numel(), SW)
         text, query = (s2, s1) if p.swapped else (s1, s2)
-        cases.append(("K6 SW 64gb shape", lambda d: score_call(d, text, query, p.cfg, p.ends)))
+        half = s2[: s2.numel() // 2]
+        cases += [("K6 SW 64gb shape", lambda d: score_call(d, text, query, p.cfg, p.ends)),
+                  ("K7 SW locate 64gb shape", lambda d: capture_call(d, s1, s2, SW, [], True)),
+                  ("K7 affine root forward fill 64gb shape", lambda d: capture_call(
+                      d, s1, half, SCORES["affine NW"], [], False, tb=-5))]
 
     order = [label for label, _ in versions]
     order = order + order[::-1]
@@ -270,6 +351,8 @@ def main() -> int:
             if case.startswith("K7") and not hasattr(dll, "band_capture_fill"):
                 continue
             if case.startswith("K7 affine") and not hasattr(dll, "band_capture_affine"):
+                continue
+            if case.startswith("batch") and not hasattr(dll, "band_batch_fill"):
                 continue
             ms, runs, out = time_ms(make(dll), args.runs)
             if case in firsts and not torch.equal(firsts[case], out):

@@ -12,8 +12,17 @@ their wavefront, ``diag_fill.cuh``), and ``bitpal_gfill.cu``,
 per CUDA thread of a block, the blocks of a grid one after another,
 ``__syncthreads`` as a ``std::barrier``, the warp shuffles through a slot
 array between two barriers, ``__shared__`` as ``static``, the DPX
-intrinsics as plain max, and each ``<<<G, T, 0, s>>>`` launch rewritten
-into a call of the shim's launcher.  The kernels then run through
+intrinsics as plain max, the atomics, fences and ``cuda::atomic_ref``
+(``<cuda/atomic>``) over ``std::atomic_ref``, ``__ldcg``/``__stcg`` as
+plain loads and stores, and each ``<<<G, T, 0, s>>>`` launch rewritten
+into a call of the shim's launcher.
+
+Since the blocks run one after another, the first block of a pipelined
+band fill takes every strip from the ticket (the others find none and
+only join the located cell's reduction): the shim checks the strip
+arithmetic, the ring's slots and their wrap-around at every depth, the
+progress flags' values and the reduction across blocks, not timing
+across blocks, which only the card shows.  The kernels then run through
 ``ctypes`` on CPU buffers over random configs, shapes and geometries
 (several strips, partial last strips, every rows- or words-per-thread
 count, captured rows at the strip edges, ragged batches with 1 x 1 pairs
@@ -38,6 +47,7 @@ import os
 import re
 import subprocess
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,6 +61,7 @@ from tpualign_torch.ops import band, bitpal, pairs, pallas_diag, xla  # noqa: E4
 SHIM = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <functional>
@@ -73,6 +84,7 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 namespace shim {
 inline thread_local dim3 tid;
 inline dim3 dims, bid;
+inline dim3 grid;
 inline std::unique_ptr<std::barrier<>> bar;
 inline std::vector<long long> slots(1024);
 
@@ -80,6 +92,7 @@ inline std::vector<long long> slots(1024);
 // thread: __shared__ arrays (static here) serve one block at a time
 template <class F> void launch(unsigned blocks, unsigned threads, F body) {
   dims.x = threads;
+  grid.x = blocks;
   for (unsigned b = 0; b < blocks; ++b) {
     bid.x = b;
     bar = std::make_unique<std::barrier<>>(threads);
@@ -95,7 +108,19 @@ template <class F> void launch(unsigned blocks, unsigned threads, F body) {
 #define threadIdx (shim::tid)
 #define blockIdx (shim::bid)
 #define blockDim (shim::dims)
+#define gridDim (shim::grid)
 inline void __syncthreads() { shim::bar->arrive_and_wait(); }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int cur = a.load();
+  while (cur < v && !a.compare_exchange_weak(cur, v)) {
+  }
+  return cur;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <class T> T __ldcg(const T* p) { return *p; }
+template <class T> void __stcg(T* p, T v) { *p = v; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
@@ -116,47 +141,108 @@ template <class T> T __shfl_up_sync(unsigned, T v, int d) { return shuffle(v, -d
 template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, d); }
 """
 
+#: libcu++'s <cuda/atomic> as far as band_fill.cuh uses it
+CUDA_ATOMIC = r"""
+#pragma once
+#include <atomic>
+#include <cstdio>
+#include <cstdlib>
+namespace cuda {
+enum thread_scope { thread_scope_system, thread_scope_device, thread_scope_block };
+// the blocks run one after another here, so a flag that a load finds
+// unset is never set: a thread that spins on one aborts instead of hanging
+template <class T, thread_scope S = thread_scope_system>
+struct atomic_ref {
+  ::std::atomic_ref<T> a;
+  explicit atomic_ref(T& x) : a(x) {}
+  T load(::std::memory_order order) const {
+    static thread_local long loads = 0;
+    if (++loads > (1L << 20)) {
+      ::std::fprintf(stderr, "rehearse: a thread spins on a flag that is never set\n");
+      ::std::abort();
+    }
+    return a.load(order);
+  }
+  void store(T v, ::std::memory_order order) const { a.store(v, order); }
+};
+namespace std {
+using ::std::memory_order_acquire;
+using ::std::memory_order_release;
+}  // namespace std
+}  // namespace cuda
+"""
+
 LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<(\w+), (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
 SOURCES = ("band_fill.cu", "band_capture_affine.cu", "band_batch.cu", "diag_fill.cu",
            "diag_ckpt.cu", "bitpal_gfill.cu", "bitpal_batch.cu", "bitpal_rc.cu")
 HEADERS = ("band_fill.cuh", "diag_fill.cuh", "bitpal_step.cuh")
 
 
-def build() -> ctypes.CDLL:
-    """Compile the kernels with g++ through the shim; return the library."""
-    out_dir = os.path.join(_build.BUILD_DIR, "rehearse")
+def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
+    """Compile ``sources`` (default every kernel source) with g++ through
+    the shim into ``out_dir`` (default ``tpualign_torch/_build/rehearse``);
+    return the library."""
+    out_dir = out_dir or os.path.join(_build.BUILD_DIR, "rehearse")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
         f.write(SHIM)
+    os.makedirs(os.path.join(out_dir, "cuda"), exist_ok=True)
+    with open(os.path.join(out_dir, "cuda", "atomic"), "w") as f:
+        f.write(CUDA_ATOMIC)
     objs = []
-    for name in SOURCES + HEADERS:  # the headers beside the sources that include them
+    for name in tuple(sources) + HEADERS:  # the headers beside the sources that include them
         with open(os.path.join(_build.CSRC, name)) as f:
             src = LAUNCH.sub(r"shim::launch(\2, \3, [&] { \1(\5); });", f.read())
         path = os.path.join(out_dir, name if name in HEADERS else name + ".cpp")
         with open(path, "w") as f:
             f.write(src)
-        if name in SOURCES:
+        if name in sources:
             objs.append(path)
+    # one g++ per source, all started together, then the link
+    procs = [subprocess.Popen(["g++", "-std=c++20", "-O1", "-fPIC", "-I", out_dir, "-c",
+                               "-o", src + ".o", src]) for src in objs]
+    if any(proc.wait() for proc in procs):
+        raise RuntimeError("g++ failed on a kernel source through the shim")
     lib = os.path.join(out_dir, "librehearse.so")
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-I", out_dir,
-                    "-o", lib, *objs, "-lpthread"], check=True)
+    subprocess.run(["g++", "-shared", "-o", lib, *(src + ".o" for src in objs), "-lpthread"],
+                   check=True)
     dll = ctypes.CDLL(lib)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    dll.band_fill.argtypes = [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, vp, vp]
-    dll.band_capture_fill.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 6
-                                      + [vp, i32] + [vp] * 5)
-    dll.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp, i32] + [i32] * 8
-                                        + [vp, i32] + [vp] * 6)
-    dll.diag_fill.argtypes = [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp]
-    dll.diag_ckpt_fill.argtypes = [vp, i32, vp, i32] + [i32] * 6 + [vp] * 6
-    i64 = ctypes.c_int64
-    dll.band_batch_fill.argtypes = [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3
-    dll.bitpal_gfill.argtypes = [vp, vp, i64] + [i32] * 4 + [vp, vp]
-    dll.bitpal_batch_fill.argtypes = [vp, i64, vp, vp] + [i32] * 5 + [vp, vp]
-    dll.bitpal_rc_fill.argtypes = [vp, vp, i64] + [i32] * 4 + [vp, vp]
-    for entry in (dll.bitpal_rc_chunk, dll.bitpal_gfill_chunk):
-        entry.argtypes = [vp, vp, i64] + [i32] * 4 + [i64, i64] + [vp] * 5
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    chunk = [vp, vp, i64] + [i32] * 4 + [i64, i64] + [vp] * 5
+    argtypes = {
+        "band_fill": [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp],
+        "band_capture_fill": ([vp, i32, vp, i32, vp] + [i32] * 8
+                              + [vp, i32, vp, vp, vp, vp, i32, vp, vp, vp]),
+        "band_capture_affine": ([vp, i32, vp, i32, vp] + [i32] * 10
+                                + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]),
+        "band_batch_fill": [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3,
+        "diag_fill": [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp],
+        "diag_ckpt_fill": [vp, i32, vp, i32] + [i32] * 6 + [vp] * 6,
+        "bitpal_gfill": [vp, vp, i64] + [i32] * 4 + [vp, vp],
+        "bitpal_batch_fill": [vp, i64, vp, vp] + [i32] * 5 + [vp, vp],
+        "bitpal_rc_fill": [vp, vp, i64] + [i32] * 4 + [vp, vp],
+        "bitpal_rc_chunk": chunk,
+        "bitpal_gfill_chunk": chunk,
+    }
+    for name, types in argtypes.items():
+        if hasattr(dll, name):  # the entries of the sources built
+            getattr(dll, name).argtypes = types
     return dll
+
+
+def _pipe_scratch(rng, n, m, affine, geometry, max_k, cells):
+    """A pipelined launch's plan and scratch: the ring and the blocks'
+    cells as garbage (a slot read before it is written shows), the flags
+    zeroed; at times the ring cut to 2 rows (the deepest backpressure)."""
+    plan = band.pipeline_plan(n, m, affine, geometry, max_k)
+    if plan.depth > 2 and rng.integers(0, 3) == 0:
+        plan = plan._replace(depth=2)
+    ring = rng.integers(-99, 99, (max(plan.depth, 1), 2 if affine else 1, m + 1)).astype(np.int32)
+    sync = np.zeros(plan.strips + 2, np.int32)
+    block_cells = rng.integers(-99, 99, (plan.blocks, 3)).astype(np.int32) if cells else None
+    pipe = (ring.ctypes.data, plan.depth, sync.ctypes.data,
+            None if block_cells is None else block_cells.ctypes.data)
+    return plan, (ring, sync, block_cells), pipe
 
 
 def _band_case(dll, rng, mode, matrix, affine, m, n, geometry):
@@ -171,17 +257,24 @@ def _band_case(dll, rng, mode, matrix, affine, m, n, geometry):
     text = torch.from_numpy(rng.integers(0, hi, m).astype(np.int8))
     query = torch.from_numpy(rng.integers(0, hi, n).astype(np.int8))
     ends = band._ends_flags(cfg, bool(rng.integers(0, 2)))
-    k, threads = geometry or band.kernel_geometry(n, band.max_k(cfg))
+    plan, keep, pipe = _pipe_scratch(rng, n, m, affine, geometry, band.max_k(cfg), False)
     K = len(matrix) if matrix is not None else 0
     mat = np.ascontiguousarray(np.asarray(matrix if K else [0], np.int32).reshape(-1))
-    boundary = np.empty(2 * (m + 1), np.int32)
-    out = np.empty(1, np.int32)
+    out = np.full(1, 0 if cfg.is_local else band.NEG, np.int32)
     err = dll.band_fill(text.data_ptr(), m, query.data_ptr(), n, mat.ctypes.data, K,
                         cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
-                        cfg.gap_extend or 0, band._flags(cfg, ends), k, threads,
-                        boundary.ctypes.data, out.ctypes.data, None)
+                        cfg.gap_extend or 0, band._flags(cfg, ends), plan.k, plan.threads,
+                        plan.blocks, *pipe[:3], out.ctypes.data, None)
     want = int(band.score_plain(text, query, cfg, ends))
-    return err == 0 and int(out[0]) == want, (cfg, ends, m, n, k, threads, int(out[0]), want)
+    ok = err == 0 and int(out[0]) == want and _flags_done(keep[1], plan, m)
+    return ok, (cfg, ends, m, n, plan, int(out[0]), want)
+
+
+def _flags_done(sync, plan, m):
+    """Every strip took a ticket (one per block past them), and every strip
+    but the last published its whole bottom row."""
+    return (sync[0] == plan.strips + plan.blocks
+            and all(int(x) == m + 1 for x in sync[2:plan.strips + 1]) and sync[-1] == 0)
 
 
 def _capture_case(dll, rng, local, matrix, m, n, geometry, locate, affine=False):
@@ -201,35 +294,35 @@ def _capture_case(dll, rng, local, matrix, m, n, geometry, locate, affine=False)
     text = torch.from_numpy(rng.integers(0, hi, m).astype(np.int8))
     query = torch.from_numpy(rng.integers(0, hi, n).astype(np.int8))
     zr, zc = (bool(x) for x in rng.integers(0, 2, 2))
-    k, threads = geometry or band.kernel_geometry(n, band.max_k(cfg))
-    k = min(k, band.max_k(cfg))
-    R = k * threads
+    if geometry is not None:
+        geometry = (min(geometry[0], band.max_k(cfg)),) + tuple(geometry[1:])
+    plan, keep, pipe = _pipe_scratch(rng, n, m, affine, geometry, band.max_k(cfg), locate)
+    R = plan.k * plan.threads
     rows = sorted({r for r in (1, R - 1, R, R + 1, 2 * R, n - 1, n,
                                int(rng.integers(1, n + 1))) if 1 <= r <= n})
     K = len(matrix) if matrix is not None else 0
     mat = np.ascontiguousarray(np.asarray(matrix if K else [0], np.int32).reshape(-1))
     cap_rows = np.asarray(rows, np.int32)  # row n among them: the last row
     caps = np.empty((len(rows), m + 1), np.int32)
-    scratch, col, cell = np.empty(2 * (m + 1), np.int32), np.empty(n + 1, np.int32), np.empty(3, np.int32)
+    col, cell = np.empty(n + 1, np.int32), np.empty(3, np.int32)
     fout = np.empty(m + 1, np.int32)
     head = (text.data_ptr(), m, query.data_ptr(), n, mat.ctypes.data, K, cfg.match,
             cfg.mismatch)
     flags = band._flags(cfg, (zr, zc, False, False))
     outs = (cap_rows.ctypes.data, len(rows), caps.ctypes.data, col.ctypes.data,
             cell.ctypes.data if locate else None)
+    geom = (plan.k, plan.threads, plan.blocks)
     if affine:
-        err = dll.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags, k,
-                                      threads, *outs, fout.ctypes.data, scratch.ctypes.data,
-                                      None)
+        err = dll.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags, *geom,
+                                      *outs, fout.ctypes.data, *pipe, None)
     else:
-        err = dll.band_capture_fill(*head, cfg.gap, flags, k, threads, *outs,
-                                    scratch.ctypes.data, None)
+        err = dll.band_capture_fill(*head, cfg.gap, flags, *geom, *outs, *pipe, None)
     want = band.capture_plain(text, query, cfg, rows, zero_row=zr, zero_col=zc,
                               col=True, cell=locate, tb=tb)
     got = (caps[-1], caps, col, cell if locate else None, fout if affine else None)
     ok = err == 0 and all(a is b is None or np.array_equal(a, b.numpy())
-                          for a, b in zip(got, want))
-    return ok, (cfg, tb, zr, zc, m, n, k, threads, rows, cell, want.cell)
+                          for a, b in zip(got, want)) and _flags_done(keep[1], plan, m)
+    return ok, (cfg, tb, zr, zc, m, n, plan, rows, cell, want.cell)
 
 
 def _band_batch_case(dll, rng, c):
@@ -403,13 +496,17 @@ def main() -> None:
     asym = ((3, -1, -2, 0, 1), (-2, 2, -3, -1, 0), (0, -1, 4, -2, -1),
             (1, 0, -1, 3, -2), (-1, -2, 0, -3, 2))
     mats = [None, matrices.dna(2, -1, -3), asym, matrices.iupac()]
-    geometries = [(1, 32), (2, 32), (4, 32), (8, 32), (16, 32), (1, 64), (2, 96), None]
+    # (k, threads) with the planner's blocks, one block, blocks past the
+    # strips, and fewer blocks than strips; and the planner's own
+    geometries = [(1, 32), (2, 32), (4, 32), (8, 32), (16, 32), (1, 64), (2, 96), (1, 32, 1),
+                  (2, 32, 1), (1, 32, 2), (2, 64, 3), (1, 32, 9), None]
     for c in range(args.cases):
         mode = list(AlignMode)[c % 4]
         matrix = mats[(c // 4) % 4]
         affine = bool((c // 16) % 2)
         geometry = geometries[int(rng.integers(0, len(geometries)))]
         m, n = (int(x) for x in rng.integers(1, 90, 2))
+        n = int(rng.integers(90, 300)) if c % 3 == 0 else n  # up to 9 strips of 32 rows
         ok, info = _band_case(dll, rng, mode, matrix, affine, m, n, geometry)
         if not ok:
             sys.exit(f"band_fill differs from score_plain: {info}")
@@ -417,6 +514,7 @@ def main() -> None:
     for c in range(2 * args.cases):
         geometry = geometries[int(rng.integers(0, len(geometries)))]
         m, n = (int(x) for x in rng.integers(1, 90, 2))
+        n = int(rng.integers(90, 300)) if c % 3 == 0 else n
         m, n = (1 if c % 10 == 3 else m), (1 if c % 10 == 7 else n)  # 1-column, 1-row
         ok, info = _capture_case(dll, rng, bool(c % 2), mats[(c // 2) % 4], m, n, geometry,
                                  locate=c % 3 != 2, affine=c >= args.cases)

@@ -115,17 +115,15 @@ def load() -> ctypes.CDLL:
         for entry in (lib.bitpal_rc_chunk, lib.bitpal_gfill_chunk):
             entry.argtypes = [vp, vp, i64, i32, i32, i32, i32, i64, i64, vp, vp, vp, vp, vp]
             entry.restype = i32
-        lib.band_fill.argtypes = [
-            vp, i32, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-            vp, vp, vp]
+        # the pipelined fills: geometry (k, threads, blocks), then the ring,
+        # its depth, the flags and (capture entries) the blocks' cells
+        lib.band_fill.argtypes = [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp]
         lib.band_fill.restype = i32
-        lib.band_capture_fill.argtypes = [
-            vp, i32, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32,
-            vp, i32, vp, vp, vp, vp, vp]
+        lib.band_capture_fill.argtypes = ([vp, i32, vp, i32, vp] + [i32] * 8
+                                          + [vp, i32, vp, vp, vp, vp, i32, vp, vp, vp])
         lib.band_capture_fill.restype = i32
-        lib.band_capture_affine.argtypes = [
-            vp, i32, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-            vp, i32, vp, vp, vp, vp, vp, vp]
+        lib.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp] + [i32] * 10
+                                            + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp])
         lib.band_capture_affine.restype = i32
         lib.diag_fill.argtypes = [vp, i32, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp]
         lib.diag_fill.restype = i32

@@ -21,12 +21,13 @@
 //                         H(n[p], m[p])
 //   scratch: boundary (P, 2, m_cap+1) int32, each pair's boundary rows
 //
-// Block p builds its Params from the per-pair arrays and runs the fill of
-// band_fill.cuh, strip by strip, so a pair longer than one strip is
-// served.  The per-pair arrays ride in an argument of this kernel alone
-// (BatchArgs): band_fill_kernel keeps Params alone, so K6 compiles as
-// before.  One geometry serves the launch; threads past a pair's last row
-// idle through its steps.  Local affine stops at 8 rows a thread, as in
+// Block p builds its Params from the per-pair arrays and runs the strip
+// body of band_fill.cuh in its in-place schedule (fill_inplace), strip by
+// strip through the pair's boundary rows, so a pair longer than one strip
+// is served.  The per-pair arrays ride in an argument of this kernel alone
+// (BatchArgs), and the pipeline's scratch stays out of it.  One geometry
+// serves the launch; threads past a pair's last row idle through its
+// steps.  Local affine stops at 8 rows a thread, as in
 // band.max_k.
 //
 // What the TPU layout does and this one does not: its pairs run one after
@@ -66,7 +67,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   p.bh = a.boundary + b * 2 * (a.m_cap + 1);
   p.bf = p.bh + a.m_cap + 1;
   p.out += b;
-  fill<K, AFFINE, MATRIX, LOCAL, false, false>(p, CaptureArgs{});
+  fill_inplace<K, AFFINE, MATRIX, LOCAL>(p);
 }
 
 template <bool AFFINE, bool MATRIX, bool LOCAL>

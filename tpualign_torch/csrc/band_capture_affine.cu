@@ -13,21 +13,24 @@
 // H(0..n, m) into `col` (n+1,) int32 and the located cell (v, i, j) into
 // `cell` (3,) int32 unless they are null, and F(n, 0..m) into `fout`
 // (m+1,) int32.  `tb` in [gap_open, 0] is the top edge's vertical-gap
-// open.  `boundary` is (2, m+1) int32 scratch.  Returns the cudaError_t of
-// the launch; the fill itself runs asynchronously.
+// open.  `blocks`, `ring` (H then F a slot), `sync` and `cells` as
+// band_capture_fill.  Returns the cudaError_t of the launch; the fill
+// itself runs asynchronously.
 extern "C" int band_capture_affine(const void* text, int m, const void* query,
                                    int n, const void* matrix, int K, int match,
                                    int mismatch, int gap_open, int gap_extend,
                                    int tb, int flags, int k, int threads,
-                                   const void* cap_rows, int J, void* caps,
-                                   void* col, void* cell, void* fout,
-                                   void* boundary, void* stream) {
-  if (bad_geometry(m, n, K, threads) || !(flags & kAffine) || J < 1 ||
+                                   int blocks, const void* cap_rows, int J,
+                                   void* caps, void* col, void* cell, void* fout,
+                                   void* ring, int depth, void* sync,
+                                   void* cells, void* stream) {
+  Pipe q;
+  if (!pipe_args(m, n, K, k, threads, blocks, ring, depth, sync, cells, cell != nullptr, q) ||
+      !(flags & kAffine) || J < 1 ||
       cap_rows == nullptr || caps == nullptr || fout == nullptr ||
       tb < gap_open || tb > 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto* b = static_cast<int32_t*>(boundary);
   const Params p{static_cast<const int8_t*>(text),
                  m,
                  static_cast<const int8_t*>(query),
@@ -40,13 +43,13 @@ extern "C" int band_capture_affine(const void* text, int m, const void* query,
                  gap_open,
                  gap_extend,
                  flags,
-                 b,
-                 b + m + 1,
+                 nullptr,
+                 nullptr,
                  nullptr};
   const CaptureArgs c{static_cast<const int32_t*>(cap_rows), J,
                       static_cast<int32_t*>(caps), static_cast<int32_t*>(col),
                       static_cast<int32_t*>(cell), tb, static_cast<int32_t*>(fout)};
   auto s = static_cast<cudaStream_t>(stream);
-  return cell ? launch_mode<true, true, true>(k, threads, s, p, c)
-              : launch_mode<true, true, false>(k, threads, s, p, c);
+  return cell ? launch_mode<true, true, true>(k, threads, blocks, s, p, c, q)
+              : launch_mode<true, true, false>(k, threads, blocks, s, p, c, q);
 }

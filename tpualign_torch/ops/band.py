@@ -5,10 +5,13 @@ kernel under ``tpualign/ops/band_align.py`` (``_strip_call``).
 Any ``ScoringConfig``: linear or affine (Gotoh) gaps, pair scoring or a
 substitution matrix of up to 16 codes, global, local (Smith-Waterman),
 semiglobal and infix modes.  The kernel (``csrc/band_fill.cu``, K6's port)
-fills the table in strips of ``R = k * threads`` rows, one thread block,
-each thread owning ``k`` consecutive rows, and couples the strips through
-one boundary row ``H(i0, 0..m)`` (plus the F row under affine gaps) in
-global memory at any length.  Its contract, shared by :func:`band_fill` and
+fills the table in strips of ``R = k * threads`` rows, each thread owning
+``k`` consecutive rows, over many thread blocks of one launch: the blocks
+take strips in order from a ticket and hand each strip's bottom row
+``H(i0, 0..m)`` (plus the F row under affine gaps) down through a ring of
+rows in global memory with progress flags, so the strips run side by side,
+each a column-skew behind the one above (:func:`pipeline_geometry`,
+:func:`pipeline_plan`).  Its contract, shared by :func:`band_fill` and
 :func:`score_plain`:
 
 - ``text`` (m,) int8 runs across the columns, ``query`` (n,) int8 down the
@@ -48,23 +51,42 @@ from . import xla
 from .bitpal import _device
 from .pairs import int8_codes
 
-#: kernel geometry: one block of up to MAX_THREADS threads (a multiple of
-#: WARP), each owning k consecutive rows of a strip, k a power of two up to
-#: MAX_K (registers per thread); local affine gaps carry E and the masked
-#: running max beside H and spill 208-220 bytes at 16 rows a thread, which
-#: made them slower there than at 8 on the H100 (PERF.md), so they stop at
-#: MAX_K_LOCAL_AFFINE (global affine spills 24-56 bytes and is faster at 16)
+#: kernel geometry: blocks of up to MAX_THREADS threads (a multiple of
+#: WARP) in the batch, MAX_PIPE_THREADS in the pipelined fills, each thread
+#: owning k consecutive rows of a strip, k a power of two up to MAX_K
+#: (registers per thread); local affine gaps carry E and the masked running
+#: max beside H and spill 208-220 bytes at 16 rows a thread in 1,024-thread
+#: blocks, which made them slower there than at 8 on the H100 (PERF.md), so
+#: their captures stop at MAX_K_LOCAL_AFFINE
 MAX_THREADS = 1024
+MAX_PIPE_THREADS = 256
 MAX_K = 16
 MAX_K_LOCAL_AFFINE = 8
 WARP = 32
+KS = (1, 2, 4, 8, 16)
+
+#: the pipeline's planner: the H100's SMs, PIPE_THREADS threads a block,
+#: at most BLOCKS_PER_SM blocks an SM in flight, PUBLISH columns between two
+#: progress flags (kPublish in csrc/band_fill.cuh), STEP_OVERHEAD a step's
+#: fixed cost in rows' work (a step took about 340 + 8.25 k ns for k rows a
+#: thread on the H100, tools/sweep_band_pipeline.py), the ring's
+#: RING_BUDGET bytes at any m
+SMS = 132
+PIPE_THREADS = 128
+BLOCKS_PER_SM = 4
+PUBLISH = 32
+STEP_OVERHEAD = 41
+RING_BUDGET = 1 << 30
 
 #: flag bits of the kernel's ``flags`` argument
 LOCAL, AFFINE, ZERO_ROW, ZERO_COL, END_ROW, END_COL = 1, 2, 4, 8, 16, 32
+#: the kernels' minus infinity (kNeg)
+NEG = -(1 << 30)
 
 
 def kernel_geometry(n: int, max_k: int = MAX_K) -> Tuple[int, int]:
-    """``(k, threads)`` for ``n`` rows: as few strips as the block allows
+    """``(k, threads)`` of the in-place schedule (the batch kernel, one
+    block a pair) for ``n`` rows: as few strips as the block allows
     (each at most ``MAX_THREADS * max_k`` rows), cut evenly, then the
     fewest rows per thread that fit, threads rounded up to whole warps."""
     n_strips = -(-n // (MAX_THREADS * max_k))
@@ -74,6 +96,93 @@ def kernel_geometry(n: int, max_k: int = MAX_K) -> Tuple[int, int]:
         k *= 2
     warps = -(-rows // (k * WARP))
     return k, warps * WARP
+
+
+def strips(n: int, k: int, threads: int) -> int:
+    """The pipeline's strip count ``S = ceil(n / (k * threads))``."""
+    return -(-n // (k * threads))
+
+
+def pipeline_geometry(n: int, m: int, max_k: int = MAX_K) -> Tuple[int, int, int]:
+    """``(k, threads, blocks)`` of the pipelined fill of ``n`` rows and ``m``
+    columns.  ``threads`` is PIPE_THREADS, fewer (whole warps) when one strip
+    holds every row.  For each ``k`` up to ``max_k`` the cost model counts
+    the steps, ``ceil(S/G) * (m + T) + (G - 1) * (T + 2 * PUBLISH)`` for S
+    strips over G = min(S, SMS * BLOCKS_PER_SM) blocks (each strip starts
+    about T + 2 * PUBLISH columns behind the one above; a block walks
+    ceil(S/G) strips), times a step's cost, ``STEP_OVERHEAD + k *
+    ceil(G / SMS)`` rows' work (blocks that share an SM share its issue);
+    the cheapest ``k`` wins, the larger on a tie.  On the H100 this picks
+    k = 8 and 128 threads for SW at 20,000 x 20,000 and at the 64gb shape,
+    the fastest of the 20 and 19 geometries swept there."""
+    best = None
+    for k in KS:
+        if k > max_k:
+            break
+        rows = -(-n // k)
+        T = min(PIPE_THREADS, WARP * -(-rows // WARP))
+        S = strips(n, k, T)
+        G = min(S, SMS * BLOCKS_PER_SM)
+        steps = -(-S // G) * (m + T) + (G - 1) * (T + 2 * PUBLISH)
+        cost = steps * (STEP_OVERHEAD + k * -(-G // SMS))
+        if best is None or cost <= best[0]:
+            best = (cost, (k, T, G))
+    return best[1]
+
+
+class PipePlan(NamedTuple):
+    """One pipelined launch: ``strips`` strips of ``k * threads`` rows over
+    ``blocks`` blocks, a ring of ``depth`` rows (0 with one strip)."""
+
+    k: int
+    threads: int
+    blocks: int
+    strips: int
+    depth: int
+
+
+def pipeline_plan(n: int, m: int, affine: bool, geometry=None, max_k: int = MAX_K) -> PipePlan:
+    """The launch of a pipelined fill of ``n`` rows and ``m`` columns:
+    ``geometry`` is ``(k, threads)`` or ``(k, threads, blocks)``, default
+    :func:`pipeline_geometry`; ``blocks`` defaults to ``min(S, SMS *
+    BLOCKS_PER_SM)``.  The ring holds ``min(S, blocks + 1)`` rows (a block
+    reads the row above while the strips of the other blocks are in
+    flight), fewer if its ``m + 1`` int32 of H (and F under affine gaps) a
+    row pass RING_BUDGET bytes, never fewer than 2 when ``S >= 2``.
+    ValueError for a geometry the kernel refuses or a ring of 2 rows past
+    the budget."""
+    if geometry is None:
+        geometry = pipeline_geometry(n, m, max_k)
+    if len(geometry) not in (2, 3):
+        raise ValueError(f"geometry is (k, threads) or (k, threads, blocks), got {geometry}")
+    k, threads = int(geometry[0]), int(geometry[1])
+    if k not in KS:
+        raise ValueError(f"rows per thread must be one of {KS}, got {k}")
+    if threads % WARP or not WARP <= threads <= MAX_PIPE_THREADS:
+        raise ValueError(f"threads must be a multiple of {WARP} in {WARP}..{MAX_PIPE_THREADS}, "
+                         f"got {threads}")
+    S = strips(n, k, threads)
+    blocks = int(geometry[2]) if len(geometry) == 3 else min(S, SMS * BLOCKS_PER_SM)
+    if blocks < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    if S == 1:
+        return PipePlan(k, threads, blocks, S, 0)
+    row_bytes = 4 * (2 if affine else 1) * (m + 1)
+    depth = min(S, blocks + 1, RING_BUDGET // row_bytes)
+    if depth < 2:
+        raise ValueError(f"a ring of 2 rows of {m + 1} columns takes {2 * row_bytes} bytes, "
+                         f"past the budget of {RING_BUDGET}")
+    return PipePlan(k, threads, blocks, S, depth)
+
+
+def _pipe_scratch(plan: PipePlan, m: int, affine: bool, dev, cells: bool):
+    """The ring, the zeroed ticket, done counter and progress flags, and,
+    for a located cell, each block's cell."""
+    ring = (torch.empty((plan.depth, 2 if affine else 1, m + 1), dtype=torch.int32, device=dev)
+            if plan.depth else None)
+    sync = torch.zeros(plan.strips + 2, dtype=torch.int32, device=dev)
+    block_cells = torch.empty((plan.blocks, 3), dtype=torch.int32, device=dev) if cells else None
+    return ring, sync, block_cells
 
 
 def max_k(cfg: ScoringConfig) -> int:
@@ -157,38 +266,41 @@ def score_plain(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
 
 
 def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
-              ends, geometry: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+              ends, geometry: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """The band kernel's result (module docstring) on the device of its
     tensors: the CUDA kernel ``band_fill`` (``csrc/band_fill.cu``) for CUDA
     tensors, :func:`score_plain` for CPU tensors; a 0-d int64 tensor.
 
-    ``geometry``: ``(k, threads)`` rows per thread (1, 2, 4, 8 or 16) and
-    threads (a multiple of 32 up to 1024); default :func:`kernel_geometry`
-    with ``k`` at most :func:`max_k`.
-    It sets the strip height ``k * threads`` and never the result.  On CUDA
-    the wrapper allocates the boundary rows and the output, launches on the
-    current stream without synchronising, and counts the launch in
-    ``band_fill.launches``.  A launch the device refuses raises; nothing
-    falls back to the plain version."""
+    ``geometry``: ``(k, threads)`` or ``(k, threads, blocks)``: rows per
+    thread (1, 2, 4, 8 or 16), threads (a multiple of 32 up to 256) and
+    blocks (:func:`pipeline_plan`); default :func:`pipeline_geometry` with
+    ``k`` at most :func:`max_k`.  It sets the strip height ``k * threads``
+    and the blocks that run the strips, never the result; ``blocks=1`` is
+    the single-block schedule.  On CUDA the wrapper allocates the ring, the
+    flags and the output, launches on the current stream without
+    synchronising, and counts the launch in ``band_fill.launches``.  A
+    launch the device refuses raises; nothing falls back to the plain
+    version or to fewer blocks."""
     xla.check_pair(text, query, ("text", "query"))
     if text.device.type == "cpu":
         return score_plain(text, query, cfg, ends)
     if text.device.type != "cuda":
         raise ValueError(f"band_fill runs on cpu or cuda tensors, got {text.device}")
     m, n = text.numel(), query.numel()
-    k, threads = geometry or kernel_geometry(n, max_k(cfg))
+    plan = pipeline_plan(n, m, cfg.is_affine, geometry, max_k(cfg))
     dev = text.device
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
     matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
-    boundary = torch.empty((2, m + 1), dtype=torch.int32, device=dev)
-    out = torch.empty(1, dtype=torch.int32, device=dev)
+    ring, sync, _ = _pipe_scratch(plan, m, cfg.is_affine, dev, False)
+    # the identity of the blocks' max
+    out = torch.full((1,), 0 if cfg.is_local else NEG, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.band_fill(
             text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
             cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
-            cfg.gap_extend or 0, _flags(cfg, ends), k, threads,
-            boundary.data_ptr(), out.data_ptr(),
+            cfg.gap_extend or 0, _flags(cfg, ends), plan.k, plan.threads, plan.blocks,
+            _ptr(ring), plan.depth, sync.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -266,7 +378,7 @@ def _ptr(t: Optional[torch.Tensor]):
 def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
                  rows=(), *, zero_row: bool = False, zero_col: bool = False,
                  col: bool = False, cell: bool = False, tb: Optional[int] = None,
-                 geometry: Optional[Tuple[int, int]] = None) -> Capture:
+                 geometry: Optional[Tuple[int, ...]] = None) -> Capture:
     """The capture kernel's result (:func:`capture_plain`) on the device of
     its tensors: K7's port for CUDA tensors, the CUDA kernel
     ``band_capture_fill`` (``csrc/band_fill.cu``) or, under affine gaps,
@@ -275,9 +387,10 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     tensors.
 
     ``geometry`` as in :func:`band_fill`.  On CUDA the wrapper allocates the
-    outputs, launches on the current stream without synchronising, and
-    counts the launch in ``capture_fill.launches``.  A launch the device
-    refuses raises; nothing falls back to the plain version."""
+    outputs and the pipeline's scratch, launches on the current stream
+    without synchronising, and counts the launch in
+    ``capture_fill.launches``.  A launch the device refuses raises; nothing
+    falls back to the plain version or to fewer blocks."""
     rows, tb = _check_capture(text, query, cfg, rows, tb)
     if text.device.type == "cpu":
         return capture_plain(text, query, cfg, rows, zero_row=zero_row, zero_col=zero_col,
@@ -285,7 +398,7 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     if text.device.type != "cuda":
         raise ValueError(f"capture_fill runs on cpu or cuda tensors, got {text.device}")
     m, n = text.numel(), query.numel()
-    k, threads = geometry or kernel_geometry(n, max_k(cfg))
+    plan = pipeline_plan(n, m, cfg.is_affine, geometry, max_k(cfg))
     dev = text.device
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
@@ -297,23 +410,22 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     last_col = torch.empty(n + 1, dtype=torch.int32, device=dev) if col else None
     found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
     f_row = torch.empty(m + 1, dtype=torch.int32, device=dev) if cfg.is_affine else None
-    # H and, under affine gaps, F of the strips' boundary row
-    boundary = torch.empty((2 if cfg.is_affine else 1, m + 1), dtype=torch.int32, device=dev)
+    ring, sync, block_cells = _pipe_scratch(plan, m, cfg.is_affine, dev, cell)
+    pipe = (_ptr(ring), plan.depth, sync.data_ptr(), _ptr(block_cells))
     head = (text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K, cfg.match,
             cfg.mismatch)
     flags = _flags(cfg, (zero_row, zero_col, False, False))
     outs = (cap_rows.data_ptr(), len(krows), caps.data_ptr(), _ptr(last_col), _ptr(found))
+    geom = (plan.k, plan.threads, plan.blocks)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if cfg.is_affine:  # csrc/band_capture_affine.cu
             entry = "band_capture_affine"
-            err = lib.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags, k,
-                                          threads, *outs, f_row.data_ptr(),
-                                          boundary.data_ptr(), stream)
+            err = lib.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags,
+                                          *geom, *outs, f_row.data_ptr(), *pipe, stream)
         else:
             entry = "band_capture_fill"
-            err = lib.band_capture_fill(*head, cfg.gap, flags, k, threads, *outs,
-                                        boundary.data_ptr(), stream)
+            err = lib.band_capture_fill(*head, cfg.gap, flags, *geom, *outs, *pipe, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     capture_fill.launches += 1
