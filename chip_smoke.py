@@ -61,16 +61,24 @@ path's shape:
   small shapes chunk by chunk, and K3a and K3b at 2,000 x 200,000 against
   one plain run.  K1's own 20,000 x 20,000 hold runs with
   ``cols_per_step=1``;
-- the checkpointed diagonal fill ``diag_ckpt_fill`` (K9's port, this
-  slice's main path): ``traceback_diag.align_diag`` at (1, 0, -1) on the
-  64gb-shape pair, valid, re-scoring to ``align_score``'s and with the
-  strings of ``align(..., EngineConfig(impl="xla"))`` (the checkpointed
-  row-scan traceback), and ``tpualign_torch.align`` under positive-mismatch
-  SW (3, 1, -2) on that pair (one launch); the kernel held word for word
-  against ``ckpt_plain`` (run on the card) at both, ``align_diag`` at
-  20,000 x 20,000 under (1, 0, -1) and SW (2, -1, -2), and every config
-  (NW, SW, positive mismatch, positive gap) on small shapes at strides 8,
-  16, 24 and 1024;
+- the checkpointed fill ``diag_ckpt_fill`` (K9's port, on the band
+  fills' strip pipeline; this slice's main path):
+  ``traceback_diag.align_diag`` at (1, 0, -1) on the 64gb-shape pair,
+  valid, re-scoring to ``align_score``'s and with the strings of
+  ``align(..., EngineConfig(impl="xla"))`` (the checkpointed row-scan
+  traceback), and ``tpualign_torch.align`` under positive-mismatch SW (3,
+  1, -2) on that pair (one launch); the kernel held word for word against
+  ``ckpt_plain`` (run on the card) at both, ``align_diag`` at 20,000 x
+  20,000 under (1, 0, -1) and SW (2, -1, -2), every config (NW, SW,
+  positive mismatch, positive gap) on small shapes at strides 8, 16, 24
+  and 1024, and where races would show (one block, blocks past the
+  strips, fewer blocks than strips over a ring of 2 rows, 20 launches
+  each); a sweep of its geometry at the 64gb shape;
+- the pipeline's ring budget, a share of the card's free memory
+  (``band.ring_budget``): the planner's plans at 5,000 x 140,000,000
+  (linear) and 5,000 x 70,000,000 (affine), and ``align_score`` under SW
+  (2, -1, -2) of a 256-base query planted whole in a text of 134,217,728
+  bases (2 ring rows past 1 GiB), one ``band_fill`` launch, score 512;
 - K6's and K7's strip pipeline (``band_fill``, ``band_capture_fill``,
   ``band_capture_affine``: one launch a fill, strips over many blocks,
   each strip's bottom row handed down through a ring with progress
@@ -131,8 +139,8 @@ BAND_BATCH_SOURCE = "tpualign_torch/csrc/band_batch.cu"
 #: thread x 3 plane counts), band_batch_fill (40 less local affine at 16
 #: rows a thread), bitpal_rc_kernel (3 rc x 5 words per thread),
 #: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes, x 5),
-#: diag_ckpt_kernel
-N_INSTANTIATIONS = 30 + 40 + 76 + 1 + 15 + 38 + 15 + 30 + 1
+#: diag_ckpt_kernel (5 rows per thread x global, local)
+N_INSTANTIATIONS = 30 + 40 + 76 + 1 + 15 + 38 + 15 + 30 + 10
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -169,7 +177,7 @@ def ptxas_report(log: str):
         if m:
             mangled = m.group(1)
             base = re.search(r"((?:bitpal_g|band_|diag_)fill_kernel|(?:bitpal|band)_batch_kernel"
-                             r"|bitpal_(?:rc|chunk)_kernel)", mangled)
+                             r"|bitpal_(?:rc|chunk)_kernel|diag_ckpt_kernel)", mangled)
             args = re.search(r"kernelI(.*?)EEv", mangled)
             targs = re.findall(r"L[ib](\d+)E", args.group(1) + "E") if args else []
             name = f"{base.group(1) if base else mangled}<{','.join(targs)}>"
@@ -524,6 +532,11 @@ CKPT_REPLACES = "tpualign/ops/pallas_diag.py:242"  # _diag_ckpt_kernel_body (K9)
 #: n > m, one column, one row, n past 1024 threads (n < m, n > m)
 CKPT_SHAPES = ((300, 200), (200, 300), (1, 400), (400, 1), (1500, 1100), (700, 1300))
 CKPT_STRIDES = (8, 16, 24, 1024)
+#: K9's race cases on the strip pipeline run PIPE_RACES at 1,500 columns x
+#: 1,037 rows, stride 24
+CKPT_RACE_SHAPE = (1500, 1037)
+#: K9 NW's sweep at the 64gb shape (k, threads; the planner's blocks)
+CKPT_SWEEP = [(4, 128), (8, 128), (16, 128)]
 
 
 def ckpt_phase(ctx, s1, s2, score, a20, b20):
@@ -542,7 +555,7 @@ def ckpt_phase(ctx, s1, s2, score, a20, b20):
 
     import tpualign_torch
     from tpualign_torch.config import AlignMode, EngineConfig, ScoringConfig
-    from tpualign_torch.ops import oracle, pallas_diag, traceback_diag
+    from tpualign_torch.ops import band, oracle, pallas_diag, traceback_diag
 
     dev, rng, smi = ctx.dev, ctx.rng, ctx.smi
     t_phase = time.perf_counter()
@@ -589,6 +602,35 @@ def ckpt_phase(ctx, s1, s2, score, a20, b20):
           f"(checkpoints with their dead slots, v and dbest): NW, SW, positive-mismatch SW, "
           f"positive-gap local; {len(CKPT_SHAPES)} shapes (n < m, n > m, 1 x k, k x 1, n past "
           f"1024 threads) x strides {CKPT_STRIDES}; {time.perf_counter() - t_phase:.1f} s")
+
+    # the strip pipeline where races would show: each geometry 20 launches,
+    # word for word against one plain run
+    t0 = time.perf_counter()
+    n_race = 0
+    (lm, ln), K = CKPT_RACE_SHAPE, 24
+    for (geometry, shallow), name in itertools.product(PIPE_RACES, ("NW", "SW",
+                                                                    "positive-mismatch SW")):
+        cfg = cfgs[name]
+        t = torch.from_numpy(rng.integers(1, 5, lm).astype(np.int8)).to(dev)
+        q = torch.from_numpy(rng.integers(1, 5, ln).astype(np.int8)).to(dev)
+        want = pallas_diag.ckpt_plain(t, q, cfg, K)
+        ring_budget = band.ring_budget
+        if shallow:  # room for 2 rows
+            band.ring_budget = lambda *a, **kw: 2 * 4 * (lm + 1)
+        try:
+            plan = band.pipeline_plan(ln, lm, False, geometry, band.MAX_K, band.ring_budget())
+            for _ in range(PIPE_REPEAT):
+                hold(pallas_diag.ckpt_fill(t, q, cfg, K, geometry), want,
+                     f"{name} {ln} x {lm}, K = {K}, {plan}")
+                n_race += 1
+        finally:
+            band.ring_budget = ring_budget
+        if shallow and plan.depth != 2:
+            raise AssertionError(f"the ring was not cut to 2 rows: {plan}")
+    print(f"[diag_ckpt_fill pipeline vs plain] {len(PIPE_RACES) * 3} cases x {PIPE_REPEAT} "
+          f"launches ({n_race}), each word for word against one plain run: NW, SW, "
+          f"positive-mismatch SW at {ln} x {lm}, K = {K}; one block, blocks past the strips, "
+          f"fewer blocks than strips, a ring of 2 rows; {time.perf_counter() - t0:.1f} s")
 
     K = 1024
     timing = {}
@@ -654,10 +696,25 @@ def ckpt_phase(ctx, s1, s2, score, a20, b20):
     hold(k_out, p_out, f"{m} x {n} NW")
     groups = k_out.cka.shape[0]
     ck_bytes = 2 * k_out.cka.numel() * 4
+    plan = band.pipeline_plan(n, m, False, None, band.MAX_K, band.ring_budget())
+    # K9 NW's geometry: each result word for word the planner's
+    sweep = {}
+    for geometry in CKPT_SWEEP:
+        g_ms, g_runs, g_out = ctx.cuda_ms(lambda: pallas_diag.ckpt_fill(ts, qs, nw, K, geometry),
+                                          runs=3)
+        hold(g_out, p_out, f"{m} x {n} NW at {geometry}")
+        g_plan = band.pipeline_plan(n, m, False, geometry, band.MAX_K, band.ring_budget())
+        sweep[f"{g_plan.k}x{g_plan.threads}x{g_plan.blocks}"] = g_ms
+        print(f"[sweep] {smi}: diag_ckpt_fill NW {n} x {m}, K = {K}, k = {g_plan.k}, "
+              f"{g_plan.threads} threads, {g_plan.blocks} blocks ({g_plan.strips} strips, ring "
+              f"{g_plan.depth}): median of 3 {g_ms:.3f} ms (runs "
+              f"{', '.join(f'{x:.3f}' for x in g_runs)})")
+        del g_out
     del k_out, p_out
     print(f"[timing] {smi}: diag_ckpt_fill NW at {n} x {m}, K = {K} ({groups} groups, "
-          f"{ck_bytes} bytes of checkpoints): {k_ms:.3f} ms ({m * n / k_ms / 1e6:.3f} GCUPS; "
-          f"{k_ms * 1e3 / (m + n):.3f} us a diagonal); the path's run "
+          f"{ck_bytes} bytes of checkpoints; k = {plan.k}, {plan.threads} threads, "
+          f"{plan.blocks} blocks, {plan.strips} strips, a ring of {plan.depth} rows): "
+          f"{k_ms:.3f} ms ({m * n / k_ms / 1e6:.3f} GCUPS); the path's run "
           f"{diag_stats['fill_ms']:.3f} ms; equal to ckpt_plain word for word on the card "
           f"(plain {p_ms:.1f} ms)")
     ctx.reset_counts()
@@ -711,10 +768,66 @@ def ckpt_phase(ctx, s1, s2, score, a20, b20):
             "replaces": CKPT_REPLACES, "launches": diag_counts["diag_ckpt_fill"], **held,
             "ms": k_ms, "plain_ms": p_ms, "shape": f"{n}x{m}", "bound_ms": b_ms,
             "bound_by": by, "library_ms": None,
+            "geometry": [plan.k, plan.threads, plan.blocks], "sweep_64gb": sweep,
+            "race_launches": n_race,
             "sw": dict(launches=sw_counts["diag_ckpt_fill"], ms=sw_ms, plain_ms=sw_plain_ms,
                        bound_ms=sw_b_ms),
             "ms_20k": timing, "align_diag_s": diag_wall, "align_checkpointed_s": xla_wall,
             "align_sw_s": sw_wall}
+
+
+#: the ring budget's phase: the planner's wide shapes (n, m, affine), and
+#: a query planted whole in a text whose 2 ring rows pass 1 GiB
+WIDE_PLANS = ((5000, 140_000_000, False), (5000, 70_000_000, True))
+WIDE_TEXT, WIDE_QUERY, WIDE_SEED = 1 << 27, 256, 27
+
+
+def wide_phase(ctx):
+    """The pipeline's ring on the card's memory (``band.ring_budget``): the
+    planner's plans at ``WIDE_PLANS``, then ``align_score`` under SW (2, -1,
+    -2) of a ``WIDE_QUERY``-base query planted whole in a seeded text of
+    ``WIDE_TEXT`` bases, one ``band_fill`` launch over 2 strips and a ring
+    of 2 rows of 536,870,916 bytes each; the score must be 2 x 256, the
+    best any local alignment of the query can reach.  Returns the fill's
+    numbers for the ``kernels`` line."""
+    import tpualign_torch
+    from tpualign_torch.config import AlignMode, ScoringConfig
+    from tpualign_torch.ops import band
+
+    t0 = time.perf_counter()
+    budget = band.ring_budget()
+    for n, m, affine in WIDE_PLANS:
+        plan = band.pipeline_plan(n, m, affine, budget=budget)
+        ring_bytes = plan.depth * 4 * (2 if affine else 1) * (m + 1)
+        if plan.depth < 2 or ring_bytes > budget:
+            raise AssertionError(f"the planner at {n} x {m}: {plan} under a budget of {budget}")
+        print(f"[planner] {ctx.smi}: {n} x {m}{' affine' if affine else ''} under the card's "
+              f"budget of {budget} bytes: k = {plan.k}, {plan.threads} threads, {plan.blocks} "
+              f"blocks, {plan.strips} strips, a ring of {plan.depth} rows ({ring_bytes} bytes)")
+    rng = np.random.default_rng(WIDE_SEED)
+    text = rng.integers(1, 5, WIDE_TEXT, dtype=np.int8)
+    query = rng.integers(1, 5, WIDE_QUERY, dtype=np.int8)
+    at = int(rng.integers(0, WIDE_TEXT - WIDE_QUERY))
+    text[at:at + WIDE_QUERY] = query
+    cfg = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+    ctx.reset_counts()
+    t1 = time.perf_counter()
+    score = tpualign_torch.align_score(text, query, cfg)
+    wall = time.perf_counter() - t1
+    counts = ctx.read_counts()
+    plan = band.pipeline_plan(WIDE_QUERY, WIDE_TEXT, False, None, band.max_k(cfg),
+                              band.ring_budget())
+    if not ctx.only(counts, "band_fill") or score != 2 * WIDE_QUERY or plan.depth < 2:
+        raise AssertionError(f"the planted SW score at {WIDE_QUERY} x {WIDE_TEXT}: {score} "
+                             f"(want {2 * WIDE_QUERY}), launches {counts}, {plan}")
+    print(f"[path: align_score SW, wide] {WIDE_TEXT} x {WIDE_QUERY}, the query planted at "
+          f"{at}: score {score}; launches {counts}; wall {wall:.3f} s "
+          f"({WIDE_TEXT * WIDE_QUERY / wall / 1e9:.2f} GCUPS); the planner's k = {plan.k}, "
+          f"{plan.threads} threads, {plan.blocks} blocks, {plan.strips} strips, a ring of "
+          f"{plan.depth} rows of {4 * (WIDE_TEXT + 1)} bytes (RING_BUDGET {band.RING_BUDGET}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=counts["band_fill"], wall_s=wall, score=score,
+                shape=f"{WIDE_QUERY}x{WIDE_TEXT}", depth=plan.depth)
 
 
 #: the pipeline's race cases: (k, threads, blocks) of one block, blocks
@@ -764,11 +877,12 @@ def pipeline_phase(ctx, hold_capture):
         geometry = (min(geometry[0], band.max_k(cfg)),) + geometry[1:]
         R = geometry[0] * geometry[1]
         rows = sorted({1, R - 1, R, R + 1, 2 * R, ln - 1, ln} - {0})
-        budget = band.RING_BUDGET
+        ring_budget = band.ring_budget
         if shallow:  # room for 2 rows of H (and F)
-            band.RING_BUDGET = 2 * 4 * (2 if cfg.is_affine else 1) * (lm + 1)
+            band.ring_budget = lambda *a, **kw: 2 * 4 * (2 if cfg.is_affine else 1) * (lm + 1)
         try:
-            plan = band.pipeline_plan(ln, lm, cfg.is_affine, geometry, band.max_k(cfg))
+            plan = band.pipeline_plan(ln, lm, cfg.is_affine, geometry, band.max_k(cfg),
+                                      band.ring_budget())
             ends = band._ends_flags(cfg, False)
             want = int(band.score_plain(t, q, cfg, ends))
             want_c = band.capture_plain(t, q, cfg, rows, col=True, cell=True)
@@ -781,7 +895,7 @@ def pipeline_phase(ctx, hold_capture):
                                                geometry=geometry), want_c, where)
                 n_launch += 2
         finally:
-            band.RING_BUDGET = budget
+            band.ring_budget = ring_budget
         if shallow and plan.depth != 2:
             raise AssertionError(f"the ring was not cut to 2 rows: {plan}")
     print(f"[pipeline vs plain] {len(cases)} cases x {PIPE_REPEAT} launches of band_fill and "
@@ -1845,6 +1959,10 @@ def main() -> None:
     # phase (j): this slice's main path, the checkpointed diagonal fill
     # (K9) under align_diag and align's positive-mismatch SW route
     ckpt_kernel = ckpt_phase(ctx, s1, s2, score, a20, b20)
+
+    # phase (k): the ring's budget from the card's free memory: the
+    # planner's wide plans and a fill whose ring passes 1 GiB
+    bk["wide"] = wide_phase(ctx)
 
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:

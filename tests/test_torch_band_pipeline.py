@@ -2,8 +2,9 @@
 its kernels run on the CPU.
 
 - ``pipeline_geometry`` and ``pipeline_plan``: strips, blocks, the ring's
-  depth, its memory budget and the refusals of geometries the kernels do
-  not take.
+  depth, its memory budget (``RING_BUDGET`` by default, ``ring_budget``'s
+  share of the card's free memory in the CUDA wrappers) and the refusals
+  of geometries the kernels do not take and of rings past the budget.
 - ``band_fill``, ``band_capture_fill``, ``band_capture_affine`` and
   ``band_batch_fill`` (``tpualign_torch/csrc/band_*.cu``) compiled with
   ``g++`` through the shim of ``tools/rehearse_kernels.py`` and held
@@ -126,6 +127,41 @@ def test_pipeline_plan_default_ring_within_budget_at_any_width():
         assert 2 <= plan.depth and plan.depth * 8 * (m + 1) <= band.RING_BUDGET
     with pytest.raises(ValueError, match="past the budget"):
         band.pipeline_plan(126440, 2**31 - 2, True)
+
+
+@pytest.mark.parametrize("m, affine", [(140_000_000, False), (70_000_000, True)])
+def test_pipeline_plan_serves_very_wide_pairs_within_the_cards_memory(m, affine):
+    """A pair inside the int32 headroom whose 2 ring rows pass RING_BUDGET
+    plans a ring of at least 2 rows within an 80 GB card's budget."""
+    budget = 80 << 30
+    plan = band.pipeline_plan(5000, m, affine, budget=budget)
+    assert plan.strips >= 2 and plan.depth >= 2
+    assert plan.depth * 4 * (2 if affine else 1) * (m + 1) <= budget
+    with pytest.raises(ValueError, match="past the budget"):  # RING_BUDGET's 1 GiB
+        band.pipeline_plan(5000, m, affine)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_pipeline_plan_refuses_a_ring_past_the_cards_memory(affine):
+    m = 140_000_000
+    two_rows = 2 * 4 * (2 if affine else 1) * (m + 1)
+    assert band.pipeline_plan(5000, m, affine, budget=two_rows).depth == 2
+    with pytest.raises(ValueError, match="of device memory"):
+        band.pipeline_plan(5000, m, affine, budget=two_rows - 1)
+
+
+@pytest.mark.parametrize("free, want", [(80 << 30, 40 << 30), (1001, 500), (0, 0)])
+def test_ring_budget_is_a_share_of_the_free_bytes(free, want):
+    assert band.ring_budget(free_bytes=free) == want == int(free * band.RING_SHARE)
+
+
+def test_ring_budget_of_a_full_card_plans_the_wide_fills():
+    """What the wrappers plan on an 80 GB card with 79 GB free: the
+    widest pairs inside the int32 headroom keep rings of 2 rows or more."""
+    budget = band.ring_budget(free_bytes=79 << 30)
+    for m, affine in ((140_000_000, False), (70_000_000, True), (2**29 - 5000, False),
+                      (2**29 - 5000, True)):
+        assert band.pipeline_plan(5000, m, affine, budget=budget).depth >= 2
 
 
 @pytest.mark.parametrize("geometry, match", [

@@ -3,9 +3,9 @@
     python tools/rehearse_kernels.py [--cases N] [--seed S]
 
 Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points),
-``band_capture_affine.cu`` and ``band_batch.cu`` (with the template they
-share, ``band_fill.cuh``), ``diag_fill.cu`` and ``diag_ckpt.cu`` (with
-their wavefront, ``diag_fill.cuh``), and ``bitpal_gfill.cu``,
+``band_capture_affine.cu``, ``band_batch.cu`` and ``diag_ckpt.cu`` (with
+the template they share, ``band_fill.cuh``), ``diag_fill.cu`` (with its
+wavefront, ``diag_fill.cuh``), and ``bitpal_gfill.cu``,
 ``bitpal_batch.cu`` and ``bitpal_rc.cu`` (with the step they share,
 ``bitpal_step.cuh``) with
 ``g++`` as C++20 through a shim ``cuda_runtime.h``: one ``std::thread``
@@ -18,7 +18,7 @@ plain loads and stores, and each ``<<<G, T, 0, s>>>`` launch rewritten
 into a call of the shim's launcher.
 
 Since the blocks run one after another, the first block of a pipelined
-band fill takes every strip from the ticket (the others find none and
+fill takes every strip from the ticket (the others find none and
 only join the located cell's reduction): the shim checks the strip
 arithmetic, the ring's slots and their wrap-around at every depth, the
 progress flags' values and the reduction across blocks, not timing
@@ -217,7 +217,7 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
                                 + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]),
         "band_batch_fill": [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3,
         "diag_fill": [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp],
-        "diag_ckpt_fill": [vp, i32, vp, i32] + [i32] * 6 + [vp] * 6,
+        "diag_ckpt_fill": [vp, i32, vp, i32] + [i32] * 8 + [vp, i32, vp, vp, vp, vp, vp, vp],
         "bitpal_gfill": [vp, vp, i64] + [i32] * 4 + [vp, vp],
         "bitpal_batch_fill": [vp, i64, vp, vp] + [i32] * 5 + [vp, vp],
         "bitpal_rc_fill": [vp, vp, i64] + [i32] * 4 + [vp, vp],
@@ -463,27 +463,32 @@ def _wave_cases(dll, rng, cases):
                 sys.exit(f"chunks (rc {r}, g {gg}) in turn differ from one fill: {where}")
 
 
-def _ckpt_case(dll, rng, cfg, m, n, K):
+def _ckpt_case(dll, rng, cfg, m, n, K, geometry=None, shallow=False):
     """diag_ckpt_fill against ckpt_plain word for word: both checkpoint
-    arrays (dead slots included) and, local, v and dbest.  The outputs
-    start as garbage, so a slot the kernel leaves unwritten shows."""
+    arrays (dead slots included) and, local, v and dbest, ``s1`` (m) on the
+    strips' columns and ``s2`` (n) on their rows, at ``geometry`` (default
+    the planner's; ``shallow``: the ring cut to 2 rows).  The outputs start
+    as garbage, so a slot the kernel leaves unwritten shows."""
     s1 = torch.from_numpy(rng.integers(0, 5, m).astype(np.int8))
     s2 = torch.from_numpy(rng.integers(0, 5, n).astype(np.int8))
     groups = -(-(n + m) // K)
-    diag = np.empty(3 * (n + 1), np.int32)
+    plan, keep, pipe = _pipe_scratch(rng, n, m, False, geometry, band.MAX_K, False)
+    if shallow and plan.depth > 2:
+        plan = plan._replace(depth=2)
+        pipe = (pipe[0], 2) + pipe[2:]
     ck = rng.integers(-99, 99, (2, groups, n + 1)).astype(np.int32)
     best = rng.integers(-99, 99, (2, n + 1)).astype(np.int32)
+    v, dbest = (best[0].ctypes.data, best[1].ctypes.data) if cfg.is_local else (None, None)
     err = dll.diag_ckpt_fill(s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch,
-                             cfg.gap, int(cfg.is_local), K, pallas_diag.kernel_threads(n),
-                             diag.ctypes.data, ck[0].ctypes.data, ck[1].ctypes.data,
-                             best[0].ctypes.data, best[1].ctypes.data, None)
+                             cfg.gap, int(cfg.is_local), K, plan.k, plan.threads, plan.blocks,
+                             *pipe[:3], ck[0].ctypes.data, ck[1].ctypes.data, v, dbest, None)
     want = pallas_diag.ckpt_plain(s1, s2, cfg, K)
     ok = (not err and np.array_equal(ck[0], want.cka.numpy())
-          and np.array_equal(ck[1], want.ckb.numpy()))
+          and np.array_equal(ck[1], want.ckb.numpy()) and _flags_done(keep[1], plan, m))
     if cfg.is_local:
         ok = ok and np.array_equal(best[0], want.v.numpy()) and np.array_equal(
             best[1], want.dbest.numpy())
-    return ok, f"{cfg} {m} x {n}, K = {K}"
+    return ok, f"{cfg} {m} x {n}, K = {K}, {plan}"
 
 
 def main() -> None:
@@ -544,19 +549,25 @@ def main() -> None:
                                                 mode=AlignMode.LOCAL),
                  ScoringConfig(match=3, mismatch=1, gap=-2, mode=AlignMode.LOCAL),
                  ScoringConfig(match=1, mismatch=-3, gap=1, mode=AlignMode.LOCAL)]
-    fixed = [(1, 30, 8), (30, 1, 8), (1, 1, 8), (40, 1100, 16), (7, 7, 1024)]
-    for c in range(args.cases // 4 + len(fixed)):
+    # 1 x k, k x 1, 1 x 1, more strips than blocks, a stride past the table;
+    # (m, n, K, geometry, ring of 2)
+    fixed = [(1, 30, 8, None, False), (30, 1, 8, None, False), (1, 1, 8, None, False),
+             (40, 1100, 16, (1, 32, 9), True), (7, 7, 1024, None, False)]
+    for c in range(args.cases // 2 + len(fixed)):
         cfg = ckpt_cfgs[c % 4]
         if c < len(fixed):
-            m, n, K = fixed[c]
-        else:  # n < m and n > m, strides 8, 16, 24
+            m, n, K, geometry, shallow = fixed[c]
+        else:  # n < m and n > m up to 9 strips, strides 8, 16, 24 and 32
             m, n = (int(x) for x in rng.integers(1, 150, 2))
-            K = 8 * int(rng.integers(1, 4))
-        ok, info = _ckpt_case(dll, rng, cfg, m, n, K)
+            n = int(rng.integers(90, 300)) if c % 3 == 0 else n
+            K = 8 * int(rng.integers(1, 5))
+            geometry, shallow = geometries[int(rng.integers(0, len(geometries)))], c % 5 == 0
+        ok, info = _ckpt_case(dll, rng, cfg, m, n, K, geometry, shallow)
         if not ok:
             sys.exit(f"diag_ckpt_fill differs from ckpt_plain: {info}")
-    print(f"[rehearse] diag_ckpt_fill equal to ckpt_plain in {args.cases // 4 + len(fixed)} "
-          f"cases (NW, SW, positive mismatch and gap local; n past 1024 threads)")
+    print(f"[rehearse] diag_ckpt_fill equal to ckpt_plain in {args.cases // 2 + len(fixed)} "
+          f"cases (NW, SW, positive mismatch and gap local; 1 x k, k x 1, several strips, "
+          f"one block, blocks past and below the strips, rings of 2 rows)")
     for c in range(args.cases):
         ok, info = _band_batch_case(dll, rng, c)
         if not ok:

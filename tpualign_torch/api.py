@@ -68,8 +68,9 @@ def align_score(
     ValueError by which an engine refuses a config or a shape: ``bitpal``
     to ``pallas``; ``band`` to ``xla`` for matrix, ends-free or affine
     configs.  ``band`` refuses a linear pair-scored config only past the
-    int32 headroom, where ``pallas`` refuses it too, so that error is
-    raised."""
+    int32 headroom, where ``pallas`` refuses it too, or on a card without
+    the memory for its ring of 2 rows (``band.pipeline_plan``), so that
+    error is raised."""
     impl = resolve_impl(engine, scoring)
     dev = engine.device
     if impl == "oracle":
@@ -82,7 +83,7 @@ def align_score(
     if impl == "band":
         try:
             return band.score(s1, s2, scoring, device=dev)
-        except ValueError:  # past the int32 headroom
+        except ValueError:  # past the int32 headroom or the card's memory
             if not (scoring.has_matrix or scoring.is_ends_free or scoring.is_affine):
                 raise
             impl = "xla"

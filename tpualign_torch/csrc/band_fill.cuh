@@ -1,11 +1,13 @@
 // General-scoring strip fills: any integer scoring, linear or affine
 // (Gotoh) gaps, pair scoring or a substitution matrix of up to 16 codes,
 // global / local (Smith-Waterman) / ends-free modes.  One strip body, here,
-// two schedules over it, and three entry points: band_fill and
+// two schedules over it, and four entry points: band_fill and
 // band_capture_fill (linear gaps) in band_fill.cu, band_capture_affine in
 // band_capture_affine.cu, a translation unit of its own so that nvcc
 // compiles its 36 kernels beside the other 80 (all in one file took 20 s
-// to build, against 12 s); band_batch.cu runs the in-place schedule.
+// to build, against 12 s); band_batch.cu runs the in-place schedule;
+// diag_ckpt.cu runs K9's checkpoint contract (CKPT, stated there) on the
+// pipelined schedule.
 //
 // band_fill (CAPTURE = false) replaces the TPU kernel
 // tpualign/ops/band.py:_band_kernel_body (K6).  Contract, cell for cell the
@@ -57,11 +59,12 @@
 // Column 0 is injected in closed form; F at column 0 is never read.  One
 // __syncthreads() per step.
 //
-// The pipelined schedule (fill_pipe: band_fill's and the capture fills'
-// kernels): S = ceil(n/R) strips over G blocks of one launch.  A block
-// takes strip numbers in order from an atomic ticket, never from
-// blockIdx, so it only ever waits on a lower strip, which a running block
-// holds: no grid size deadlocks, and blocks need not be co-resident.  With
+// The pipelined schedule (fill_pipe: band_fill's, the capture fills' and
+// diag_ckpt_fill's kernels): S = ceil(n/R) strips over G blocks of one
+// launch.  A block takes strip numbers in order from an atomic ticket,
+// never from blockIdx, so it only ever waits on a lower strip, which a
+// running block holds: no grid size deadlocks, and blocks need not be
+// co-resident.  With
 // G = 1 one block walks every strip, the single-block schedule.  Strips
 // hand their bottom rows down through a ring of D slots of (m+1) int32 H
 // (then F under affine gaps) in global memory: strip s reads slot (s-1)
@@ -171,6 +174,17 @@ struct CaptureArgs {
   int32_t* fout;  // (m+1,) affine: F(n, 0..m)
 };
 
+// diag_ckpt_fill's outputs (CKPT, K9's contract in diag_ckpt.cu): every
+// slot written by the kernel, each by the owner of its row
+struct CkptArgs {
+  int32_t* cka;    // (groups, n+1): cka[c][i] = H(i, c*every - i)
+  int32_t* ckb;    // (groups, n+1): ckb[c][i] = H(i, c*every - 1 - i)
+  int32_t* v;      // (n+1,) local: row i's max over j >= 1, floored at 0
+  int32_t* dbest;  // (n+1,) local: the first diagonal that reached it, or 0
+  int every;       // the checkpoint stride (the contract's K), >= 8
+  int groups;      // ceil((n + m) / every)
+};
+
 // The pipeline's scratch, zeroed by the caller where it says so
 struct Pipe {
   int32_t* ring;    // (depth, 1 or 2, m+1): H, then F under affine gaps
@@ -227,13 +241,14 @@ __device__ __forceinline__ int32_t top_h(const Params& p, int j) {
 // l.in_h (and l.in_f), its bottom row to l.out_h (and l.out_f).  acc is
 // the score's running max, best_* the thread's located cell, both carried
 // across the block's strips.  PIPE: the progress flags and the closed-form
-// top edge (see the header)
+// top edge (see the header).  CKPT: K9's checkpoints in place of the
+// score (linear gaps, pair scoring)
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE,
-          bool PIPE>
+          bool PIPE, bool CKPT>
 __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
-                                      const int32_t* mat, int i0, const Link& l,
-                                      int32_t& acc, int32_t& best_v, int& best_i,
-                                      int& best_j) {
+                                      const CkptArgs& ck, const int32_t* mat, int i0,
+                                      const Link& l, int32_t& acc, int32_t& best_v,
+                                      int& best_i, int& best_j) {
   __shared__ int32_t hand_h[2][kWarps];
   __shared__ int32_t hand_f[2][kWarps];
   const int r = threadIdx.x;
@@ -273,6 +288,22 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
   for (int q = 0; q < K; ++q) rc[q] = q < nlive ? p.query[top + q] : 0;
   int32_t h[K], e[K];
   int32_t out_h = kNeg, out_f = kNeg, diag_top = kNeg;
+  // CKPT: at column j, row qa of the thread (its row top + qa + 1) is the
+  // first on a diagonal c * every, c = ga, and qa - 1 (or every - 1) the
+  // first on a diagonal c * every - 1; a step moves both up one row (no
+  // division in the loop).  vb and jb hold each row's running max (local)
+  // and the column that first reached it strictly
+  int qa = 0, ga = 0;
+  int32_t vb[K], jb[K];
+  if (CKPT) {
+    qa = (ck.every - (top + 1) % ck.every) % ck.every;
+    ga = (top + 1 + qa) / ck.every;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      vb[q] = 0;
+      jb[q] = 0;
+    }
+  }
   // PIPE: warp 0 brings the input row into in_buf a chunk of kChunk
   // columns at a time, the next chunk's loads in flight in next_h/next_f
   // for kChunk steps, so no step waits on L2 (each lane checks the flag
@@ -366,7 +397,12 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
         }
         if (LOCAL) {
           hn = max(hn, 0);
-          if (!CAPTURE && q < nlive) acc = max(acc, hn);
+          if (!CAPTURE && !CKPT && q < nlive) acc = max(acc, hn);
+        }
+        if (CKPT && LOCAL) {
+          bool keep;  // vb >= hn: a tie keeps the earlier column
+          vb[q] = __vibmax_s32(vb[q], hn, &keep);
+          jb[q] = keep ? jb[q] : j;
         }
         if (LOCATE && q < nlive) {
           bool keep;  // cm >= hn: a tie keeps the smaller row
@@ -389,7 +425,7 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
           best_j = j;
         }
       }
-      if (!LOCAL && !CAPTURE) {
+      if (!LOCAL && !CAPTURE && !CKPT) {
         if (ec && j == m) {
 #pragma unroll
           for (int q = 0; q < K; ++q) {
@@ -398,6 +434,23 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
         }
         if (owns_n && (er || j == m)) acc = max(acc, pick(h, qn));
       }
+    }
+    if (CKPT && active) {
+      // the rows on checkpoint diagonals: qa, qa + every, ... (cka, groups
+      // ga, ga + 1, ...) and qb, qb + every, ... (ckb, from gb): a few
+      // steps in every, at most two rows each when every = 8 and K = 16
+      const int qb = qa == 0 ? ck.every - 1 : qa - 1;
+      const int gb = qa == 0 ? ga + 1 : ga;
+      if (qa < K || qb < K) {
+        for (int x = qa, c = ga; x < min(K, nlive) && c < ck.groups; x += ck.every, ++c) {
+          ck.cka[static_cast<size_t>(c) * (n + 1) + top + x + 1] = pick(h, x);
+        }
+        for (int x = qb, c = gb; x < min(K, nlive) && c < ck.groups; x += ck.every, ++c) {
+          ck.ckb[static_cast<size_t>(c) * (n + 1) + top + x + 1] = pick(h, x);
+        }
+      }
+      qa = qb;  // the next column's diagonals are one row higher
+      ga = gb;
     }
     if (active && r == T - 1) {  // the next strip's input row
       if (PIPE) {
@@ -440,6 +493,39 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
       if (AFFINE) hand_f[t & 1][warp] = out_f;
     }
     __syncthreads();
+  }
+  if (CKPT) {
+    // the slots whose diagonal misses row i (c * every - i or c * every -
+    // 1 - i outside 0..m) get kNeg, and, local, the row's max and the
+    // first diagonal that reached it, each by the row's owner; row 0, the
+    // closed-form top edge, by strip 0's thread 0
+    const int E = ck.every;
+    const size_t S = static_cast<size_t>(n) + 1;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (q < nlive) {
+        const int i = top + q + 1;
+        for (int cq = 0; cq <= (i - 1) / E; ++cq) ck.cka[cq * S + i] = kNeg;
+        for (int cq = (m + i) / E + 1; cq < ck.groups; ++cq) ck.cka[cq * S + i] = kNeg;
+        for (int cq = 0; cq <= i / E; ++cq) ck.ckb[cq * S + i] = kNeg;
+        for (int cq = (m + i + 1) / E + 1; cq < ck.groups; ++cq) ck.ckb[cq * S + i] = kNeg;
+        if (LOCAL) {
+          ck.v[i] = vb[q];
+          ck.dbest[i] = jb[q] > 0 ? i + jb[q] : 0;
+        }
+      }
+    }
+    if (i0 == 0 && r == 0) {
+      for (int cq = 0; cq < ck.groups; ++cq) {
+        const int ja = cq * E, jb1 = cq * E - 1;
+        ck.cka[cq * S] = ja <= m ? top_h<false, LOCAL, false>(p, ja) : kNeg;
+        ck.ckb[cq * S] = (jb1 >= 0 && jb1 <= m) ? top_h<false, LOCAL, false>(p, jb1) : kNeg;
+      }
+      if (LOCAL) {
+        ck.v[0] = 0;
+        ck.dbest[0] = 0;
+      }
+    }
   }
 }
 
@@ -521,8 +607,8 @@ __device__ __forceinline__ void fill_inplace(const Params& p) {
   int best_i = kNoRow, best_j = 0;
   const Link l{p.bh, p.bf, p.bh, p.bf, nullptr, nullptr, nullptr};
   for (int i0 = 0; i0 < p.n; i0 += K * T) {
-    strip<K, AFFINE, MATRIX, LOCAL, false, false, false>(p, CaptureArgs{}, mat, i0, l, acc,
-                                                         best_v, best_i, best_j);
+    strip<K, AFFINE, MATRIX, LOCAL, false, false, false, false>(
+        p, CaptureArgs{}, CkptArgs{}, mat, i0, l, acc, best_v, best_i, best_j);
   }
   acc = block_max(acc, red);
   if (r == 0) *p.out = acc;
@@ -530,9 +616,10 @@ __device__ __forceinline__ void fill_inplace(const Params& p) {
 
 // The pipelined schedule (see the header): the blocks take strips from a
 // ticket and hand rows down through the ring
-template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE>
+template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE,
+          bool CKPT>
 __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
-                                          const Pipe& q) {
+                                          const Pipe& q, const CkptArgs& ck) {
   __shared__ int32_t mat[kMaxCodes * kMaxCodes];
   __shared__ int32_t red[LOCATE ? 3 : 1][kWarps];
   __shared__ int ticket;
@@ -568,9 +655,10 @@ __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
       l.out_ready = progress + s;
       if (s >= q.depth) l.out_free = progress + s - q.depth + 1;
     }
-    strip<K, AFFINE, MATRIX, LOCAL, CAPTURE, LOCATE, true>(p, c, mat, s * K * T, l, acc,
-                                                           best_v, best_i, best_j);
+    strip<K, AFFINE, MATRIX, LOCAL, CAPTURE, LOCATE, true, CKPT>(
+        p, c, ck, mat, s * K * T, l, acc, best_v, best_i, best_j);
   }
+  if (CKPT) return;  // the checkpoints are written by their rows' owners
   if (!CAPTURE) {
     acc = block_max(acc, red[0]);
     if (r == 0) atomicMax(p.out, acc);
@@ -608,7 +696,7 @@ __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
 // K6's port: the score, pipelined
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL>
 __global__ void __launch_bounds__(kPipeThreads) band_fill_kernel(Params p, Pipe q) {
-  fill_pipe<K, AFFINE, MATRIX, LOCAL, false, false>(p, CaptureArgs{}, q);
+  fill_pipe<K, AFFINE, MATRIX, LOCAL, false, false, false>(p, CaptureArgs{}, q, CkptArgs{});
 }
 
 // K7's port: the captures, under affine gaps the last row of F, and, with
@@ -616,7 +704,7 @@ __global__ void __launch_bounds__(kPipeThreads) band_fill_kernel(Params p, Pipe 
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool LOCATE>
 __global__ void __launch_bounds__(kPipeThreads)
     band_capture_kernel(Params p, CaptureArgs c, Pipe q) {
-  fill_pipe<K, AFFINE, MATRIX, LOCAL, true, LOCATE>(p, c, q);
+  fill_pipe<K, AFFINE, MATRIX, LOCAL, true, LOCATE, false>(p, c, q, CkptArgs{});
 }
 
 // local affine captures stop at 8 rows a thread (band.py's max_k): at 16,

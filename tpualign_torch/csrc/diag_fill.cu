@@ -35,8 +35,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   int32_t best = 0;
   diagwave::sweep(
       s1, m, s2, n, match, mismatch, gap, local, diag,
-      [&](int, int, int32_t v) { best = max(best, v); },
-      [](int, const int32_t*, int, int) {});
+      [&](int32_t v) { best = max(best, v); });
   if (local) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {

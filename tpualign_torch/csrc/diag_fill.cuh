@@ -1,5 +1,5 @@
-// The flat anti-diagonal wavefront that diag_fill.cu (K8's port) and
-// diag_ckpt.cu (K9's) share: the per-cell step and the diagonal loop.
+// The flat anti-diagonal wavefront of diag_fill.cu (K8's port): the
+// per-cell step and the diagonal loop.
 //
 // Recurrence (serial.cpp:23-31): H(i, j) = max(H(i-1, j-1) + s, H(i-1, j)
 // + gap, H(i, j-1) + gap), boundaries H(0, j) = j*gap, H(i, 0) = i*gap (0
@@ -25,16 +25,14 @@ constexpr int kMaxThreads = 1024;
 
 // Sweeps diagonals 1..n+m of the table of s1 (m columns) against s2 (n
 // rows) through `diag`, (3, n+1) int32 whose row d mod 3 holds diagonal d.
-// Slot k's owner calls cell(d, k, v) on each interior cell (i, j >= 1)
-// under local scoring, v after the zero floor, and every thread calls
-// step(d, d0, klo, khi) once its slots of diagonal d (d0, live slots
-// klo..khi) are written, before the barrier that ends the diagonal.
-template <class Cell, class Step>
+// Slot k's owner calls cell(v) on each interior cell (i, j >= 1) under
+// local scoring, v after the zero floor.
+template <class Cell>
 __device__ __forceinline__ void sweep(const int8_t* __restrict__ s1, int m,
                                       const int8_t* __restrict__ s2, int n,
                                       int match, int mismatch, int gap,
                                       bool local, int32_t* __restrict__ diag,
-                                      Cell cell, Step step) {
+                                      Cell cell) {
   const int r = threadIdx.x;
   const int T = blockDim.x;
   const int stride = n + 1;
@@ -55,12 +53,11 @@ __device__ __forceinline__ void sweep(const int8_t* __restrict__ s1, int m,
         v = __viaddmax_s32(max(d1[k - 1], d1[k]), gap, d2[k - 1] + s);
         if (local) {
           v = max(v, 0);
-          cell(d, k, v);
+          cell(v);
         }
       }
       d0[k] = v;
     }
-    step(d, d0, klo, khi);
     __syncthreads();
   }
 }

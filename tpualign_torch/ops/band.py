@@ -70,7 +70,8 @@ KS = (1, 2, 4, 8, 16)
 #: progress flags (kPublish in csrc/band_fill.cuh), STEP_OVERHEAD a step's
 #: fixed cost in rows' work (a step took about 340 + 8.25 k ns for k rows a
 #: thread on the H100, tools/sweep_band_pipeline.py), the ring's
-#: RING_BUDGET bytes at any m
+#: RING_BUDGET bytes when no budget is given (the CUDA wrappers give
+#: ring_budget()'s, from the card's free memory)
 SMS = 132
 PIPE_THREADS = 128
 BLOCKS_PER_SM = 4
@@ -141,16 +142,18 @@ class PipePlan(NamedTuple):
     depth: int
 
 
-def pipeline_plan(n: int, m: int, affine: bool, geometry=None, max_k: int = MAX_K) -> PipePlan:
+def pipeline_plan(n: int, m: int, affine: bool, geometry=None, max_k: int = MAX_K,
+                  budget: Optional[int] = None) -> PipePlan:
     """The launch of a pipelined fill of ``n`` rows and ``m`` columns:
     ``geometry`` is ``(k, threads)`` or ``(k, threads, blocks)``, default
     :func:`pipeline_geometry`; ``blocks`` defaults to ``min(S, SMS *
     BLOCKS_PER_SM)``.  The ring holds ``min(S, blocks + 1)`` rows (a block
     reads the row above while the strips of the other blocks are in
     flight), fewer if its ``m + 1`` int32 of H (and F under affine gaps) a
-    row pass RING_BUDGET bytes, never fewer than 2 when ``S >= 2``.
-    ValueError for a geometry the kernel refuses or a ring of 2 rows past
-    the budget."""
+    row pass ``budget`` bytes (default RING_BUDGET; the CUDA wrappers pass
+    :func:`ring_budget`), never fewer than 2 when ``S >= 2``.  ValueError
+    for a geometry the kernel refuses, or when 2 rows do not fit the
+    budget: on the card, a fill that does not fit its memory."""
     if geometry is None:
         geometry = pipeline_geometry(n, m, max_k)
     if len(geometry) not in (2, 3):
@@ -167,12 +170,34 @@ def pipeline_plan(n: int, m: int, affine: bool, geometry=None, max_k: int = MAX_
         raise ValueError(f"blocks must be at least 1, got {blocks}")
     if S == 1:
         return PipePlan(k, threads, blocks, S, 0)
+    budget = RING_BUDGET if budget is None else int(budget)
     row_bytes = 4 * (2 if affine else 1) * (m + 1)
-    depth = min(S, blocks + 1, RING_BUDGET // row_bytes)
+    depth = min(S, blocks + 1, budget // row_bytes)
     if depth < 2:
         raise ValueError(f"a ring of 2 rows of {m + 1} columns takes {2 * row_bytes} bytes, "
-                         f"past the budget of {RING_BUDGET}")
+                         f"past the budget of {budget} bytes of device memory")
     return PipePlan(k, threads, blocks, S, depth)
+
+
+#: the share of a card's free memory that a fill's ring may take (the CUDA
+#: wrappers plan after allocating the fill's outputs): half, since the ring
+#: is one allocation that the caching allocator rounds up and must find in
+#: one piece, and the caller's next tensors (a traceback's copies, the next
+#: fill's outputs) need room beside it
+RING_SHARE = 0.5
+
+
+def ring_budget(device=None, free_bytes: Optional[int] = None) -> int:
+    """The ring's budget in bytes on a CUDA device: RING_SHARE of its free
+    bytes, ``free_bytes`` where given, else ``torch.cuda.mem_get_info``'s
+    free bytes plus what PyTorch's caching allocator holds and does not
+    use (it hands that out first).  On an 80 GB card a ring of 2 rows fits
+    every pair inside the int32 headroom (2^29 columns, 4.3 GB; 8.6 GB
+    affine)."""
+    if free_bytes is None:
+        free_bytes = (torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
+                      - torch.cuda.memory_allocated(device))
+    return int(free_bytes * RING_SHARE)
 
 
 def _pipe_scratch(plan: PipePlan, m: int, affine: bool, dev, cells: bool):
@@ -276,25 +301,25 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     blocks (:func:`pipeline_plan`); default :func:`pipeline_geometry` with
     ``k`` at most :func:`max_k`.  It sets the strip height ``k * threads``
     and the blocks that run the strips, never the result; ``blocks=1`` is
-    the single-block schedule.  On CUDA the wrapper allocates the ring, the
-    flags and the output, launches on the current stream without
-    synchronising, and counts the launch in ``band_fill.launches``.  A
-    launch the device refuses raises; nothing falls back to the plain
-    version or to fewer blocks."""
+    the single-block schedule.  On CUDA the wrapper allocates the output,
+    then the ring (within :func:`ring_budget`) and the flags, launches on
+    the current stream without synchronising, and counts the launch in
+    ``band_fill.launches``.  A launch the device refuses raises; nothing
+    falls back to the plain version or to fewer blocks."""
     xla.check_pair(text, query, ("text", "query"))
     if text.device.type == "cpu":
         return score_plain(text, query, cfg, ends)
     if text.device.type != "cuda":
         raise ValueError(f"band_fill runs on cpu or cuda tensors, got {text.device}")
     m, n = text.numel(), query.numel()
-    plan = pipeline_plan(n, m, cfg.is_affine, geometry, max_k(cfg))
     dev = text.device
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
     matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
-    ring, sync, _ = _pipe_scratch(plan, m, cfg.is_affine, dev, False)
     # the identity of the blocks' max
     out = torch.full((1,), 0 if cfg.is_local else NEG, dtype=torch.int32, device=dev)
+    plan = pipeline_plan(n, m, cfg.is_affine, geometry, max_k(cfg), ring_budget(dev))
+    ring, sync, _ = _pipe_scratch(plan, m, cfg.is_affine, dev, False)
     with torch.cuda.device(dev):
         err = lib.band_fill(
             text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
@@ -387,10 +412,11 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     tensors.
 
     ``geometry`` as in :func:`band_fill`.  On CUDA the wrapper allocates the
-    outputs and the pipeline's scratch, launches on the current stream
-    without synchronising, and counts the launch in
-    ``capture_fill.launches``.  A launch the device refuses raises; nothing
-    falls back to the plain version or to fewer blocks."""
+    outputs, then the pipeline's scratch (the ring within
+    :func:`ring_budget`), launches on the current stream without
+    synchronising, and counts the launch in ``capture_fill.launches``.  A
+    launch the device refuses raises; nothing falls back to the plain
+    version or to fewer blocks."""
     rows, tb = _check_capture(text, query, cfg, rows, tb)
     if text.device.type == "cpu":
         return capture_plain(text, query, cfg, rows, zero_row=zero_row, zero_col=zero_col,
@@ -398,7 +424,6 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     if text.device.type != "cuda":
         raise ValueError(f"capture_fill runs on cpu or cuda tensors, got {text.device}")
     m, n = text.numel(), query.numel()
-    plan = pipeline_plan(n, m, cfg.is_affine, geometry, max_k(cfg))
     dev = text.device
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
@@ -410,6 +435,7 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     last_col = torch.empty(n + 1, dtype=torch.int32, device=dev) if col else None
     found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
     f_row = torch.empty(m + 1, dtype=torch.int32, device=dev) if cfg.is_affine else None
+    plan = pipeline_plan(n, m, cfg.is_affine, geometry, max_k(cfg), ring_budget(dev))
     ring, sync, block_cells = _pipe_scratch(plan, m, cfg.is_affine, dev, cell)
     pipe = (_ptr(ring), plan.depth, sync.data_ptr(), _ptr(block_cells))
     head = (text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K, cfg.match,

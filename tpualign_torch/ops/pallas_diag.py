@@ -14,13 +14,17 @@ columns, ``s2`` (n,) int8 down the rows, ``n <= m``; the result is
 ``H(n, m)`` (global) or the max over every cell and 0 (local).
 
 The checkpointed fill (``csrc/diag_ckpt.cu``, K9's port, the forward pass
-of :func:`tpualign_torch.ops.traceback_diag.align_diag`) runs the same
-wavefront without the swap (``s2``, the rows, is the diagonal axis,
-either sequence the longer) and keeps the diagonals ``cK`` and
-``cK - 1`` for ``c < groups = ceil((n + m) / K)``, and under local
-scoring each row's maximum and the diagonal that first reached it.  Its
-contract, shared by :func:`ckpt_fill` and :func:`ckpt_plain`, is in
-:func:`ckpt_plain`'s docstring.
+of :func:`tpualign_torch.ops.traceback_diag.align_diag`) keeps the
+diagonals ``cK`` and ``cK - 1`` for ``c < groups = ceil((n + m) / K)`` of
+the table of ``s1`` (columns) against ``s2`` (rows, the diagonal axis, no
+swap, either sequence the longer), and under local scoring each row's
+maximum and the diagonal that first reached it.  Its values do not depend
+on the order the cells are filled in, so the kernel runs the row strips of
+the band fills (``csrc/band_fill.cuh``'s pipeline over many thread
+blocks, :func:`tpualign_torch.ops.band.pipeline_plan`), each row's owner
+storing the row's checkpoint cells.  Its contract, shared by
+:func:`ckpt_fill` and :func:`ckpt_plain`, is in :func:`ckpt_plain`'s
+docstring.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 
 from .. import _build
 from ..config import ScoringConfig, ensure_pair_modes
-from . import xla
+from . import band, xla
 from .bitpal import _device
 from .pairs import int8_codes
 
@@ -184,16 +188,21 @@ def ckpt_plain(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int) -
     return Checkpoints(cka, ckb, v, dbest)
 
 
-def ckpt_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int) -> Checkpoints:
+def ckpt_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int,
+              geometry=None) -> Checkpoints:
     """The checkpointed kernel's outputs (:func:`ckpt_plain`) on the device
     of its tensors: the CUDA kernel ``diag_ckpt_fill``
     (``csrc/diag_ckpt.cu``) for CUDA tensors, :func:`ckpt_plain` for CPU
     tensors.
 
-    On CUDA the wrapper allocates the diagonals and the outputs, launches
-    on the current stream without synchronising, and counts the launch in
-    ``ckpt_fill.launches``.  A launch the device refuses raises; nothing
-    falls back to the plain version."""
+    ``geometry``: ``(k, threads)`` or ``(k, threads, blocks)`` of the strip
+    pipeline (:func:`tpualign_torch.ops.band.pipeline_plan`), default
+    :func:`tpualign_torch.ops.band.pipeline_geometry`; it never changes the
+    result.  On CUDA the wrapper allocates the outputs, then the ring
+    (within :func:`tpualign_torch.ops.band.ring_budget`) and the flags,
+    launches on the current stream without synchronising, and counts the
+    launch in ``ckpt_fill.launches``.  A launch the device refuses raises;
+    nothing falls back to the plain version."""
     _check_ckpt_args(s1, s2, K)
     if s1.device.type == "cpu":
         return ckpt_plain(s1, s2, cfg, K)
@@ -203,14 +212,17 @@ def ckpt_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int) ->
     groups = -(-(n + m) // K)
     dev = s1.device
     lib = _build.load()
-    diag = torch.empty((3, n + 1), dtype=torch.int32, device=dev)
     ck = torch.empty((2, groups, n + 1), dtype=torch.int32, device=dev)
-    best = torch.empty((2, n + 1), dtype=torch.int32, device=dev)
+    best = torch.empty((2, n + 1), dtype=torch.int32, device=dev) if cfg.is_local else None
+    # K9's rows (s2) are the strips' query, its columns (s1) their text
+    plan = band.pipeline_plan(n, m, False, geometry, band.MAX_K, band.ring_budget(dev))
+    ring, sync, _ = band._pipe_scratch(plan, m, False, dev, False)
+    v, dbest = (None, None) if best is None else (best[0].data_ptr(), best[1].data_ptr())
     with torch.cuda.device(dev):
         err = lib.diag_ckpt_fill(
             s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch, cfg.gap,
-            int(cfg.is_local), K, kernel_threads(n), diag.data_ptr(), ck[0].data_ptr(),
-            ck[1].data_ptr(), best[0].data_ptr(), best[1].data_ptr(),
+            int(cfg.is_local), K, plan.k, plan.threads, plan.blocks, band._ptr(ring),
+            plan.depth, sync.data_ptr(), ck[0].data_ptr(), ck[1].data_ptr(), v, dbest,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
