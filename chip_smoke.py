@@ -79,6 +79,15 @@ path's shape:
   (linear) and 5,000 x 70,000,000 (affine), and ``align_score`` under SW
   (2, -1, -2) of a 256-base query planted whole in a text of 134,217,728
   bases (2 ring rows past 1 GiB), one ``band_fill`` launch, score 512;
+- the bit-parallel fill's pipeline (``bitpal_gfill``, ``bitpal_capture_fill``:
+  one launch a fill, bands of words over many blocks of one warp, each
+  band's bottom h_out stream handed down through a ring with progress
+  flags): held word for word against ``fill_g_plain`` where races would
+  show, at bands past the blocks, blocks past the bands, one block, rings
+  of 2 rows, captured rows on the bands' first and last words, B = 2, 3
+  and 4, 20 launches each (phase (l)); every fill above runs the
+  planner's blocks (``bitpal.pipeline_plan``), and a sweep of the blocks
+  prints at the 64gb shape;
 - K6's and K7's strip pipeline (``band_fill``, ``band_capture_fill``,
   ``band_capture_affine``: one launch a fill, strips over many blocks,
   each strip's bottom row handed down through a ring with progress
@@ -134,13 +143,15 @@ CAPTURE_REPLACES = "tpualign/ops/band_align.py:103"  # _strip_kernel_body (K7)
 BATCH_SOURCE = "tpualign_torch/csrc/bitpal_batch.cu"
 BATCH_REPLACES = "tpualign/ops/bitpal.py:773"  # _batch_kernel_body (K5)
 BAND_BATCH_SOURCE = "tpualign_torch/csrc/band_batch.cu"
-#: bitpal_gfill, band_fill, band_capture_fill (40 linear, 36 affine: local
+#: bitpal_gfill (1 word a lane at 2, 3 and 4 planes, 2 at 2 and 3, x
+#: capture or not),
+#: band_fill, band_capture_fill (40 linear, 36 affine: local
 #: stops at 8 rows a thread), diag_fill, bitpal_batch_fill (5 words per
 #: thread x 3 plane counts), band_batch_fill (40 less local affine at 16
 #: rows a thread), bitpal_rc_kernel (3 rc x 5 words per thread),
 #: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes, x 5),
 #: diag_ckpt_kernel (5 rows per thread x global, local)
-N_INSTANTIATIONS = 30 + 40 + 76 + 1 + 15 + 38 + 15 + 30 + 10
+N_INSTANTIATIONS = 6 + 40 + 76 + 1 + 15 + 38 + 15 + 30 + 10
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -830,6 +841,101 @@ def wide_phase(ctx):
                 shape=f"{WIDE_QUERY}x{WIDE_TEXT}", depth=plan.depth)
 
 
+#: the bit-parallel fill's pipeline where races would show: (query rows,
+#: text columns, g, blocks (None: the planner's), ring cut to 2 rows);
+#: B = 2 at g = 1, 3 at g = 2, 4 at g = 5 and 7
+GFILL_RACES = [
+    (300 * 64 - 17, 1500, 1, None, False),  # 10 bands, a block each
+    (300 * 64 - 17, 1500, 1, 3, True),  # bands past the blocks, ring of 2
+    (300 * 64 - 17, 1500, 2, 1, False),  # one block walks every band
+    (300 * 64 - 17, 1500, 5, 2, True),
+    (500 * 64, 1200, 2, None, True),  # every band its block, ring of 2
+    (500 * 64, 1200, 1, 3, False),
+    (200 * 64 + 1, 1000, 1, 200, False),  # blocks past the bands
+    (700 * 64, 800, 7, None, True),
+]
+GFILL_REPEAT = 20
+#: the pipelined fill's blocks at the 64gb shape (None: the planner's, a
+#: band a block; 128: blocks past the bands)
+GFILL_SWEEP = [None, 128, 32, 16]
+
+
+def gfill_phase(ctx, hold_g):
+    """The bit-parallel fill's pipeline (``bitpal_gfill``,
+    ``bitpal_capture_fill``) where a race would show: each of
+    ``GFILL_RACES`` ``GFILL_REPEAT`` times, planes word for word and
+    captures (rows on band edges) byte for byte against one
+    ``fill_g_plain`` run on the card.  ``hold_g``: main's hold of a
+    g-kernel against ``fill_g_plain``."""
+    import torch
+
+    from tpualign_torch.ops import band, bitpal
+
+    t0 = time.perf_counter()
+    n_launch = 0
+    plans = []
+    for nq, mt, g, blocks, shallow in GFILL_RACES:
+        q = torch.from_numpy(ctx.rng.integers(0, 5, nq).astype(np.int8)).to(ctx.dev)
+        t = torch.from_numpy(ctx.rng.integers(0, 5, mt).astype(np.int8)).to(ctx.dev)
+        eq = bitpal._eq_planes(q, nq)
+        B = bitpal.n_planes(g)
+        ring_budget = band.ring_budget
+        if shallow:  # room for 2 rows
+            band.ring_budget = lambda *a, **kw: 2 * mt
+        try:
+            plan = bitpal.pipeline_plan(eq.shape[1], mt, blocks, band.ring_budget())
+            rows = bitpal.band_edge_rows(nq)
+            want = bitpal.fill_g_plain(t, eq, nq, g, rows)
+            where = f"{nq} x {mt}, B = {B}, {plan}"
+            for _ in range(GFILL_REPEAT):
+                hold_g("bitpal_gfill", (bitpal.fill_g(t, eq, nq, g, blocks), None), want,
+                       nq, g, where)
+                hold_g("bitpal_capture_fill", bitpal.capture_fill(t, eq, nq, g, rows, blocks),
+                       want, nq, g, where)
+                n_launch += 2
+        finally:
+            band.ring_budget = ring_budget
+        if shallow and plan.depth != 2:
+            raise AssertionError(f"the ring was not cut to 2 rows: {plan}")
+        plans.append(f"{plan.blocks}:{plan.bands}/{plan.depth}")
+    print(f"[gfill pipeline vs plain] {len(GFILL_RACES)} cases x {GFILL_REPEAT} launches of "
+          f"bitpal_gfill and of bitpal_capture_fill ({n_launch} launches; blocks: bands / "
+          f"ring rows {plans}), each word for word and byte for byte against one "
+          f"fill_g_plain run: bands past the blocks, one block, blocks past the bands, "
+          f"rings of 2 rows, captured rows on band edges, B = 2, 3 and 4; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def gfill_sweep(ctx, t, eq, nq, g, rows=None, runs=3):
+    """The pipelined fill's time over ``GFILL_SWEEP``'s blocks at one shape
+    (with ``rows``, the capture fill), every result word for word the
+    first's; returns ``{"blocks": ms}``."""
+    import torch
+
+    from tpualign_torch.ops import band, bitpal
+
+    mt, nw = t.numel(), eq.shape[1]
+    out, first = {}, None
+    name = "bitpal_gfill" if rows is None else "bitpal_capture_fill"
+    for blocks in GFILL_SWEEP:
+        plan = bitpal.pipeline_plan(nw, mt, blocks, band.ring_budget())
+        if rows is None:
+            fn = lambda: (bitpal.fill_g(t, eq, nq, g, blocks), None)  # noqa: E731
+        else:
+            fn = lambda: bitpal.capture_fill(t, eq, nq, g, rows, blocks)  # noqa: E731
+        ms, _, (planes, caps) = ctx.cuda_ms(fn, runs=runs)
+        res = (torch.stack(planes), caps)
+        if first is not None and not (torch.equal(res[0], first[0]) and (
+                caps is None or torch.equal(caps, first[1]))):
+            raise AssertionError(f"{name} at {plan} differs from the sweep's first plan")
+        first = first or res
+        out[str(plan.blocks)] = ms
+        print(f"[sweep] {ctx.smi}: {name} g = {g} {nq} x {mt}, one word a lane, one warp a "
+              f"band, {plan.blocks} blocks ({plan.bands} bands, ring {plan.depth}): median of "
+              f"{runs} {ms:.3f} ms")
+    return out
+
+
 #: the pipeline's race cases: (k, threads, blocks) of one block, blocks
 #: past the strips, fewer blocks than strips, the planner's blocks; "ring
 #: 2": fewer blocks than strips over a ring cut to 2 rows
@@ -1002,6 +1108,11 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind} x{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    ctx = argparse.Namespace(dev=dev, rng=rng, smi=smi, cuda_ms=cuda_ms, host_ms=host_ms,
+                             sync=torch.cuda.synchronize, reset_counts=reset_counts,
+                             read_counts=read_counts, only=only)
 
     # phase 2: build the kernels from the checkout's sources
     t0 = time.perf_counter()
@@ -1021,8 +1132,6 @@ def main() -> None:
     # phase 3: K1 (bitpal_gfill at g = 1) against fill_plain (planes word
     # for word), the scores against the oracle (up to 300 x 300, and once at
     # 20k x 20k)
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
 
     def kernel_vs_plain(query, text):
         nq, mt = query.size, text.size
@@ -1041,7 +1150,7 @@ def main() -> None:
 
     shapes = [(nq, mt, 1) for nq in (1, 63, 64, 65, 127, 128, 129, 1000) for mt in (1, 2, 300)]
     shapes += [(300, 300, 0), (2000, 3000, 0)]  # codes 0..4
-    # past one word per thread: k = 2, 4, 8, 16 words per thread
+    # many bands: 33, 98, 196 and 489 bands of 32 words
     shapes += [(65600, 40, 1), (200000, 40, 1), (400000, 40, 1), (1000000, 40, 1)]
     n_oracle = 0
     for nq, mt, lo in shapes:
@@ -1053,9 +1162,11 @@ def main() -> None:
             if ks != want:
                 raise AssertionError(f"kernel score {ks} != oracle {want} at {nq} x {mt}")
             n_oracle += 1
-    per_thread = sorted({bitpal.kernel_geometry(-(-nq // bitpal.WORD))[0] for nq, _, _ in shapes})
+    geoms = sorted({bitpal.pipeline_plan(-(-nq // bitpal.WORD), mt)[:2]
+                    for nq, mt, _ in shapes})
     print(f"[K1 vs plain] bitpal_gfill g = 1: {len(shapes)} shapes equal to fill_plain word "
-          f"for word (words per thread {per_thread}); {n_oracle} scores equal to the oracle")
+          f"for word (planned (blocks, bands) {geoms}); {n_oracle} scores equal to the "
+          f"oracle")
     a = rng.integers(1, 5, 20000).astype(np.int8)
     b = rng.integers(1, 5, 20000).astype(np.int8)
     # pinned to K1 (cols_per_step=1): by tpualign's rule this pair takes K3a,
@@ -1105,13 +1216,20 @@ def main() -> None:
     ms, times, (k0, k1) = cuda_ms(lambda: bitpal.fill_g(t, eq, n, 1))
     err = (bitpal.row_deltas((k0, k1), n) - bitpal.row_deltas((p0, p1), n)).abs().max()
     max_abs_err = int(err)
-    if max_abs_err != 0:
-        raise AssertionError(f"timed kernel run differs from fill_plain by {max_abs_err}")
+    if max_abs_err != 0 or not (torch.equal(k0, p0) and torch.equal(k1, p1)):
+        raise AssertionError(f"timed kernel run differs from fill_plain (max abs err "
+                             f"{max_abs_err})")
     cells = m * n
+
+    # the planner's launch at the path's shape, the same for K1, K2 and K4's
+    # captures: one word a lane, one warp a band
+    pipe_plan = bitpal.pipeline_plan(eq.shape[1], m, None, band.ring_budget())
+    pipe_geometry = dict(words_a_lane=1, warps_a_band=1, **pipe_plan._asdict())
     print(f"[timing] {smi}: bitpal_gfill g = 1 median of 5 {ms:.3f} ms "
-          f"({cells / ms / 1e6:.2f} GCUPS; runs {runs_str(times)} ms); fill_g_plain "
+          f"({cells / ms / 1e6:.2f} GCUPS; runs {runs_str(times)} ms; {pipe_plan}); fill_g_plain "
           f"g = 1 with align's {len(root_rows)} root rows (fill_plain's planes and the "
           f"captures) {plain_ms:.1f} ms ({cells / plain_ms / 1e6:.3f} GCUPS)")
+    k1_sweep = gfill_sweep(ctx, t, eq, n, 1)
 
     k1_shape = f"{n}x{m}"
     root_plain = ((p0, p1), root_caps)
@@ -1150,7 +1268,7 @@ def main() -> None:
         where = f"{nq} x {text.size}, rows {rows}"
         hold_g("bitpal_gfill", (kp, None), plain, nq, g, where)
         hold_g("bitpal_capture_fill", cap, plain, nq, g, where)
-        return bitpal.kernel_geometry(eq.shape[1])[0]
+        return bitpal.pipeline_plan(eq.shape[1], text.size)[:2]
 
     def cap_rows_for(nq):
         """Rows at and off word bottoms (64(w+1)), the first and the last."""
@@ -1162,20 +1280,23 @@ def main() -> None:
                                               (129, 77), (1000, 300)]
                 for g in (1, 2, 3, 5, 7)]
     g_shapes += [(2000, 3000, 0, g) for g in (1, 2, 7)]  # codes 0..4
-    # past one word per thread: k = 2, 4, 8, 16 words per thread
+    # many bands: 33, 98, 196 and 489 bands of 32 words
     g_shapes += [(65600, 40, 1, g) for g in (1, 2, 7)]
     g_shapes += [(200000, 40, 1, 5), (400000, 40, 1, 3)]
     g_shapes += [(1000000, 40, 1, g) for g in (1, 7)]
     ks, n_caps = set(), 0
     for nq, mt, lo, g in g_shapes:
         rows = cap_rows_for(nq)
-        ks.add((g, g_vs_plain(rng.integers(lo, 5, nq).astype(np.int8),
-                              rng.integers(lo, 5, mt).astype(np.int8), g, rows)))
+        ks.add(g_vs_plain(rng.integers(lo, 5, nq).astype(np.int8),
+                          rng.integers(lo, 5, mt).astype(np.int8), g, rows))
         n_caps += len(rows)
     print(f"[g-kernels vs plain] bitpal_gfill and bitpal_capture_fill equal to "
-          f"fill_g_plain at {len(g_shapes)} shapes, g in 1..7, (g, words per thread) "
+          f"fill_g_plain at {len(g_shapes)} shapes, g in 1..7, planned (blocks, bands) "
           f"{sorted(ks)}; {n_caps} captured rows byte for byte; "
           f"{time.perf_counter() - t0:.1f} s")
+
+    # phase (l): the pipelined fill where races would show
+    gfill_phase(ctx, hold_g)
 
     # 20,000 x 20,000 against the port's oracle
     for g in (2, 7):
@@ -1232,10 +1353,12 @@ def main() -> None:
     cap_ms, cap_runs, cap = cuda_ms(lambda: bitpal.capture_fill(t, eq, n, 1, root_rows))
     cap_err = hold_g("bitpal_capture_fill", cap, root_plain, n, 1,
                      f"{n} x {m}, {len(root_rows)} rows")
-    gk["bitpal_capture_fill"].update(ms=cap_ms, plain_ms=plain_ms, shape=f"{n}x{m}")
+    gk["bitpal_capture_fill"].update(ms=cap_ms, plain_ms=plain_ms, shape=f"{n}x{m}",
+                                     geometry=pipe_geometry)
     del cap, root_plain
     print(f"[path split] {json.dumps(stats)}; root capture fill {cap_ms:.3f} ms "
-          f"(median of 5, {len(root_rows)} rows; runs {runs_str(cap_runs)}); equal to "
+          f"(median of 5, {len(root_rows)} rows; runs {runs_str(cap_runs)}; {pipe_plan}); "
+          f"equal to "
           f"fill_g_plain at {n} x {m} (planes word for word, captures byte for byte, "
           f"max abs err {cap_err}; plain {plain_ms:.1f} ms, the g = 1 score's fill)")
 
@@ -1258,13 +1381,15 @@ def main() -> None:
     if not score2 == pscore == cscore:
         raise AssertionError(f"g = 2 score {score2} != fill_g_plain's {pscore} or the "
                              f"capture kernel's {cscore}")
-    gk["bitpal_gfill"].update(ms=g_ms, plain_ms=g_plain_ms, shape=f"{n}x{m}")
+    gk["bitpal_gfill"].update(ms=g_ms, plain_ms=g_plain_ms, shape=f"{n}x{m}",
+                              geometry=pipe_geometry)
     del plain, gplanes, cplanes
     print(f"[path: align_score g = 2] {m} x {n}: score {score2} equal to fill_g_plain's "
           f"on the card and to the capture kernel's final column; launches {g_counts}; "
           f"wall {wall2:.3f} s")
     print(f"[timing] {smi}: bitpal_gfill g = 2 at {n} x {m}: median of 5 {g_ms:.3f} ms "
-          f"({m * n / g_ms / 1e6:.2f} GCUPS; runs {runs_str(g_runs)} ms); equal to "
+          f"({m * n / g_ms / 1e6:.2f} GCUPS; runs {runs_str(g_runs)} ms; {pipe_plan}); "
+          f"equal to "
           f"fill_g_plain (planes word for word, max abs err {g_err}; plain "
           f"{g_plain_ms:.1f} ms)")
 
@@ -1951,9 +2076,6 @@ def main() -> None:
 
     # phase (i): this slice's main path, align_score on the staggered fills'
     # routes (K3a, K3b, K4's chunks with their state)
-    ctx = argparse.Namespace(dev=dev, rng=rng, smi=smi, cuda_ms=cuda_ms, host_ms=host_ms,
-                             sync=torch.cuda.synchronize, reset_counts=reset_counts,
-                             read_counts=read_counts, only=only)
     rc_kernels = rc_phase(ctx, RC_SHAPES, a20, b20, want20)
 
     # phase (j): this slice's main path, the checkpointed diagonal fill
@@ -1991,7 +2113,8 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "bitpal_gfill_g1", "route": "cuda", "source": GKERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms, "shape": k1_shape, **extra("bitpal_gfill_g1"),
+        "ms": ms, "plain_ms": plain_ms, "shape": k1_shape, "geometry": pipe_geometry,
+        "sweep_64gb": k1_sweep, **extra("bitpal_gfill_g1"),
     }] + [{
         "name": name, "route": "cuda", "source": GKERNEL_SOURCE,
         "replaces": GREPLACES[name],

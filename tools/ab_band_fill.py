@@ -77,15 +77,16 @@ def build(label: str, srcs: str, out: str) -> subprocess.Popen:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def ptxas_k16(log: str):
-    """(kernel, registers, spill bytes) of the 16-rows kernels in a ptxas log."""
+def ptxas(log: str, match: str = ""):
+    """(kernel, registers, spill bytes) of the kernels in a ptxas log whose
+    mangled names hold ``match``."""
     rows, name = [], None
     for line in log.splitlines():
         hit = re.search(r"Compiling entry function '(\S+)'", line)
         if hit:
             name = hit.group(1)
         hit = re.search(r"Used (\d+) registers", line)
-        if hit and name and "ILi16E" in name:
+        if hit and name and match in name:
             spill = re.search(r"(\d+) bytes spill stores", log[log.find(name):])
             rows.append((name, int(hit.group(1)), int(spill.group(1)) if spill else None))
             name = None
@@ -242,8 +243,8 @@ def batch_call(dll, packed, cfg):
 
 def time_ms(run, runs):
     """Median CUDA-event time of ``runs`` runs after one warm-up, the runs,
-    and the result as a host tensor."""
-    out = run().cpu()
+    and the warm-up's result."""
+    out = run()
     times = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -283,7 +284,7 @@ def main() -> int:
             print(log)
             raise RuntimeError(f"nvcc failed for {label}")
         libs[label] = os.path.join(tmp, f"{label}.so")
-        for name, regs, spill in ptxas_k16(log):
+        for name, regs, spill in ptxas(log, "ILi16E"):  # the 16-rows kernels
             print(f"[ptxas {label}] {name}: {regs} registers, {spill} bytes spilled")
     print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
 
@@ -355,6 +356,7 @@ def main() -> int:
             if case.startswith("batch") and not hasattr(dll, "band_batch_fill"):
                 continue
             ms, runs, out = time_ms(make(dll), args.runs)
+            out = out.cpu()
             if case in firsts and not torch.equal(firsts[case], out):
                 print(f"[differs] {case}: {label}'s result differs from the first version's")
                 return 1

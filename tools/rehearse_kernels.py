@@ -10,26 +10,36 @@ wavefront, ``diag_fill.cuh``), and ``bitpal_gfill.cu``,
 ``bitpal_step.cuh``) with
 ``g++`` as C++20 through a shim ``cuda_runtime.h``: one ``std::thread``
 per CUDA thread of a block, the blocks of a grid one after another,
-``__syncthreads`` as a ``std::barrier``, the warp shuffles through a slot
-array between two barriers, ``__shared__`` as ``static``, the DPX
-intrinsics as plain max, the atomics, fences and ``cuda::atomic_ref``
-(``<cuda/atomic>``) over ``std::atomic_ref``, ``__ldcg``/``__stcg`` as
-plain loads and stores, and each ``<<<G, T, 0, s>>>`` launch rewritten
-into a call of the shim's launcher.
+``__syncthreads`` as a ``std::barrier``, the warp shuffles (``up``,
+``down`` and indexed) through a slot array between two barriers,
+``__shared__`` as ``static``, the DPX intrinsics as plain max, the
+atomics, fences and ``cuda::atomic_ref`` (``<cuda/atomic>``) over
+``std::atomic_ref``, ``__ldcg``/``__stcg`` as plain loads and stores,
+and each ``<<<G, T, 0, s>>>`` launch rewritten into a call of the shim's
+launcher.
 
 Since the blocks run one after another, the first block of a pipelined
-fill takes every strip from the ticket (the others find none and
-only join the located cell's reduction): the shim checks the strip
+fill takes every strip (or band) from the ticket (the others find none
+and only join the located cell's reduction): the shim checks the strip
 arithmetic, the ring's slots and their wrap-around at every depth, the
 progress flags' values and the reduction across blocks, not timing
-across blocks, which only the card shows.  The kernels then run through
+across blocks, which only the card shows.  ``rehearse_concurrent(1)``
+(an entry of the built library) runs a grid's blocks at once instead,
+for kernels that keep no ``__shared__`` state across blocks (the
+bit-parallel pipeline's blocks of one warp): a band then waits on the band
+above through the flags as on the card, a spinning thread yields, and a
+store through ``__stcg`` sleeps 50 us first, so that a flag published
+before its bytes is read before them (a mutation check caught that
+only so).  The kernels then run through
 ``ctypes`` on CPU buffers over random configs, shapes and geometries
 (several strips, partial last strips, every rows- or words-per-thread
 count, captured rows at the strip edges, ragged batches with 1 x 1 pairs
 and pairs past one strip), and each result is held against the plain
 version (``band.score_plain``, ``band.capture_plain``,
 ``xla.score_batch``, ``pallas_diag.score_plain``, ``pallas_diag.ckpt_plain``,
-``bitpal.fill_g_plain``, ``bitpal.batch_fill_plain``,
+``bitpal.fill_g_plain`` (``bitpal_gfill`` and ``bitpal_capture_fill``
+over forced block counts, captures on band edges, rings of 2 rows,
+blocks at once), ``bitpal.batch_fill_plain``,
 ``bitpal.fill_rc_plain``, and ``bitpal.chunk_plain`` chunk by chunk).  Prints one line
 per kernel and exits non-zero on the first mismatch.
 
@@ -63,6 +73,7 @@ SHIM = r"""
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cstdint>
 #include <functional>
 #include <memory>
@@ -82,34 +93,52 @@ enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 namespace shim {
+// one block's barrier and shuffle slots; each thread points at its block's
+struct Block {
+  dim3 id;
+  std::barrier<> bar;
+  std::vector<long long> slots;
+  Block(unsigned b, unsigned threads) : bar(threads), slots(threads) { id.x = b; }
+};
 inline thread_local dim3 tid;
-inline dim3 dims, bid;
-inline dim3 grid;
-inline std::unique_ptr<std::barrier<>> bar;
-inline std::vector<long long> slots(1024);
+inline thread_local Block* blk = nullptr;
+inline dim3 dims, grid;
+// concurrent: every block of a grid at once (kernels without __shared__
+// state only: a __shared__ array is one static for all blocks); stores
+// through __stcg then sleep first, so that a flag published before its
+// bytes is read before them
+inline bool concurrent = false;
 
-// the blocks of the grid one after another, each with a thread per CUDA
-// thread: __shared__ arrays (static here) serve one block at a time
+// the blocks of the grid one after another (or all at once), each with a
+// thread per CUDA thread: __shared__ arrays (static here) serve one block
+// at a time
 template <class F> void launch(unsigned blocks, unsigned threads, F body) {
   dims.x = threads;
   grid.x = blocks;
+  std::vector<std::unique_ptr<Block>> bs;
+  std::vector<std::thread> pool;
   for (unsigned b = 0; b < blocks; ++b) {
-    bid.x = b;
-    bar = std::make_unique<std::barrier<>>(threads);
-    std::vector<std::thread> pool;
+    bs.push_back(std::make_unique<Block>(b, threads));
+    Block* mine = bs.back().get();
     for (unsigned t = 0; t < threads; ++t) {
-      pool.emplace_back([t, &body] { tid.x = t; body(); });
+      pool.emplace_back([t, mine, &body] { tid.x = t; blk = mine; body(); });
     }
-    for (auto& th : pool) th.join();
+    if (!concurrent) {
+      for (auto& th : pool) th.join();
+      pool.clear();
+    }
   }
+  for (auto& th : pool) th.join();
 }
 }  // namespace shim
 
+extern "C" __attribute__((weak)) void rehearse_concurrent(int on) { shim::concurrent = on; }
+
 #define threadIdx (shim::tid)
-#define blockIdx (shim::bid)
+#define blockIdx (shim::blk->id)
 #define blockDim (shim::dims)
 #define gridDim (shim::grid)
-inline void __syncthreads() { shim::bar->arrive_and_wait(); }
+inline void __syncthreads() { shim::blk->bar.arrive_and_wait(); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> a(*p);
@@ -120,7 +149,10 @@ inline int atomicMax(int* p, int v) {
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <class T> T __ldcg(const T* p) { return *p; }
-template <class T> void __stcg(T* p, T v) { *p = v; }
+template <class T> void __stcg(T* p, T v) {
+  if (shim::concurrent) std::this_thread::sleep_for(std::chrono::microseconds(50));
+  *p = v;
+}
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
@@ -129,14 +161,21 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline int __vibmax_s32(int a, int b, bool* pred) { *pred = a >= b; return max(a, b); }
 
-template <class T> T shuffle(T v, int src_offset) {
-  const int t = threadIdx.x, lane = t & 31, src = lane + src_offset;
-  shim::slots[t] = static_cast<long long>(v);
+// lane src of the warp, every thread of the block passing here together
+template <class T> T shuffle_from(T v, int src, bool valid) {
+  const int t = threadIdx.x;
+  auto& slots = shim::blk->slots;
+  slots[t] = static_cast<long long>(v);
   __syncthreads();
-  const T out = (src >= 0 && src < 32) ? static_cast<T>(shim::slots[t + src_offset]) : v;
+  const T out = valid ? static_cast<T>(slots[(t & ~31) + src]) : v;
   __syncthreads();
   return out;
 }
+template <class T> T shuffle(T v, int src_offset) {
+  const int src = (threadIdx.x & 31) + src_offset;
+  return shuffle_from(v, src, src >= 0 && src < 32);
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) { return shuffle_from(v, src & 31, true); }
 template <class T> T __shfl_up_sync(unsigned, T v, int d) { return shuffle(v, -d); }
 template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, d); }
 """
@@ -145,19 +184,31 @@ template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, 
 CUDA_ATOMIC = r"""
 #pragma once
 #include <atomic>
+#include <chrono>
 #include <cstdio>
 #include <cstdlib>
+#include <thread>
+#include "cuda_runtime.h"
 namespace cuda {
 enum thread_scope { thread_scope_system, thread_scope_device, thread_scope_block };
 // the blocks run one after another here, so a flag that a load finds
-// unset is never set: a thread that spins on one aborts instead of hanging
+// unset is never set: a thread that spins on one aborts instead of hanging.
+// Run concurrently, a spinning thread yields, and aborts after 60 s
 template <class T, thread_scope S = thread_scope_system>
 struct atomic_ref {
   ::std::atomic_ref<T> a;
   explicit atomic_ref(T& x) : a(x) {}
   T load(::std::memory_order order) const {
     static thread_local long loads = 0;
-    if (++loads > (1L << 20)) {
+    static thread_local auto since = ::std::chrono::steady_clock::now();
+    if (shim::concurrent) {
+      ::std::this_thread::yield();
+      if ((++loads & 1023) == 0 &&
+          ::std::chrono::steady_clock::now() - since > ::std::chrono::seconds(60)) {
+        ::std::fprintf(stderr, "rehearse: a thread spins on a flag for 60 s\n");
+        ::std::abort();
+      }
+    } else if (++loads > (1L << 20)) {
       ::std::fprintf(stderr, "rehearse: a thread spins on a flag that is never set\n");
       ::std::abort();
     }
@@ -218,7 +269,10 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
         "band_batch_fill": [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3,
         "diag_fill": [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp],
         "diag_ckpt_fill": [vp, i32, vp, i32] + [i32] * 8 + [vp, i32, vp, vp, vp, vp, vp, vp],
-        "bitpal_gfill": [vp, vp, i64] + [i32] * 4 + [vp, vp],
+        "bitpal_gfill": [vp, vp, i64] + [i32] * 3 + [vp, i32, vp, vp, vp],
+        "bitpal_capture_fill": ([vp, vp, i64] + [i32] * 3 + [vp, i32, vp, vp, i32]
+                                + [vp, vp, vp]),
+        "rehearse_concurrent": [i32],
         "bitpal_batch_fill": [vp, i64, vp, vp] + [i32] * 5 + [vp, vp],
         "bitpal_rc_fill": [vp, vp, i64] + [i32] * 4 + [vp, vp],
         "bitpal_rc_chunk": chunk,
@@ -362,25 +416,74 @@ def _band_batch_case(dll, rng, c):
     return err == 0 and out.tolist() == want, (cfg, lens.tolist(), k, threads, out, want)
 
 
-def _bitpal_cases(dll, rng, cases):
-    """``bitpal_gfill`` against ``fill_g_plain`` and ``bitpal_batch_fill``
-    against ``batch_fill_plain``: g = 1..7 in turn, every words-per-thread
-    count, queries across word edges, ragged batches with 1 x 1 pairs."""
+def gfill_case(dll, rng, nq, mt, g, blocks=None, rows=None, shallow=False,
+               concurrent=False, lo=0):
+    """``bitpal_gfill`` and, with ``rows``, ``bitpal_capture_fill`` against
+    ``fill_g_plain``: planes word for word, captures byte for byte, the
+    ring, planes and captures seeded with garbage (a byte read before it is
+    written, or an output left unwritten, shows), the flags checked at the
+    end.  ``blocks`` as ``bitpal.pipeline_plan`` takes it; ``shallow``
+    cuts the ring to 2 rows; ``concurrent`` runs the grid's blocks at once.
+    Returns ``(ok, where)``."""
+    nw = -(-nq // bitpal.WORD)
+    B = bitpal.n_planes(g)
+    plan = bitpal.pipeline_plan(nw, mt, blocks)
+    if shallow and plan.depth > 2:
+        plan = plan._replace(depth=2)
+    q = torch.from_numpy(rng.integers(lo, 5, nq).astype(np.int8))
+    t = torch.from_numpy(rng.integers(lo, 5, mt).astype(np.int8))
+    eq = bitpal._eq_planes(q, nq)
+    ring = torch.from_numpy(rng.integers(0, 256, (max(plan.depth, 1), max(mt, 1)))
+                            .astype(np.uint8))
+    sync = torch.zeros(plan.bands + 1, dtype=torch.int32)
+    planes = torch.from_numpy(rng.integers(-2**62, 2**62, (B, nw)))
+    head = (t.data_ptr(), eq.data_ptr(), mt, nw, g, plan.blocks, ring.data_ptr(),
+            plan.depth, sync.data_ptr())
+    dll.rehearse_concurrent(int(concurrent))
+    try:
+        if rows is None:
+            err = dll.bitpal_gfill(*head, planes.data_ptr(), None)
+            caps = None
+        else:
+            cap_rows = torch.tensor(rows, dtype=torch.int32)
+            caps = torch.from_numpy(rng.integers(-128, 128, (len(rows), mt)).astype(np.int8))
+            err = dll.bitpal_capture_fill(*head, cap_rows.data_ptr(), len(rows),
+                                          caps.data_ptr(), planes.data_ptr(), None)
+    finally:
+        dll.rehearse_concurrent(0)
+    want_planes, want_caps = bitpal.fill_g_plain(t, eq, nq, g, rows)
+    progress = sync[1:].tolist()
+    flags = (int(sync[0]) == plan.bands + plan.blocks
+             and progress == [mt] * (plan.bands - 1) + [0])
+    ok = (not err and torch.equal(planes, torch.stack(want_planes)) and flags
+          and (caps is None or torch.equal(caps, want_caps)))
+    return ok, f"g {g}, {nq} x {mt}, {plan}, rows {rows}, concurrent {concurrent}"
+
+
+def _gfill_cases(dll, rng, cases):
+    """The pipelined fill against ``fill_g_plain`` over random block
+    counts: g = 1..7 in turn, one band and many, bands past the blocks,
+    rings of 2 rows, captured rows on band edges, codes 0..4, at times the
+    blocks run at once."""
     for c in range(cases):
         g = c % 7 + 1
-        nq, mt = int(rng.integers(1, 300)), int(rng.integers(1, 60))
-        nw = -(-nq // bitpal.WORD)
+        blocks = [1, 2, 9, None][int(rng.integers(0, 4))]
+        bands = int(rng.integers(1, 5))
+        nq = int(rng.integers(1, bitpal.BAND * bands * bitpal.WORD + 1))
+        mt = int(rng.integers(1, 90)) if c % 4 else int(rng.integers(90, 300))
+        rows = bitpal.band_edge_rows(nq) if c % 2 else None
+        ok, where = gfill_case(dll, rng, nq, mt, g, blocks, rows, shallow=c % 3 == 0,
+                               concurrent=c % 5 == 0)
+        if not ok:
+            sys.exit(f"bitpal_gfill / bitpal_capture_fill differs from fill_g_plain: {where}")
+
+
+def _bitpal_cases(dll, rng, cases):
+    """``bitpal_batch_fill`` against ``batch_fill_plain``: g = 1..7 in turn,
+    every words-per-thread count, ragged batches with 1 x 1 pairs."""
+    for c in range(cases):
+        g = c % 7 + 1
         k = [1, 2, 4, 8, 16][c % 5]
-        threads = -(-nw // k)
-        q = torch.from_numpy(rng.integers(0, 5, nq).astype(np.int8))
-        t = torch.from_numpy(rng.integers(0, 5, mt).astype(np.int8))
-        eq = bitpal._eq_planes(q, nq)
-        planes = torch.empty((bitpal.n_planes(g), nw), dtype=torch.int64)
-        err = dll.bitpal_gfill(t.data_ptr(), eq.data_ptr(), mt, nw, g, k, threads,
-                               planes.data_ptr(), None)
-        want = torch.stack(bitpal.fill_g_plain(t, eq, nq, g)[0])
-        if err or not torch.equal(planes, want):
-            sys.exit(f"bitpal_gfill differs from fill_g_plain: g {g}, {nq} x {mt}, k {k}")
         P = int(rng.integers(1, 6))
         nqs = rng.integers(1, 300, P)
         mts = rng.integers(1, 60, P)
@@ -573,9 +676,12 @@ def main() -> None:
         if not ok:
             sys.exit(f"band_batch_fill differs from xla.score_batch: {info}")
     print(f"[rehearse] band_batch_fill equal to xla.score_batch in {args.cases} batches")
+    _gfill_cases(dll, rng, args.cases // 2)
+    print(f"[rehearse] bitpal_gfill and bitpal_capture_fill equal to fill_g_plain in "
+          f"{args.cases // 2} cases (one band and many, bands past the blocks, rings of 2 "
+          f"rows, captures on band edges, blocks at once)")
     _bitpal_cases(dll, rng, args.cases // 2)
-    print(f"[rehearse] bitpal_gfill equal to fill_g_plain and bitpal_batch_fill to "
-          f"batch_fill_plain in {args.cases // 2} cases each")
+    print(f"[rehearse] bitpal_batch_fill equal to batch_fill_plain in {args.cases // 2} cases")
     _wave_cases(dll, rng, args.cases // 2)
     print(f"[rehearse] bitpal_rc_fill equal to fill_rc_plain, bitpal_rc_chunk and "
           f"bitpal_gfill_chunk to chunk_plain chunk by chunk in {args.cases // 2} cases each")

@@ -105,10 +105,12 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(library_path())
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.bitpal_gfill.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
+        # the pipelined bit-parallel fills: blocks, then the ring, its depth
+        # and the flags
+        gfill = [vp, vp, i64, i32, i32, i32, vp, i32, vp]
+        lib.bitpal_gfill.argtypes = gfill + [vp, vp]
         lib.bitpal_gfill.restype = i32
-        lib.bitpal_capture_fill.argtypes = [
-            vp, vp, i64, i32, i32, i32, i32, vp, i32, vp, vp, vp]
+        lib.bitpal_capture_fill.argtypes = gfill + [vp, i32, vp, vp, vp]
         lib.bitpal_capture_fill.restype = i32
         lib.bitpal_rc_fill.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
         lib.bitpal_rc_fill.restype = i32

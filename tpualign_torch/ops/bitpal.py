@@ -18,7 +18,12 @@ The port's geometry, not the TPU's:
   byte) matches 0 as in ``tpualign.ops.oracle``.  Rows past ``nq`` match
   nothing.
 - Word ``w`` computes column ``d - w`` at step ``d``: a plain wavefront, with
-  none of the TPU schedule's stagger, delay lines or lane rolls.
+  none of the TPU schedule's stagger, delay lines or lane rolls.  On the
+  card (``csrc/bitpal_gfill.cu``) the words are cut into bands of
+  :data:`BAND` words, one warp a band, one word a lane, the bands side by
+  side over many blocks of one warp, each band's bottom ``h_out`` stream
+  handed to the next band through a ring of rows in global memory with
+  progress flags (:func:`pipeline_plan`).
 
 Two kernels of one source (``csrc/bitpal_gfill.cu``), each with a plain
 version that shares its contract, so they compare word for word; each
@@ -65,10 +70,23 @@ WORD = 64  # query rows per int64 word
 ALPHABET = 5  # match planes for codes 0..4 (.bdna: 0 = gap byte, 1..4 = ATGC)
 #: largest reduced gap weight of the (1, 0, -g) family (``tpualign``'s MAX_G)
 MAX_G = 7
-#: kernel geometry: one block of up to MAX_THREADS threads, each owning K
+#: the one-block kernels' geometry (K5's batch, one block a pair, and the
+#: staggered fills of ``csrc/bitpal_rc.cu``), and the family's routing rule
+#: (:func:`kernel_geometry`, :func:`_orientation`, ``hirschberg``'s
+#: MAX_QUERY_ROWS): one block of up to MAX_THREADS threads, each owning K
 #: consecutive words, K a power of two up to MAX_K (registers per thread)
 MAX_THREADS = 1024
 MAX_K = 16
+#: the pipelined fill (``csrc/bitpal_gfill.cu``, K1, K2 and K4's captures):
+#: bands of BAND words, one warp a band, one word a lane, at most
+#: BLOCKS_PER_SM bands in flight on each of the H100's SMS SMs (a warp a
+#: scheduler).  Lanes of two words or more and bands of several warps
+#: measured slower at every shape (``tools/ab_bitpal_gfill.py``)
+BAND = 32
+SMS = 132
+BLOCKS_PER_SM = 4
+#: the longest text the pipelined fill takes (its progress flags are int32)
+MAX_PIPE_TEXT = 2**31 - 1
 #: most text columns a word advances per step (K3a's ``cols_per_step``)
 MAX_RC = 4
 #: text length past which a score runs a chunk of steps a launch.  Equal
@@ -109,9 +127,11 @@ def _from_unit(cfg: ScoringConfig, total_len, unit_score):
 
 
 def kernel_geometry(nw: int) -> Tuple[int, int]:
-    """``(k, threads)`` of the one-block kernel for ``nw`` words: the fewest
-    words per thread that fit the block.  Raises ValueError past
-    ``MAX_THREADS * MAX_K`` words (a multi-block wavefront is later work)."""
+    """``(k, threads)`` of the one-block kernels (K5's batch, the staggered
+    fills) for ``nw`` words: the fewest words per thread that fit the
+    block.  Raises ValueError past ``MAX_THREADS * MAX_K`` words, the
+    family's routing rule (:func:`_orientation`) for every kernel, the
+    pipelined fill included."""
     k = 1
     while k <= MAX_K:
         threads = -(-nw // k)
@@ -127,8 +147,9 @@ def kernel_geometry(nw: int) -> Tuple[int, int]:
 def _orientation(m: int, n: int) -> bool:
     """True if ``s1`` (length m) becomes the query (bit axis).
 
-    The port's cost model is its kernel's: the block runs ``mt + threads - 1``
-    steps and each thread works through its ``k`` words per step, threads in
+    The cost model is the one-block kernel's, kept as the routing rule
+    since the pipelined fill: the block runs ``mt + threads - 1`` steps and
+    each thread works through its ``k`` words per step, threads in
     parallel, so the cost is ``(mt + threads - 1) * k``.  The longer
     sequence usually wins (fewer steps) until its words no longer fit one
     word per thread.  Ties go to ``s1``.  Only orientations the kernel can
@@ -428,52 +449,117 @@ def fill_plain(text: torch.Tensor, eq: torch.Tensor, nq: int):
     return fill_g_plain(text, eq, nq, 1)[0]
 
 
-def _gfill_launch(text, eq, nq: int, g: int, rows):
+class PipePlan(NamedTuple):
+    """One launch of the pipelined fill: ``bands`` bands of :data:`BAND`
+    words over ``blocks`` blocks of one warp, a ring of ``depth`` rows of
+    ``mt`` bytes (0 with one band)."""
+
+    blocks: int
+    bands: int
+    depth: int
+
+
+def pipeline_plan(nw: int, mt: int, blocks: Optional[int] = None,
+                  budget: Optional[int] = None) -> PipePlan:
+    """The launch of the pipelined fill of ``nw`` words and ``mt`` columns:
+    ``ceil(nw / BAND)`` bands over ``blocks`` blocks, default ``min(bands,
+    SMS * BLOCKS_PER_SM)``.  The ring holds ``min(bands, blocks + 1)`` rows
+    of ``mt`` bytes (a block reads the row above while the other blocks'
+    bands are in flight), fewer if they pass ``budget`` bytes (default
+    ``band.RING_BUDGET``; the CUDA wrappers pass ``band.ring_budget()``),
+    never fewer than 2 with two bands or more.  ValueError for a shape or
+    a block count the kernel refuses; ``torch.OutOfMemoryError`` when 2
+    rows do not fit the budget, which no route falls back on."""
+    if nw < 1:
+        raise ValueError(f"the fill needs a word of query rows, got {nw} words")
+    if not 0 <= mt <= MAX_PIPE_TEXT:
+        raise ValueError(f"the pipelined fill takes texts of 0..{MAX_PIPE_TEXT} columns, "
+                         f"got {mt}")
+    bands = -(-nw // BAND)
+    blocks = min(bands, SMS * BLOCKS_PER_SM) if blocks is None else int(blocks)
+    if blocks < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    if bands == 1:
+        return PipePlan(blocks, bands, 0)
+    if budget is None:
+        from .band import RING_BUDGET as budget  # band imports this module
+    depth = min(bands, blocks + 1, int(budget) // max(mt, 1))
+    if depth < 2:
+        raise torch.OutOfMemoryError(
+            f"a ring of 2 rows of {mt} columns takes {2 * mt} bytes, past the budget of "
+            f"{budget} bytes of device memory")
+    return PipePlan(blocks, bands, depth)
+
+
+def row_owner(row: int) -> Tuple[int, int]:
+    """``(band, lane)``: the band and the lane of its warp that own DP row
+    ``row`` (1-based) in the pipelined fill; the lane stores the row's
+    captures."""
+    return divmod((row - 1) // WORD, BAND)
+
+
+def band_edge_rows(nq: int) -> list:
+    """Rows where a capture is most easily lost in the pipelined fill: the
+    first and last rows of the first two bands' first and last words, row
+    1 and row ``nq``."""
+    rows = {1, nq}
+    for edge in (BAND * WORD, 2 * BAND * WORD):  # the first two bands' last rows
+        rows |= {edge - WORD, edge - WORD + 1, edge - 1, edge, edge + 1, edge + WORD}
+    return sorted(r for r in rows if 1 <= r <= nq)
+
+
+def _gfill_launch(text, eq, nq: int, g: int, rows, blocks):
     """Launch ``bitpal_gfill`` (``rows`` None) or ``bitpal_capture_fill``
-    on the current stream; returns ``(planes, caps)``."""
+    on the current stream over :func:`pipeline_plan`'s plan (the ring
+    within ``band.ring_budget``: ``torch.OutOfMemoryError`` past it);
+    returns ``(planes, caps)``."""
     if text.device.type != "cuda":
         raise ValueError(f"the fills run on cpu or cuda tensors, got {text.device}")
+    from .band import ring_budget  # band imports this module
     nw, mt = eq.shape[1], text.shape[0]
-    k, threads = kernel_geometry(nw)
-    lib = _build.load()
     dev = text.device
+    plan = pipeline_plan(nw, mt, blocks, ring_budget(dev))
+    lib = _build.load()
     planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
     J = 0 if rows is None else len(rows)
     caps = torch.empty((J, mt), dtype=torch.int8, device=dev)
+    ring = torch.empty((plan.depth, mt), dtype=torch.uint8, device=dev) if plan.depth else None
+    sync = torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
+    head = (text.data_ptr(), eq.data_ptr(), mt, nw, g, plan.blocks,
+            None if ring is None else ring.data_ptr(), plan.depth, sync.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if rows is None:
-            err = lib.bitpal_gfill(
-                text.data_ptr(), eq.data_ptr(), mt, nw, g, k, threads,
-                planes.data_ptr(), stream,
-            )
+            err = lib.bitpal_gfill(*head, planes.data_ptr(), stream)
         else:
             rows_t = torch.tensor(rows, dtype=torch.int32).to(dev)
-            err = lib.bitpal_capture_fill(
-                text.data_ptr(), eq.data_ptr(), mt, nw, g, k, threads,
-                rows_t.data_ptr(), J, caps.data_ptr(), planes.data_ptr(), stream,
-            )
+            err = lib.bitpal_capture_fill(*head, rows_t.data_ptr(), J, caps.data_ptr(),
+                                          planes.data_ptr(), stream)
     if err != 0:
         name = "bitpal_gfill" if rows is None else "bitpal_capture_fill"
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     return planes.unbind(0), caps
 
 
-def fill_g(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int):
+def fill_g(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
+           blocks: Optional[int] = None):
     """The (1, 0, -g) fill's final column (K1's contract at g = 1, K2's at
     g >= 2) on the device of its tensors: the CUDA kernel ``bitpal_gfill``
     (``csrc/bitpal_gfill.cu``)
     for CUDA tensors, :func:`fill_g_plain` for CPU tensors.  Returns the
     :func:`n_planes` planes of :func:`fill_g_plain`.
 
-    On CUDA it allocates the outputs, launches on the current stream without
+    ``blocks``: the launch's blocks (:func:`pipeline_plan`'s default where
+    None); it never changes the result.  On CUDA it allocates the outputs,
+    then the ring and the flags, launches on the current stream without
     synchronising, and counts the launch in ``fill_g.launches``.  A launch
-    the device refuses raises; nothing falls back to the plain version."""
+    the device refuses raises, and so does a ring that does not fit the
+    device's memory; nothing falls back to the plain version."""
     _check_fill_args(text, eq, nq)
     _check_g(g)
     if text.device.type == "cpu":
         return fill_g_plain(text, eq, nq, g)[0]
-    planes, _ = _gfill_launch(text, eq, nq, g, None)
+    planes, _ = _gfill_launch(text, eq, nq, g, None, blocks)
     fill_g.launches += 1
     return planes
 
@@ -482,21 +568,21 @@ fill_g.launches = 0
 
 
 def capture_fill(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
-                 cap_rows):
+                 cap_rows, blocks: Optional[int] = None):
     """The (1, 0, -g) fill's final column plus the horizontal deltas of the
     DP rows ``cap_rows`` at every column (K4's contract), on the device of
     its tensors: the CUDA kernel ``bitpal_capture_fill``
     (``csrc/bitpal_gfill.cu``) for CUDA tensors, :func:`fill_g_plain` for
     CPU tensors.  Returns ``(planes, caps)`` as :func:`fill_g_plain` does.
 
-    On CUDA it launches as :func:`fill_g` does and counts the launch in
-    ``capture_fill.launches``."""
+    ``blocks`` as in :func:`fill_g`.  On CUDA it launches as
+    :func:`fill_g` does and counts the launch in ``capture_fill.launches``."""
     _check_fill_args(text, eq, nq)
     _check_g(g)
     rows = _check_cap_rows(cap_rows, nq)
     if text.device.type == "cpu":
         return fill_g_plain(text, eq, nq, g, rows)
-    result = _gfill_launch(text, eq, nq, g, rows)
+    result = _gfill_launch(text, eq, nq, g, rows, blocks)
     capture_fill.launches += 1
     return result
 

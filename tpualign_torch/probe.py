@@ -175,13 +175,13 @@ def main() -> None:
     # 2: the sweep
     for nq_s in SWEEP_ROWS:
         nw = -(-nq_s // bitpal.WORD)
-        k, threads = bitpal.kernel_geometry(nw)
+        plan = bitpal.pipeline_plan(nw, SWEEP_TEXT)
         ms = _kernel_ms(*_planes(nq_s, SWEEP_TEXT, nq_s), nq_s)
-        step_ns = ms * 1e6 / (SWEEP_TEXT + threads - 1)
-        print(f"[sweep mt {SWEEP_TEXT}] nq {nq_s:7d} nw {nw:5d} k {k:2d} "
-              f"threads {threads:4d}: {ms:9.3f} ms, {step_ns:8.1f} ns/step, "
-              f"{step_ns / k:6.1f} ns/step/word-per-thread, "
-              f"{nq_s * SWEEP_TEXT / ms / 1e6:7.2f} GCUPS")
+        steps = SWEEP_TEXT + nw - 1  # the wavefront's path: the last word trails by nw - 1
+        step_ns = ms * 1e6 / steps
+        print(f"[sweep mt {SWEEP_TEXT}] nq {nq_s:7d} nw {nw:5d} blocks {plan.blocks:3d} "
+              f"bands {plan.bands:3d}: {ms:9.3f} ms, {step_ns:8.1f} ns a step of the "
+              f"wavefront's {steps}, {nq_s * SWEEP_TEXT / ms / 1e6:7.2f} GCUPS")
 
     # 4: device time by kernel, one warm score of the 64gb shape
     fn = bitpal.score_fn(m, n, device="cuda")
