@@ -148,10 +148,10 @@ BAND_BATCH_SOURCE = "tpualign_torch/csrc/band_batch.cu"
 #: band_fill, band_capture_fill (40 linear, 36 affine: local
 #: stops at 8 rows a thread), diag_fill, bitpal_batch_fill (5 words per
 #: thread x 3 plane counts), band_batch_fill (40 less local affine at 16
-#: rows a thread), bitpal_rc_kernel (3 rc x 5 words per thread),
-#: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes, x 5),
+#: rows a thread), bitpal_rc_kernel (3 rc, one word a lane),
+#: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes),
 #: diag_ckpt_kernel (5 rows per thread x global, local)
-N_INSTANTIATIONS = 6 + 40 + 76 + 1 + 15 + 38 + 15 + 30 + 10
+N_INSTANTIATIONS = 6 + 40 + 76 + 1 + 15 + 38 + 3 + 6 + 10
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -254,6 +254,9 @@ RC_REPLACES = {
 #: (text, query) lengths of the staggered fills' phase
 RC_SHAPES = dict(moderate=(200000, 2000), k4_plain=(30000, 2000), k3a=(1000000, 10000),
                  k3b=(4000000, 2000), short=(2000000, 200), k4=(2000000, 100000))
+#: the small holds' launches: (blocks, ring cut to 2 rows), the planner's
+#: (a band a block) and blocks forced below the bands
+RC_BLOCKS = [(None, False), (1, True), (2, True), (3, True)]
 
 
 def rc_phase(ctx, shapes, a20, b20, want20):
@@ -272,7 +275,7 @@ def rc_phase(ctx, shapes, a20, b20, want20):
 
     import tpualign_torch
     from tpualign_torch.config import ScoringConfig
-    from tpualign_torch.ops import bitpal
+    from tpualign_torch.ops import band, bitpal
 
     dev, rng, smi = ctx.dev, ctx.rng, ctx.smi
     t_phase = time.perf_counter()
@@ -299,11 +302,17 @@ def rc_phase(ctx, shapes, a20, b20, want20):
         t, q = torch.from_numpy(text).to(dev), torch.from_numpy(query).to(dev)
         return t, bitpal._eq_planes(q, nq), text, query
 
-    def chunk_holds(t, eq, nq, g, rc, lengths, geometry=None, plain_states=None):
+    def shallow_ring(steps):
+        """``band.ring_budget`` cut to a ring of 2 rows of ``steps`` bytes;
+        restore with ``band.ring_budget = ring_budget``."""
+        band.ring_budget = lambda *a, **kw: 2 * steps
+
+    def chunk_holds(t, eq, nq, g, rc, lengths, blocks=None, shallow=False):
         """The chunk entry chunk by chunk (chunk lengths cycled) from the
         boundary to the last step, each state held against the plain
-        chunk's from the same state; returns the plain's final state and
-        the plain's host ms."""
+        chunk's from the same state, each launch over ``blocks`` (and with
+        ``shallow`` a ring of 2 rows); returns the plain's final state,
+        the plain's host ms and the chunks."""
         name = "bitpal_rc_chunk" if rc > 1 else "bitpal_gfill_chunk"
         entry = bitpal.fill_rc_chunk if rc > 1 else bitpal.fill_g_chunk
         nw, mt = eq.shape[1], t.shape[0]
@@ -318,40 +327,53 @@ def rc_phase(ctx, shapes, a20, b20, want20):
             plain.append(bitpal.chunk_plain(tc, eqc, nq, g, rc, t0, steps, plain[-1]))
         plain_ms = (time.perf_counter() - t1) * 1e3
         state = bitpal.init_state(nw, g, dev)
-        for (t0, steps), want in zip(edges, plain[1:]):
-            state = (entry(t, eq, nq, rc, t0, steps, state, geometry) if rc > 1
-                     else entry(t, eq, nq, g, t0, steps, state, geometry))
-            hold(name, state, want, nq, g, f"{nq} x {mt}, steps {t0 + 1}..{t0 + steps}, "
-                                          f"rc {rc}, g {g}, geometry {geometry}")
+        ring_budget = band.ring_budget
+        try:
+            for (t0, steps), want in zip(edges, plain[1:]):
+                if shallow:
+                    shallow_ring(steps)
+                state = (entry(t, eq, nq, rc, t0, steps, state, blocks) if rc > 1
+                         else entry(t, eq, nq, g, t0, steps, state, blocks))
+                hold(name, state, want, nq, g, f"{nq} x {mt}, steps {t0 + 1}..{t0 + steps}, "
+                                              f"rc {rc}, g {g}, blocks {blocks}, ring of 2 "
+                                              f"{shallow}")
+        finally:
+            band.ring_budget = ring_budget
         return plain[-1], plain_ms, len(edges)
 
-    # small shapes: every instantiation <rc, k> of bitpal_rc_fill and
-    # bitpal_rc_chunk and <B, k> of bitpal_gfill_chunk, one warp and several
-    # (k = 1: 8 warps), codes 0..4, odd chunk lengths
+    # small shapes: every instantiation of bitpal_rc_fill and bitpal_rc_chunk
+    # (rc 2..4) and of bitpal_gfill_chunk (B = 2, 3, 4), at one band and at
+    # five over the planner's blocks and over 1, 2 and 3 blocks with rings
+    # of 2 rows; codes 0..4; chunk lengths 1, 31, 32 and 33 (edges inside the
+    # bands' dead ramps, band b's first 32b steps) and odd ones
     n_small = 0
-    many = {1: 8, 2: 4, 4: 2, 8: 2, 16: 2}
-    for kind, k, warps in itertools.product(("rc", "g2", "g3", "g4"), (1, 2, 4, 8, 16),
-                                            (1, None)):
-        warps = warps or many[k]
+    for kind, (blocks, shallow), bands in itertools.product(
+            ("rc", "g2", "g3", "g4"), RC_BLOCKS, (1, 5)):
         for sub in ((2, 3, 4) if kind == "rc" else (None,)):
             rc = sub or 1
             g = 1 if kind in ("rc", "g2") else int(rng.choice({"g3": (2, 3),
                                                                 "g4": (4, 5, 6, 7)}[kind]))
-            words = 32 * k * warps
-            nw = int(rng.integers(words - 32 * k + 1 if warps > 1 else 1, words + 1))
+            nw = int(rng.integers(32 * bands - 31, 32 * bands + 1))
             nq = 64 * nw - int(rng.integers(0, 64))
             t, eq, _, _ = inputs(int(rng.integers(30, 150)), nq, lo=0)
-            lengths = [2 * int(x) + 1 for x in rng.integers(0, 40, 3)]
-            final, _, _ = chunk_holds(t, eq, nq, g, rc, lengths, (k, 32 * warps))
+            lengths = [1, 31, 32, 33] + [2 * int(x) + 1 for x in rng.integers(0, 40, 2)]
+            final, _, _ = chunk_holds(t, eq, nq, g, rc, lengths, blocks, shallow)
             if rc > 1:
-                hold("bitpal_rc_fill", (bitpal.fill_rc(t, eq, nq, rc, (k, 32 * warps)), None),
-                     (final.planes, None), nq, 1, f"{nq} x {t.shape[0]}, rc {rc}, k {k}, "
-                                                  f"{warps} warps")
+                ring_budget = band.ring_budget
+                if shallow:
+                    shallow_ring(bitpal.total_steps(t.shape[0], nw, rc))
+                try:
+                    got = bitpal.fill_rc(t, eq, nq, rc, blocks)
+                finally:
+                    band.ring_budget = ring_budget
+                hold("bitpal_rc_fill", (got, None), (final.planes, None), nq, 1,
+                     f"{nq} x {t.shape[0]}, rc {rc}, blocks {blocks}, ring of 2 {shallow}")
             n_small += 1
     print(f"[staggered fills vs plain] {n_small} small cases: bitpal_rc_fill equal to the "
           f"plain fill and bitpal_rc_chunk and bitpal_gfill_chunk to chunk_plain chunk by "
-          f"chunk at odd chunk lengths (every <rc, k> and <B, k>, one warp and several, codes "
-          f"0..4); {time.perf_counter() - t_phase:.1f} s")
+          f"chunk (chunk lengths 1, 31, 32, 33 and odd; every rc and B; one band and five; "
+          f"the planner's blocks and 1, 2 and 3 blocks over rings of 2 rows; codes 0..4); "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
     # moderate shapes: one plain run in chunks holds K3a's one launch and
     # K3b's chunks (rc 4), and K4's chunks at g = 2
@@ -376,6 +398,11 @@ def rc_phase(ctx, shapes, a20, b20, want20):
     held["bitpal_rc_fill"].update(plain_ms=rc_plain_ms, plain_shape=f"{nq}x{mt}")
     held["bitpal_rc_chunk"].update(plain_ms=rc_plain_ms, plain_shape=f"{nq}x{mt}")
     held["bitpal_gfill_chunk"].update(plain_ms=g_plain_ms, plain_shape=f"{nq4}x{mt4}")
+
+    def plan_of(wrapper):
+        """The plan of the wrapper's last launch, as it ran."""
+        plan = wrapper.last_plan
+        return dict(blocks=plan.blocks, bands=plan.bands, depth=plan.depth)
 
     def words_bound(mt, nw, g, state_bytes=0):
         """Bytes: the text, the match planes, the final planes (and the
@@ -430,13 +457,13 @@ def rc_phase(ctx, shapes, a20, b20, want20):
     if kind != "rc":
         raise AssertionError(f"{s1.size} x {s2.size} took {kind}")
     rc_ms, rc_runs, planes = ctx.cuda_ms(lambda: bitpal.fill_rc(x, eq, nq, rc), runs=3)
+    plan3a = plan_of(bitpal.fill_rc)
     k1_ms, _, k1p = ctx.cuda_ms(lambda: bitpal.fill_g(x, eq, nq, 1), runs=1)
     hold("bitpal_rc_fill", (planes, None), (k1p, None), nq, 1, f"{nq} x {mt} against fill_g")
     if got != int(bitpal._reduce_score(k1p, nq, mt)):
         raise AssertionError(f"{mt} x {nq}: align_score {got} != fill_g's score")
-    warp_geom = (8, 32)
-    warp_ms, _, wplanes = ctx.cuda_ms(lambda: bitpal.fill_rc(x, eq, nq, rc, warp_geom), runs=3)
-    hold("bitpal_rc_fill", (wplanes, None), (k1p, None), nq, 1, f"{nq} x {mt}, one warp")
+    block1_ms, _, wplanes = ctx.cuda_ms(lambda: bitpal.fill_rc(x, eq, nq, rc, 1), runs=3)
+    hold("bitpal_rc_fill", (wplanes, None), (k1p, None), nq, 1, f"{nq} x {mt}, one block")
     del planes, wplanes, k1p
     # cols_per_step=1: K1 on the port's own orientation (1M on the bit axis)
     own = bitpal._orientation(s1.size, s2.size)
@@ -446,17 +473,16 @@ def rc_phase(ctx, shapes, a20, b20, want20):
     own_ms, _, _ = ctx.cuda_ms(lambda: bitpal.fill_g(xq, eq1, q1.size, 1), runs=1)
     del eq1, xq
     b3a = words_bound(mt, eq.shape[1], 1)
-    k, threads = bitpal.wave_geometry(eq.shape[1])
     print(f"[path: align_score K3a] {mt} x {nq}: score {got} equal to fill_g's on the same "
           f"query and text, planes word for word; launches {counts3a}; wall {wall:.3f} s")
-    print(f"[timing] {smi}: {nq} x {mt}: bitpal_rc_fill rc {rc} (k {k}, {threads} threads) "
+    print(f"[timing] {smi}: {nq} x {mt}: bitpal_rc_fill rc {rc} ({plan3a}) "
           f"median of 3 {fmt(rc_ms, mt * nq)} (runs {', '.join(f'{v:.3f}' for v in rc_runs)}); "
-          f"one warp {warp_geom} {fmt(warp_ms, mt * nq)}; bitpal_gfill g = 1 on the same "
+          f"one block (the bands in turn) {fmt(block1_ms, mt * nq)}; bitpal_gfill g = 1 on the same "
           f"orientation {fmt(k1_ms, mt * nq)}; cols_per_step=1 (K1 on the port's orientation, "
           f"{q1.size} rows) {fmt(own_ms, mt * nq)}; bound {b3a[0]:.4f} ms ({b3a[1]})")
     held["bitpal_rc_fill"].update(launches=counts3a["fill_rc"], ms=rc_ms, shape=f"{nq}x{mt}",
-                                  bound_ms=b3a[0], bound_by=b3a[1], library_ms=None,
-                                  one_warp_ms=warp_ms, k1_same_orientation_ms=k1_ms,
+                                  bound_ms=b3a[0], bound_by=b3a[1], library_ms=None, **plan3a,
+                                  one_block_ms=block1_ms, k1_same_orientation_ms=k1_ms,
                                   k1_own_orientation_ms=own_ms, ms_20k=ms20, k1_ms_20k=k1_20)
 
     # 4,000,000 x 2,000 through align_score: K3b's chunks; 3 chunks against
@@ -474,6 +500,7 @@ def rc_phase(ctx, shapes, a20, b20, want20):
          nq, 1, f"{nq} x {mt}, 3 chunks against one bitpal_rc_fill")
     ch_ms, ch_runs, chunked = ctx.cuda_ms(lambda: bitpal.fill_chunked(x, eq, nq, 1, rc, t_steps),
                                           runs=3)
+    plan3b = plan_of(bitpal.fill_rc_chunk)
     hold("bitpal_rc_chunk", (chunked, None), (one, None), nq, 1,
          f"{nq} x {mt}, {n_route} chunks against one bitpal_rc_fill")
     if got != int(bitpal._reduce_score(one, nq, mt)):
@@ -488,7 +515,8 @@ def rc_phase(ctx, shapes, a20, b20, want20):
           f"{ch_ms / one_ms - 1:+.4f}; bound {b3b[0]:.4f} ms ({b3b[1]})")
     held["bitpal_rc_chunk"].update(launches=counts3b["fill_rc_chunk"], ms=ch_ms,
                                    shape=f"{nq}x{mt}", bound_ms=b3b[0], bound_by=b3b[1],
-                                   library_ms=None, one_launch_ms=one_ms)
+                                   library_ms=None, one_launch_ms=one_ms,
+                                   **plan3b)
     del one, chunked
 
     # 2,000,000 x 200 (ROADMAP item 5): K3b's chunks against K1
@@ -516,6 +544,7 @@ def rc_phase(ctx, shapes, a20, b20, want20):
     got, counts4, wall = counted("K4", s1, s2, cfg2, "fill_g_chunk", n_route)
     ch4_ms, _, chunked = ctx.cuda_ms(lambda: bitpal.fill_chunked(x, eq, nq, 2, 1, t_steps),
                                      runs=1)
+    plan4 = plan_of(bitpal.fill_g_chunk)
     one4_ms, _, one = ctx.cuda_ms(lambda: bitpal.fill_g(x, eq, nq, 2), runs=1)
     hold("bitpal_gfill_chunk", (chunked, None), (one, None), nq, 2,
          f"{nq} x {mt}, {n_route} chunks against one bitpal_gfill")
@@ -531,7 +560,8 @@ def rc_phase(ctx, shapes, a20, b20, want20):
           f"costs {ch4_ms / one4_ms - 1:+.4f}; bound {b4[0]:.4f} ms ({b4[1]})")
     held["bitpal_gfill_chunk"].update(launches=counts4["fill_g_chunk"], ms=ch4_ms,
                                       shape=f"{nq}x{mt}", bound_ms=b4[0], bound_by=b4[1],
-                                      library_ms=None, one_launch_ms=one4_ms)
+                                      library_ms=None, one_launch_ms=one4_ms,
+                                      **plan4)
     print(f"[phase i] {time.perf_counter() - t_phase:.1f} s")
     return [{"name": name, "route": "cuda", "source": RC_SOURCE, "replaces": RC_REPLACES[name],
              **held[name]} for name in RC_REPLACES]

@@ -286,8 +286,10 @@ def test_wrappers_refuse_bad_arguments():
         tbp.fill_rc_chunk(text, eq, 70, 2, 0, 0, tbp.init_state(2, 1, "cpu"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         tbp.fill_rc(text.to("meta"), eq.to("meta"), 70, 2)
-    with pytest.raises(ValueError, match="geometry"):
-        tbp._check_geometry(100, (1, 64))
+    with pytest.raises(ValueError, match="blocks"):
+        tbp.fill_rc(text, eq, 70, 2, blocks=0)
+    with pytest.raises(ValueError, match="blocks"):
+        tbp.fill_g_chunk(text, eq, 70, 1, 0, 4, tbp.init_state(2, 1, "cpu"), blocks=-1)
     assert tbp.wave_geometry(1) == (1, 32) and tbp.wave_geometry(1000) == (1, 1024)
     assert tbp.wave_geometry(1025) == (2, 544)
 

@@ -1,6 +1,6 @@
 """A/B of versions of ``tpualign_torch/csrc/bitpal_gfill.cu`` on one card,
 in one process: each version builds alone into a library of its own (the
-port's flags, ``bitpal_step.cuh`` from the source's directory), and the
+port's flags, the headers it includes from the source's directory), and the
 script prints each version's ``[ptxas]`` registers and spills per
 instantiation, then times the same fills of every version in the order
 A B .. B A, CUDA events, median of ``--runs`` after a warm-up:

@@ -7,7 +7,8 @@ Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points),
 the template they share, ``band_fill.cuh``), ``diag_fill.cu`` (with its
 wavefront, ``diag_fill.cuh``), and ``bitpal_gfill.cu``,
 ``bitpal_batch.cu`` and ``bitpal_rc.cu`` (with the step they share,
-``bitpal_step.cuh``) with
+``bitpal_step.cuh``, and the band pieces of the first and last,
+``bitpal_band.cuh``) with
 ``g++`` as C++20 through a shim ``cuda_runtime.h``: one ``std::thread``
 per CUDA thread of a block, the blocks of a grid one after another,
 ``__syncthreads`` as a ``std::barrier``, the warp shuffles (``up``,
@@ -226,7 +227,7 @@ using ::std::memory_order_release;
 LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<(\w+), (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
 SOURCES = ("band_fill.cu", "band_capture_affine.cu", "band_batch.cu", "diag_fill.cu",
            "diag_ckpt.cu", "bitpal_gfill.cu", "bitpal_batch.cu", "bitpal_rc.cu")
-HEADERS = ("band_fill.cuh", "diag_fill.cuh", "bitpal_step.cuh")
+HEADERS = ("band_fill.cuh", "diag_fill.cuh", "bitpal_step.cuh", "bitpal_band.cuh")
 
 
 def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
@@ -259,7 +260,7 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
                    check=True)
     dll = ctypes.CDLL(lib)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    chunk = [vp, vp, i64] + [i32] * 4 + [i64, i64] + [vp] * 5
+    chunk = [vp, vp, i64] + [i32] * 3 + [vp, i32, vp, i64, i64] + [vp] * 5
     argtypes = {
         "band_fill": [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp],
         "band_capture_fill": ([vp, i32, vp, i32, vp] + [i32] * 8
@@ -274,7 +275,7 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
                                 + [vp, vp, vp]),
         "rehearse_concurrent": [i32],
         "bitpal_batch_fill": [vp, i64, vp, vp] + [i32] * 5 + [vp, vp],
-        "bitpal_rc_fill": [vp, vp, i64] + [i32] * 4 + [vp, vp],
+        "bitpal_rc_fill": [vp, vp, i64] + [i32] * 3 + [vp, i32, vp, vp, vp],
         "bitpal_rc_chunk": chunk,
         "bitpal_gfill_chunk": chunk,
     }
@@ -416,6 +417,13 @@ def _band_batch_case(dll, rng, c):
     return err == 0 and out.tolist() == want, (cfg, lens.tolist(), k, threads, out, want)
 
 
+def _flags_of(sync, plan, steps):
+    """The flags after a pipelined launch: the ticket past every band and
+    block, every band with a band below published all ``steps``."""
+    return (int(sync[0]) == plan.bands + plan.blocks
+            and sync[1:].tolist() == [steps] * (plan.bands - 1) + [0])
+
+
 def gfill_case(dll, rng, nq, mt, g, blocks=None, rows=None, shallow=False,
                concurrent=False, lo=0):
     """``bitpal_gfill`` and, with ``rows``, ``bitpal_capture_fill`` against
@@ -452,10 +460,7 @@ def gfill_case(dll, rng, nq, mt, g, blocks=None, rows=None, shallow=False,
     finally:
         dll.rehearse_concurrent(0)
     want_planes, want_caps = bitpal.fill_g_plain(t, eq, nq, g, rows)
-    progress = sync[1:].tolist()
-    flags = (int(sync[0]) == plan.bands + plan.blocks
-             and progress == [mt] * (plan.bands - 1) + [0])
-    ok = (not err and torch.equal(planes, torch.stack(want_planes)) and flags
+    ok = (not err and torch.equal(planes, torch.stack(want_planes)) and _flags_of(sync, plan, mt)
           and (caps is None or torch.equal(caps, want_caps)))
     return ok, f"g {g}, {nq} x {mt}, {plan}, rows {rows}, concurrent {concurrent}"
 
@@ -508,62 +513,105 @@ def _bitpal_cases(dll, rng, cases):
                      f"{mts.tolist()}, queries {nqs.tolist()}, k {k}")
 
 
+def wave_case(dll, rng, nq, mt, g, rc, lengths, blocks=None, shallow=False,
+              concurrent=False, lo=0, junk=False):
+    """The staggered fills of ``bitpal_rc.cu`` on their pipeline:
+    ``bitpal_rc_fill`` (rc > 1) against ``fill_rc_plain``, then the chunk
+    entry (``bitpal_rc_chunk`` at rc > 1, ``bitpal_gfill_chunk`` at rc 1
+    and g) chunk by chunk against ``chunk_plain``, chunk lengths cycled
+    from ``lengths`` up to the last step or past it: planes and hand-offs
+    word for word after every chunk, flags checked after every launch,
+    and the last chunk's planes against the one-launch plain fill.  The
+    chunks share one ring and one set of flags, zeroed before each launch,
+    as ``bitpal.fill_chunked``'s do, so the ring holds the previous
+    chunk's bytes; the ring and the outputs start as garbage.  ``junk``
+    starts the chunks from a random state (planes and whole hand-off
+    bytes).  ``blocks`` as ``bitpal.wave_plan`` takes it; ``shallow`` cuts
+    the ring to 2 rows; ``concurrent`` runs the grid's blocks at once.
+    Returns ``(ok, where)``."""
+    nw = -(-nq // bitpal.WORD)
+    gg = 1 if rc > 1 else g
+    B = bitpal.n_planes(gg)
+    q = torch.from_numpy(rng.integers(lo, 5, nq).astype(np.int8))
+    t = torch.from_numpy(rng.integers(lo, 5, mt).astype(np.int8))
+    eq = bitpal._eq_planes(q, nq)
+    total = bitpal.total_steps(mt, nw, rc)
+    where = f"rc {rc}, g {gg}, {nq} x {mt}, blocks {blocks}, ring of 2 {shallow}"
+
+    def scratch(steps):
+        plan = bitpal.wave_plan(nw, steps, blocks)
+        if shallow and plan.depth > 2:
+            plan = plan._replace(depth=2)
+        ring = torch.from_numpy(rng.integers(0, 256, (max(plan.depth, 1), max(steps, 1)))
+                                .astype(np.uint8))
+        return plan, ring, torch.zeros(plan.bands + 1, dtype=torch.int32)
+
+    dll.rehearse_concurrent(int(concurrent))
+    try:
+        if rc > 1:
+            plan, ring, sync = scratch(total)
+            planes = torch.from_numpy(rng.integers(-2**62, 2**62, (2, nw)))
+            err = dll.bitpal_rc_fill(t.data_ptr(), eq.data_ptr(), mt, nw, rc, plan.blocks,
+                                     ring.data_ptr(), plan.depth, sync.data_ptr(),
+                                     planes.data_ptr(), None)
+            want = torch.stack(bitpal.fill_rc_plain(t, eq, nq, rc))
+            if err or not torch.equal(planes, want) or not _flags_of(sync, plan, total):
+                return False, f"bitpal_rc_fill, {where}, {plan}"
+        entry = dll.bitpal_rc_chunk if rc > 1 else dll.bitpal_gfill_chunk
+        plan, ring, sync = scratch(max(lengths))
+        if junk:
+            state = bitpal.WaveState(
+                tuple(torch.from_numpy(rng.integers(-2**63, 2**63 - 1, nw, dtype=np.int64))
+                      for _ in range(B)),
+                torch.from_numpy(rng.integers(0, 256, nw).astype(np.uint8)))
+        else:
+            state = bitpal.init_state(nw, gg, "cpu")
+        t0, i = 0, 0
+        while t0 < total:
+            t_steps = lengths[i % len(lengths)]
+            v_out = torch.from_numpy(rng.integers(-2**62, 2**62, (B, nw)))
+            h_out = torch.from_numpy(rng.integers(0, 256, nw).astype(np.uint8))
+            v_in = torch.stack(state.planes)
+            sync.zero_()
+            err = entry(t.data_ptr(), eq.data_ptr(), mt, nw, rc if rc > 1 else gg, plan.blocks,
+                        ring.data_ptr(), plan.depth, sync.data_ptr(), t0, t_steps,
+                        v_in.data_ptr(), state.hand.data_ptr(), v_out.data_ptr(),
+                        h_out.data_ptr(), None)
+            state = bitpal.chunk_plain(t, eq, nq, gg, rc, t0, t_steps, state)
+            if err or not (torch.equal(v_out, torch.stack(state.planes))
+                           and torch.equal(h_out, state.hand)
+                           and _flags_of(sync, plan, t_steps)):
+                return False, f"chunk at steps {t0 + 1}..{t0 + t_steps}, {where}, {plan}"
+            t0, i = t0 + t_steps, i + 1
+    finally:
+        dll.rehearse_concurrent(0)
+    want = bitpal.fill_g_plain(t, eq, nq, gg)[0] if rc == 1 else bitpal.fill_rc_plain(
+        t, eq, nq, rc)
+    if not junk and not all(torch.equal(a, b) for a, b in zip(state.planes, want)):
+        return False, f"chunks in turn differ from one fill: {where}"
+    return True, where
+
+
 def _wave_cases(dll, rng, cases):
     """``bitpal_rc_fill`` against ``fill_rc_plain``, and ``bitpal_rc_chunk``
-    and ``bitpal_gfill_chunk`` chunk by chunk against ``chunk_plain`` (the
-    state after every chunk, word for word, and the last chunk's planes
-    against the one-launch plain fill): rc 2..4 and g 1..7 in turn, every
-    words-per-thread count, one warp and several, chunk edges anywhere from
-    the ramp to past the end, codes 0..4."""
+    and ``bitpal_gfill_chunk`` chunk by chunk against ``chunk_plain``
+    (``wave_case``): rc 1..4 and g 1..7 in turn, one band and up to five,
+    forced block counts, rings of 2 rows, chunk edges anywhere from the
+    ramp to past the end, codes 0..4, at times the blocks at once or a
+    random state in."""
     for c in range(cases):
-        rc, g = 2 + c % 3, 1 + c % 7
-        k = [1, 2, 4, 8, 16, 1, 2][(c // 3) % 7]
-        # one warp at every k, or up to four at k <= 2 with words in the
-        # last (and at times a spare warp past them)
-        warps = 1 if k > 2 else int(rng.integers(1, 5))
-        lo = 0 if warps == 1 else 32 * k * (warps - 1) * bitpal.WORD
-        nq, mt = int(rng.integers(lo + 1, 32 * k * warps * bitpal.WORD + 1)), int(rng.integers(1, 80))
-        nw = -(-nq // bitpal.WORD)
-        threads = 32 * (warps + int(rng.integers(0, 2)) * (c % 4 == 0))
-        q = torch.from_numpy(rng.integers(0, 5, nq).astype(np.int8))
-        t = torch.from_numpy(rng.integers(0, 5, mt).astype(np.int8))
-        eq = bitpal._eq_planes(q, nq)
-        where = f"rc {rc}, g {g}, {nq} x {mt}, k {k}, {threads} threads"
-        planes = torch.empty((2, nw), dtype=torch.int64)
-        err = dll.bitpal_rc_fill(t.data_ptr(), eq.data_ptr(), mt, nw, rc, k, threads,
-                                 planes.data_ptr(), None)
-        want = torch.stack(bitpal.fill_rc_plain(t, eq, nq, rc))
-        if err or not torch.equal(planes, want):
-            sys.exit(f"bitpal_rc_fill differs from fill_rc_plain: {where}")
-        for entry, gg, r in ((dll.bitpal_rc_chunk, 1, rc), (dll.bitpal_gfill_chunk, g, 1)):
-            total = bitpal.total_steps(mt, nw, r)
-            state = bitpal.init_state(nw, gg, "cpu")
-            t0 = 0
-            while t0 < total:
-                t_steps = int(rng.integers(1, 40)) if c % 2 else int(rng.integers(1, nw + 3))
-                v_out = torch.empty((bitpal.n_planes(gg), nw), dtype=torch.int64)
-                h_out = torch.empty(nw, dtype=torch.uint8)
-                v_in = torch.stack(state.planes)
-                # the shim keeps __shared__ arrays between launches, a card
-                # does not: a launch on other inputs first leaves its own
-                # values there, so a chunk that reads what it never wrote fails
-                junk = torch.from_numpy(rng.integers(0, 256, nw).astype(np.uint8))
-                entry(t.data_ptr(), eq.data_ptr(), mt, nw, r if r > 1 else gg, k, threads,
-                      t0 + 1, t_steps, v_in.data_ptr(), junk.data_ptr(), v_out.data_ptr(),
-                      h_out.data_ptr(), None)
-                err = entry(t.data_ptr(), eq.data_ptr(), mt, nw, r if r > 1 else gg, k, threads,
-                            t0, t_steps, v_in.data_ptr(), state.hand.data_ptr(),
-                            v_out.data_ptr(), h_out.data_ptr(), None)
-                state = bitpal.chunk_plain(t, eq, nq, gg, r, t0, t_steps, state)
-                if err or not (torch.equal(v_out, torch.stack(state.planes))
-                               and torch.equal(h_out, state.hand)):
-                    sys.exit(f"chunk (rc {r}, g {gg}) differs from chunk_plain at steps "
-                             f"{t0 + 1}..{t0 + t_steps}: {where}")
-                t0 += t_steps
-            want = bitpal.fill_g_plain(t, eq, nq, gg)[0] if r == 1 else bitpal.fill_rc_plain(
-                t, eq, nq, r)
-            if not all(torch.equal(a, b) for a, b in zip(state.planes, want)):
-                sys.exit(f"chunks (rc {r}, g {gg}) in turn differ from one fill: {where}")
+        rc, g = 1 + c % 4, 1 + c % 7
+        blocks = [1, 2, 3, None][int(rng.integers(0, 4))]
+        bands = int(rng.integers(1, 6))
+        nq = int(rng.integers(1, bitpal.BAND * bands * bitpal.WORD + 1))
+        # short texts, and texts of whole steady chunks at every rc
+        mt = int(rng.integers(1, 80)) if c % 3 else int(rng.integers(64 * rc, 128 * rc))
+        lengths = ([int(x) for x in rng.integers(1, 40, 3)] if c % 2 else
+                   [int(rng.integers(1, 34)), 32, 33])
+        ok, where = wave_case(dll, rng, nq, mt, g, rc, lengths, blocks, shallow=c % 3 == 0,
+                              concurrent=c % 5 == 0, junk=c % 7 == 3)
+        if not ok:
+            sys.exit(f"a staggered fill differs from its plain version: {where}")
 
 
 def _ckpt_case(dll, rng, cfg, m, n, K, geometry=None, shallow=False):
@@ -684,7 +732,8 @@ def main() -> None:
     print(f"[rehearse] bitpal_batch_fill equal to batch_fill_plain in {args.cases // 2} cases")
     _wave_cases(dll, rng, args.cases // 2)
     print(f"[rehearse] bitpal_rc_fill equal to fill_rc_plain, bitpal_rc_chunk and "
-          f"bitpal_gfill_chunk to chunk_plain chunk by chunk in {args.cases // 2} cases each")
+          f"bitpal_gfill_chunk to chunk_plain chunk by chunk in {args.cases // 2} cases (one "
+          f"band and many, forced blocks, rings of 2 rows, blocks at once, a random state)")
 
 
 if __name__ == "__main__":

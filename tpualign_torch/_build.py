@@ -105,17 +105,17 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(library_path())
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        # the pipelined bit-parallel fills: blocks, then the ring, its depth
-        # and the flags
+        # the pipelined bit-parallel fills (bitpal_gfill.cu, bitpal_rc.cu):
+        # blocks, then the ring, its depth and the flags
         gfill = [vp, vp, i64, i32, i32, i32, vp, i32, vp]
         lib.bitpal_gfill.argtypes = gfill + [vp, vp]
         lib.bitpal_gfill.restype = i32
         lib.bitpal_capture_fill.argtypes = gfill + [vp, i32, vp, vp, vp]
         lib.bitpal_capture_fill.restype = i32
-        lib.bitpal_rc_fill.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
+        lib.bitpal_rc_fill.argtypes = gfill + [vp, vp]
         lib.bitpal_rc_fill.restype = i32
         for entry in (lib.bitpal_rc_chunk, lib.bitpal_gfill_chunk):
-            entry.argtypes = [vp, vp, i64, i32, i32, i32, i32, i64, i64, vp, vp, vp, vp, vp]
+            entry.argtypes = gfill + [i64, i64, vp, vp, vp, vp, vp]
             entry.restype = i32
         # the pipelined fills: geometry (k, threads, blocks), then the ring,
         # its depth, the flags and (capture entries) the blocks' cells

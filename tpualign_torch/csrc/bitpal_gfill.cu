@@ -85,24 +85,12 @@
 // more measured slower at every shape on the H100 (tools/ab_bitpal_gfill.py),
 // so a band is one warp of one word a lane.
 
-#include "bitpal_step.cuh"
-
-#include <cuda/atomic>
+#include "bitpal_band.cuh"
 
 namespace {
 
 constexpr int kChunk = 32;  // columns a fetch, a publish and a steady chunk
 static_assert(kChunk == 32, "a warp fetches a chunk of kChunk columns, one a lane");
-
-__device__ __forceinline__ int load_acquire(int* flag) {
-  return cuda::atomic_ref<int, cuda::thread_scope_device>(*flag).load(
-      cuda::std::memory_order_acquire);
-}
-
-__device__ __forceinline__ void store_release(int* flag, int v) {
-  cuda::atomic_ref<int, cuda::thread_scope_device>(*flag).store(
-      v, cuda::std::memory_order_release);
-}
 
 struct Fill {
   const int8_t* text;
@@ -119,14 +107,6 @@ struct Fill {
   int bands;
   int depth;  // D, at least 2 when bands >= 2
 };
-
-// the match word of code c (kAlphabet and past: none)
-__device__ __forceinline__ u64 match(const u64 (&e)[kAlphabet], unsigned c) {
-  u64 E = 0;
-#pragma unroll
-  for (unsigned x = 0; x < kAlphabet; ++x) E = c == x ? e[x] : E;
-  return E;
-}
 
 // the code of text column col (1-based), kAlphabet outside 1..mt or 0..4
 __device__ __forceinline__ unsigned code_at(const Fill& a, int64_t col) {
@@ -339,13 +319,7 @@ __device__ __forceinline__ void band(const Fill& a, int s) {
 
 template <int B, bool CAP>
 __global__ void __launch_bounds__(32) bitpal_gfill_kernel(const Fill a) {
-  for (;;) {
-    int x = 0;
-    if (threadIdx.x == 0) x = atomicAdd(a.sync, 1);
-    const int s = __shfl_sync(0xffffffffu, x, 0);
-    if (s >= a.bands) break;
-    band<B, CAP>(a, s);
-  }
+  take_bands(a.sync, a.bands, [&](int s) { band<B, CAP>(a, s); });
 }
 
 template <int B, bool CAP>

@@ -42,7 +42,9 @@ the plain version :func:`batch_fill_plain`, behind :func:`score_batch`.
 
 ``csrc/bitpal_rc.cu`` staggers each word one step behind the word above
 (K3a's schedule), so that a chunk of steps resumes from an explicit
-:class:`WaveState`:
+:class:`WaveState`; on the card it runs the same pipelined wavefront of
+one-warp bands on that clock, every band every step of the launch, its
+ring a byte a step (:func:`wave_plan`):
 
 - :func:`fill_rc` (K3a's port): the g = 1 final column at ``rc`` = 2..4
   columns a step; plain version :func:`fill_rc_plain`.
@@ -70,22 +72,25 @@ WORD = 64  # query rows per int64 word
 ALPHABET = 5  # match planes for codes 0..4 (.bdna: 0 = gap byte, 1..4 = ATGC)
 #: largest reduced gap weight of the (1, 0, -g) family (``tpualign``'s MAX_G)
 MAX_G = 7
-#: the one-block kernels' geometry (K5's batch, one block a pair, and the
-#: staggered fills of ``csrc/bitpal_rc.cu``), and the family's routing rule
-#: (:func:`kernel_geometry`, :func:`_orientation`, ``hirschberg``'s
-#: MAX_QUERY_ROWS): one block of up to MAX_THREADS threads, each owning K
-#: consecutive words, K a power of two up to MAX_K (registers per thread)
+#: the one-block kernel's geometry (K5's batch, one block a pair), and the
+#: family's routing rule (:func:`kernel_geometry`, :func:`wave_geometry`,
+#: :func:`_orientation`, ``hirschberg``'s MAX_QUERY_ROWS): one block of up
+#: to MAX_THREADS threads, each owning K consecutive words, K a power of
+#: two up to MAX_K (registers per thread)
 MAX_THREADS = 1024
 MAX_K = 16
-#: the pipelined fill (``csrc/bitpal_gfill.cu``, K1, K2 and K4's captures):
-#: bands of BAND words, one warp a band, one word a lane, at most
-#: BLOCKS_PER_SM bands in flight on each of the H100's SMS SMs (a warp a
-#: scheduler).  Lanes of two words or more and bands of several warps
-#: measured slower at every shape (``tools/ab_bitpal_gfill.py``)
+#: the pipelined fills (``csrc/bitpal_gfill.cu``: K1, K2 and K4's captures;
+#: ``csrc/bitpal_rc.cu``: K3a, K3b and K4's state): bands of BAND words,
+#: one warp a band, one word a lane, at most BLOCKS_PER_SM bands in flight
+#: on each of the H100's SMS SMs (a warp a scheduler).  Lanes of two words
+#: or more and bands of several warps measured slower at every shape
+#: (``tools/ab_bitpal_gfill.py``)
 BAND = 32
 SMS = 132
 BLOCKS_PER_SM = 4
-#: the longest text the pipelined fill takes (its progress flags are int32)
+#: the longest ring row the pipelined fills take, in text columns
+#: (``bitpal_gfill``) or steps (``csrc/bitpal_rc.cu``): their progress
+#: flags are int32
 MAX_PIPE_TEXT = 2**31 - 1
 #: most text columns a word advances per step (K3a's ``cols_per_step``)
 MAX_RC = 4
@@ -127,11 +132,11 @@ def _from_unit(cfg: ScoringConfig, total_len, unit_score):
 
 
 def kernel_geometry(nw: int) -> Tuple[int, int]:
-    """``(k, threads)`` of the one-block kernels (K5's batch, the staggered
-    fills) for ``nw`` words: the fewest words per thread that fit the
-    block.  Raises ValueError past ``MAX_THREADS * MAX_K`` words, the
-    family's routing rule (:func:`_orientation`) for every kernel, the
-    pipelined fill included."""
+    """``(k, threads)`` of the one-block kernel (K5's batch) for ``nw``
+    words: the fewest words per thread that fit the block.  Raises
+    ValueError past ``MAX_THREADS * MAX_K`` words, the family's routing
+    rule (:func:`_orientation`) for every kernel, the pipelined fills
+    included."""
     k = 1
     while k <= MAX_K:
         threads = -(-nw // k)
@@ -450,9 +455,10 @@ def fill_plain(text: torch.Tensor, eq: torch.Tensor, nq: int):
 
 
 class PipePlan(NamedTuple):
-    """One launch of the pipelined fill: ``bands`` bands of :data:`BAND`
-    words over ``blocks`` blocks of one warp, a ring of ``depth`` rows of
-    ``mt`` bytes (0 with one band)."""
+    """One launch of a pipelined fill: ``bands`` bands of :data:`BAND`
+    words over ``blocks`` blocks of one warp, a ring of ``depth`` rows (0
+    with one band) of a byte a text column (``bitpal_gfill``) or a step
+    (``csrc/bitpal_rc.cu``, :func:`wave_plan`)."""
 
     blocks: int
     bands: int
@@ -461,7 +467,8 @@ class PipePlan(NamedTuple):
 
 def pipeline_plan(nw: int, mt: int, blocks: Optional[int] = None,
                   budget: Optional[int] = None) -> PipePlan:
-    """The launch of the pipelined fill of ``nw`` words and ``mt`` columns:
+    """The launch of the pipelined fill of ``nw`` words and ``mt`` columns
+    (:func:`wave_plan` passes the steps of a staggered fill as ``mt``):
     ``ceil(nw / BAND)`` bands over ``blocks`` blocks, default ``min(bands,
     SMS * BLOCKS_PER_SM)``.  The ring holds ``min(bands, blocks + 1)`` rows
     of ``mt`` bytes (a block reads the row above while the other blocks'
@@ -591,39 +598,64 @@ capture_fill.launches = 0
 
 
 def wave_geometry(nw: int) -> Tuple[int, int]:
-    """``(k, threads)`` of the staggered kernels (``csrc/bitpal_rc.cu``)
-    for ``nw`` words: :func:`kernel_geometry`'s words per thread, the
-    threads rounded up to whole warps (the hand-off is a warp shuffle;
-    threads past the last word carry nothing anyone reads).  Up to 32
-    threads the block is one warp and runs without a block barrier."""
+    """``(k, threads)`` of ``tpualign``'s one-block staggered kernels for
+    ``nw`` words: :func:`kernel_geometry`'s words per thread, the threads
+    rounded up to whole warps.  Kept as the family's routing rule only
+    (:func:`score_fn` refuses a query past it on the rc and chunked
+    routes); ``csrc/bitpal_rc.cu`` runs :func:`wave_plan`'s pipeline."""
     k, threads = kernel_geometry(nw)
     return k, -(-threads // 32) * 32
 
 
-def _check_geometry(nw: int, geometry) -> Tuple[int, int]:
-    k, threads = geometry or wave_geometry(nw)
-    if k not in (1, 2, 4, 8, 16) or threads % 32 or not 32 <= threads <= MAX_THREADS \
-            or k * threads < nw:
-        raise ValueError(f"geometry (k, threads) = {(k, threads)} does not cover {nw} words "
-                         f"in whole warps of one block")
-    return k, threads
+def wave_plan(nw: int, steps: int, blocks: Optional[int] = None,
+              budget: Optional[int] = None) -> PipePlan:
+    """The launch of a staggered fill (``csrc/bitpal_rc.cu``) of ``nw``
+    words over ``steps`` steps: :func:`pipeline_plan` with ring rows of a
+    byte a step, ``steps`` of them (a chunk's ``t_steps``, K3a's
+    :func:`total_steps`).  ValueError past :data:`MAX_PIPE_TEXT` steps (the
+    progress flags are int32), ``torch.OutOfMemoryError`` when 2 rows pass
+    the budget."""
+    if not 0 <= steps <= MAX_PIPE_TEXT:
+        raise ValueError(f"a staggered fill runs 0..{MAX_PIPE_TEXT} steps a launch, got {steps}")
+    return pipeline_plan(nw, steps, blocks, budget)
 
 
-def _wave_launch(name: str, text, eq, g: int, rc: int, geometry, t0: int = 0,
+def wave_scratch(nw: int, steps: int, device, blocks: Optional[int] = None):
+    """``(plan, ring, sync)`` of one launch of a staggered fill:
+    :func:`wave_plan`'s plan within ``band.ring_budget`` of ``device``, its
+    ring (uninitialised: every byte is written before it is read) and its
+    zeroed flags."""
+    from .band import ring_budget  # band imports this module
+    dev = torch.device(device)
+    plan = wave_plan(nw, steps, blocks, ring_budget(dev))
+    ring = (torch.empty((plan.depth, steps), dtype=torch.uint8, device=dev)
+            if plan.depth else None)
+    return plan, ring, torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
+
+
+def _check_blocks(blocks) -> None:
+    if blocks is not None and (not isinstance(blocks, int) or blocks < 1):
+        raise ValueError(f"blocks must be None or an int of at least 1, got {blocks!r}")
+
+
+def _wave_launch(name: str, text, eq, g: int, rc: int, blocks, t0: int = 0,
                  t_steps: Optional[int] = None, state: Optional[WaveState] = None):
     """Launch the entry ``name`` of ``csrc/bitpal_rc.cu`` on the current
-    stream: ``bitpal_rc_fill`` (``state`` None) returns the planes, a chunk
-    entry the state after the chunk.  The entries take ``rc``, or ``g`` at
-    one column a step (``bitpal_gfill_chunk``)."""
+    stream over :func:`wave_scratch`'s plan, ring and flags: returns
+    ``(out, plan)``, ``out`` the planes for ``bitpal_rc_fill`` (``state``
+    None), the state after the chunk for a chunk entry.  The entries take
+    ``rc``, or ``g`` at one column a step (``bitpal_gfill_chunk``)."""
     if text.device.type != "cuda":
         raise ValueError(f"the fills run on cpu or cuda tensors, got {text.device}")
     nw, mt = eq.shape[1], text.shape[0]
-    k, threads = _check_geometry(nw, geometry)
-    lib = _build.load()
     dev = text.device
+    steps = total_steps(mt, nw, rc) if state is None else t_steps
+    plan, ring, sync = wave_scratch(nw, steps, dev, blocks)
+    lib = _build.load()
     planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
-    entry, head = getattr(lib, name), (text.data_ptr(), eq.data_ptr(), mt, nw,
-                                       rc if rc > 1 else g, k, threads)
+    entry = getattr(lib, name)
+    head = (text.data_ptr(), eq.data_ptr(), mt, nw, rc if rc > 1 else g, plan.blocks,
+            None if ring is None else ring.data_ptr(), plan.depth, sync.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if state is None:
@@ -635,72 +667,84 @@ def _wave_launch(name: str, text, eq, g: int, rc: int, geometry, t0: int = 0,
                         planes.data_ptr(), hand.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    return planes.unbind(0) if state is None else WaveState(planes.unbind(0), hand)
+    return (planes.unbind(0) if state is None else WaveState(planes.unbind(0), hand)), plan
 
 
-def fill_rc(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int, geometry=None):
+def fill_rc(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int,
+            blocks: Optional[int] = None):
     """K3a's contract, the g = 1 final column at ``rc`` columns a step, on
     the device of its tensors: the CUDA kernel ``bitpal_rc_fill``
     (``csrc/bitpal_rc.cu``) for CUDA tensors, :func:`fill_rc_plain` for CPU
     tensors.  Returns the planes ``(b0, b1)``.
 
-    ``geometry``: ``(k, threads)``, default :func:`wave_geometry`; it never
-    changes the result.  On CUDA it allocates the output, launches on the
-    current stream without synchronising, and counts the launch in
-    ``fill_rc.launches``.  A launch the device refuses raises; nothing falls
+    ``blocks``: the launch's blocks (:func:`wave_plan`'s default where
+    None); it never changes the result.  On CUDA it allocates the output,
+    the ring and the flags, launches on the current stream without
+    synchronising, counts the launch in ``fill_rc.launches`` and keeps its
+    plan in ``fill_rc.last_plan``.  A launch the device refuses raises,
+    and so does a ring that does not fit the device's memory; nothing falls
     back to another kernel or the plain version."""
     _check_fill_args(text, eq, nq)
     _check_rc(rc)
+    _check_blocks(blocks)
     if text.device.type == "cpu":
         return fill_rc_plain(text, eq, nq, rc)
-    planes = _wave_launch("bitpal_rc_fill", text, eq, 1, rc, geometry)
+    planes, fill_rc.last_plan = _wave_launch("bitpal_rc_fill", text, eq, 1, rc, blocks)
     fill_rc.launches += 1
     return planes
 
 
 fill_rc.launches = 0
+fill_rc.last_plan = None
 
 
 def fill_rc_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int, t0: int,
-                  t_steps: int, state: WaveState, geometry=None) -> WaveState:
+                  t_steps: int, state: WaveState, blocks: Optional[int] = None) -> WaveState:
     """K3b's contract, one chunk of K3a's fill resumed from ``state``
     (:func:`chunk_plain` at g = 1), on the device of its tensors: the CUDA
     kernel ``bitpal_rc_chunk`` (``csrc/bitpal_rc.cu``) for CUDA tensors,
     :func:`chunk_plain` for CPU tensors.  Returns the state after steps
     ``t0 + 1 .. t0 + t_steps``; on CUDA as :func:`fill_rc`, counted in
-    ``fill_rc_chunk.launches``."""
+    ``fill_rc_chunk.launches``, its plan in ``fill_rc_chunk.last_plan``."""
     _check_fill_args(text, eq, nq)
     _check_rc(rc)
     _check_chunk(eq, 1, rc, t0, t_steps, state)
+    _check_blocks(blocks)
     if text.device.type == "cpu":
         return chunk_plain(text, eq, nq, 1, rc, t0, t_steps, state)
-    out = _wave_launch("bitpal_rc_chunk", text, eq, 1, rc, geometry, t0, t_steps, state)
+    out, fill_rc_chunk.last_plan = _wave_launch("bitpal_rc_chunk", text, eq, 1, rc, blocks,
+                                                t0, t_steps, state)
     fill_rc_chunk.launches += 1
     return out
 
 
 fill_rc_chunk.launches = 0
+fill_rc_chunk.last_plan = None
 
 
 def fill_g_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, t0: int,
-                 t_steps: int, state: WaveState, geometry=None) -> WaveState:
+                 t_steps: int, state: WaveState, blocks: Optional[int] = None) -> WaveState:
     """K4's state in and out: one chunk of the (1, 0, -g) fill at one
     column a step, resumed from ``state`` (:func:`chunk_plain` at rc 1),
     word 0's h_top the top boundary.  On the device of its tensors: the
     CUDA kernel ``bitpal_gfill_chunk`` (``csrc/bitpal_rc.cu``) for CUDA
     tensors, :func:`chunk_plain` for CPU tensors; on CUDA as
-    :func:`fill_rc`, counted in ``fill_g_chunk.launches``."""
+    :func:`fill_rc_chunk`, counted in ``fill_g_chunk.launches``, its plan in
+    ``fill_g_chunk.last_plan``."""
     _check_fill_args(text, eq, nq)
     _check_g(g)
     _check_chunk(eq, g, 1, t0, t_steps, state)
+    _check_blocks(blocks)
     if text.device.type == "cpu":
         return chunk_plain(text, eq, nq, g, 1, t0, t_steps, state)
-    out = _wave_launch("bitpal_gfill_chunk", text, eq, g, 1, geometry, t0, t_steps, state)
+    out, fill_g_chunk.last_plan = _wave_launch("bitpal_gfill_chunk", text, eq, g, 1, blocks,
+                                               t0, t_steps, state)
     fill_g_chunk.launches += 1
     return out
 
 
 fill_g_chunk.launches = 0
+fill_g_chunk.last_plan = None
 
 
 def chunk_steps(rc: int, text_cap: Optional[int] = None) -> int:
