@@ -22,7 +22,9 @@ path's shape:
 - ``tpualign_torch.align_score`` under ``ScoringConfig(gap=-2)`` on that
   pair (``bitpal_gfill``, g = 2);
 - ``tpualign_torch.align_score`` under the CLI's Smith-Waterman scoring
-  (2, -1, -2) on that pair (``band_fill``);
+  (2, -1, -2) on that pair (``band_fill``), and under ``impl="pallas"``
+  (``diag_fill``, K8's port on the same strip pipeline), both held to one
+  plain SW fill;
 - ``tpualign_torch.align`` under that scoring on that pair: the locate,
   the anchored start locate and the core's split, all over
   ``band_capture_fill``, then leaf walks on the host;
@@ -48,7 +50,10 @@ path's shape:
   window) under infix (2, -1, -2) and (1, 0, -1): one launch each, the
   kernel held against its batched plain version at that shape, every score
   against the port's per-pair ``align_score``; every batch instantiation
-  against its plain version on small ragged batches;
+  against its plain version on small ragged batches (K5: short pairs as
+  segments of a warp, every segment width, and long ones as one-warp bands
+  with a ring a pair, one to five bands, at the planner's blocks, one
+  block and fewer blocks than bands over rings of 2 rows);
 - ``tpualign_torch.align_score`` (this slice's main path) on the family's
   short-query and long-text routes, which follow ``tpualign``'s rule:
   20,000 x 20,000 and 1,000,000 x 10,000 at (1, 0, -1) through
@@ -146,12 +151,13 @@ BAND_BATCH_SOURCE = "tpualign_torch/csrc/band_batch.cu"
 #: bitpal_gfill (1 word a lane at 2, 3 and 4 planes, 2 at 2 and 3, x
 #: capture or not),
 #: band_fill, band_capture_fill (40 linear, 36 affine: local
-#: stops at 8 rows a thread), diag_fill, bitpal_batch_fill (5 words per
-#: thread x 3 plane counts), band_batch_fill (40 less local affine at 16
+#: stops at 8 rows a thread), diag_fill (5 rows per thread x global,
+#: local), bitpal_batch_fill (5 segment widths and the bands x 3 plane
+#: counts), band_batch_fill (40 less local affine at 16
 #: rows a thread), bitpal_rc_kernel (3 rc, one word a lane),
 #: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes),
 #: diag_ckpt_kernel (5 rows per thread x global, local)
-N_INSTANTIATIONS = 6 + 40 + 76 + 1 + 15 + 38 + 3 + 6 + 10
+N_INSTANTIATIONS = 6 + 40 + 76 + 10 + 18 + 38 + 3 + 6 + 10
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -976,6 +982,13 @@ PIPE_REPEAT = 20
 K6_SWEEP_64GB = [(8, 64, None), (8, 128, None), (8, 256, None), (4, 128, None),
                  (16, 128, None), (8, 128, 62)]
 K6_SWEEP_20K = [(4, 128, None), (8, 64, None), (8, 128, None), (16, 128, None), (8, 128, 10)]
+#: K8's forced geometries in phase (b), (k, threads[, blocks]) and whether
+#: the ring is cut to 2 rows: strips of 32 rows over 1 block, of 1,024 rows
+#: over 2 blocks and a ring of 2 rows, of 32 rows over blocks past them
+DIAG_GEOMETRIES = [((1, 32, 1), False), ((8, 128, 2), True), ((1, 32, 200), False)]
+DIAG_REPEAT = 3
+#: each of K5's small holds launches this many times against one plain run
+K5_REPEAT = 3
 
 
 def pipeline_phase(ctx, hold_capture):
@@ -1505,10 +1518,14 @@ def main() -> None:
           f"local linear and affine, 1-row and 1-column tables); "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # phase (b): diag_fill against score_plain
+    # phase (b): diag_fill against score_plain: the planner's geometry (and
+    # pallas_diag.score through it), then forced geometries with strip edges
+    # at 31..33 and 1,023..1,025 rows: one block, fewer blocks than strips
+    # over a ring of 2 rows, blocks past the strips; each forced launch
+    # DIAG_REPEAT times
     dk = dict(max_abs_err=0)
     t0 = time.perf_counter()
-    n_diag = 0
+    n_diag = n_launch = 0
     for short in (1, 31, 32, 33, 1023, 1024, 1025, 2047, 2048, 3000):
         for mode in (AlignMode.GLOBAL, AlignMode.LOCAL):
             cfg = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=mode)
@@ -1523,9 +1540,28 @@ def main() -> None:
             if got != want or pallas_diag.score(s1c, s2c, cfg, device="cuda") != want:
                 raise AssertionError(f"diag_fill {got} != score_plain {want}: {cfg}, "
                                      f"{s1c.size} x {s2c.size}")
+            for geometry, shallow in DIAG_GEOMETRIES:
+                ring_budget = band.ring_budget
+                if shallow:  # room for 2 rows
+                    band.ring_budget = lambda *a, **kw: 2 * 4 * (lng.size + 1)
+                try:
+                    for _ in range(DIAG_REPEAT):
+                        got = int(pallas_diag.diag_fill(lt, st, cfg, geometry))
+                        if got != want:
+                            raise AssertionError(
+                                f"diag_fill {got} != score_plain {want}: {cfg}, {sht.size} x "
+                                f"{lng.size}, {pallas_diag.diag_fill.last_plan}")
+                        n_launch += 1
+                finally:
+                    band.ring_budget = ring_budget
+                plan = pallas_diag.diag_fill.last_plan
+                if shallow and plan.strips > 1 and plan.depth != 2:
+                    raise AssertionError(f"the ring was not cut to 2 rows: {plan}")
             n_diag += 1
     print(f"[diag_fill vs plain] {n_diag} cases equal to score_plain (NW and SW, both "
-          f"orientations, 1 to 3000 rows across thread and cell-per-thread edges); "
+          f"orientations, 1 to 3000 rows) at the planner's geometry and at "
+          f"{[g for g, _ in DIAG_GEOMETRIES]} ({n_launch} launches: strip edges, one block, "
+          f"fewer blocks than strips over a ring of 2 rows, blocks past the strips); "
           f"{time.perf_counter() - t0:.1f} s")
 
     # phase (a2): band_capture_fill against capture_plain, word for word:
@@ -1682,6 +1718,32 @@ def main() -> None:
                                     runs=3)
     hold_capture(loc, sw_plain, f"the SW locate at {n} x {m}")
     del sw_plain, loc
+    # K8 on the same pair under the same config, held to the same plain
+    # value: align_score's pallas engine (one diag_fill launch, the shorter
+    # sequence down the rows), then diag_fill timed alone
+    reset_counts()
+    t0 = time.perf_counter()
+    score_pd = tpualign_torch.align_score(s1, s2, cfg_sw, EngineConfig(impl="pallas"))
+    pd_wall = time.perf_counter() - t0
+    pd_counts = read_counts()
+    if not only(pd_counts, "diag_fill"):
+        raise AssertionError(f"pallas SW align_score did not run one diag_fill: {pd_counts}")
+    lng_d, sht_d = (q2d, t1d) if n >= m else (t1d, q2d)
+    d64_ms, d64_runs, d64 = cuda_ms(lambda: pallas_diag.diag_fill(lng_d, sht_d, cfg_sw), runs=3)
+    d64_plan = pallas_diag.diag_fill.last_plan
+    d64_err = max(abs(int(d64) - plain_cell[0]), abs(score_pd - plain_cell[0]))
+    dk["max_abs_err"] = max(dk["max_abs_err"], d64_err)
+    if d64_err:
+        raise AssertionError(f"diag_fill SW {int(d64)} (align_score {score_pd}) != the plain "
+                             f"SW score {plain_cell[0]}")
+    dk.update(ms_64gb_sw=d64_ms, shape_64gb_sw=f"{sht_d.numel()}x{lng_d.numel()}",
+              launches_64gb_sw=pd_counts["diag_fill"],
+              geometry_64gb_sw=[d64_plan.k, d64_plan.threads, d64_plan.blocks])
+    print(f"[path: align_score pallas SW] {m} x {n}: score {score_pd} equal to capture_plain's "
+          f"on the card; launches {pd_counts}; wall {pd_wall:.3f} s; {d64_plan}")
+    print(f"[timing] {smi}: diag_fill SW at {sht_d.numel()} x {lng_d.numel()}: median of 3 "
+          f"{d64_ms:.3f} ms ({m * n / d64_ms / 1e6:.2f} GCUPS; runs {runs_str(d64_runs)} ms); "
+          f"its plain value the SW capture_plain's above ({sw_plain_ms:.1f} ms)")
 
     # phase (e): this slice's main path, align under Smith-Waterman on the
     # 64gb-shape pair: the locate, the anchored start locate, the core's
@@ -1829,9 +1891,12 @@ def main() -> None:
             pms, want = host_ms(lambda: int(pallas_diag.score_plain(tl, ts, cfg)))
             err = abs(int(out) - want)
             dk["max_abs_err"] = max(dk["max_abs_err"], err)
+            dp = pallas_diag.diag_fill.last_plan
             dk.update(launches=counts["diag_fill"], ms=kms, plain_ms=pms,
-                      shape=f"{sht.size}x{lng.size}")
-            geometry = f"{pallas_diag.kernel_threads(sht.size)} threads"
+                      shape=f"{sht.size}x{lng.size}", geometry=[dp.k, dp.threads, dp.blocks],
+                      strips=dp.strips, depth=dp.depth)
+            geometry = (f"k = {dp.k}, {dp.threads} threads, {dp.blocks} blocks, {dp.strips} "
+                        f"strips, a ring of {dp.depth} rows")
         else:
             p = band.plan(a20.size, b20.size, cfg)
             text, query = (b20, a20) if p.swapped else (a20, b20)
@@ -1969,16 +2034,34 @@ def main() -> None:
         return ([rng.integers(lo, 5, int(x)).astype(np.int8) for x in tl],
                 [rng.integers(lo, 5, int(x)).astype(np.int8) for x in ql])
 
-    n_k5 = 0
-    for gs, k in itertools.product(((1,), (2, 3), (4, 5, 6, 7)), (1, 2, 4, 8, 16)):
-        g = gs[n_k5 % len(gs)]
-        texts, queries = ragged(5, 60, 20 * bitpal.WORD - 5, lo=0)
-        packed = packing.pack_pairs(texts, queries, np.arange(5)).to(dev)
+    # K5: every segment width (1, 2, 3, 5, 8, 16 words) and one to five
+    # bands (17, 32, 33, 65, 130 words; texts past 2,048 columns, where the
+    # rows a band down stop saturating), g cycling 1..7, at the planner's
+    # blocks, at one block, and at fewer blocks than a pair's bands over
+    # rings of 2 rows, each launch K5_REPEAT times against one plain run
+    n_k5 = n_k5_launch = 0
+    for nw in (1, 2, 3, 5, 8, 16, 17, 32, 33, 65, 130):
+        g = n_k5 % bitpal.MAX_G + 1
+        wide = nw > bitpal.SEGMENT_MAX
+        texts, queries = ragged(9, 2600 if wide else 300, nw * bitpal.WORD - 5, lo=0)
+        packed = packing.pack_pairs(texts, queries, np.arange(9)).to(dev)
         tpad, mt, eq, _ = bitpal.batch_inputs(packed)
-        geometry = (k, -(-eq.shape[2] // k))
-        hold_k5(bitpal.batch_fill(tpad, mt, eq, packed.n_cap, g, geometry),
-                bitpal.batch_fill_plain(tpad, mt, eq, packed.n_cap, g),
-                f"a ragged batch, g = {g}, geometry {geometry}")
+        want = bitpal.batch_fill_plain(tpad, mt, eq, packed.n_cap, g)
+        bands = -(-nw // bitpal.BAND)
+        for blocks, shallow in ((None, False), (1, False), (bands - 1 if bands > 2 else 2, True)):
+            ring_budget = band.ring_budget
+            if shallow:  # room for 2 rows a pair
+                band.ring_budget = lambda *a, **kw: 2 * tpad.numel()
+            try:
+                for _ in range(K5_REPEAT):
+                    plan = bitpal.batch_plan(9, nw, tpad.shape[1], blocks, band.ring_budget())
+                    hold_k5(bitpal.batch_fill(tpad, mt, eq, packed.n_cap, g, blocks), want,
+                            f"a ragged batch, nw = {nw}, g = {g}, {plan}")
+                    n_k5_launch += 1
+            finally:
+                band.ring_budget = ring_budget
+            if shallow and bands > 2 and bitpal.batch_fill.last_plan.depth != 2:
+                raise AssertionError(f"the rings were not cut to 2 rows: {plan}")
         n_k5 += 1
     n_kb = 0
     for k, affine, mat, local in itertools.product(
@@ -2008,7 +2091,9 @@ def main() -> None:
                                  f"{cfg}")
         n_entry += 1
     print(f"[batch kernels vs plain] bitpal_batch_fill equal to batch_fill_plain word for "
-          f"word in {n_k5} ragged batches (all 15 instantiations, codes 0..4, 1-base pairs); "
+          f"word in {n_k5} ragged batches x 3 block counts x {K5_REPEAT} launches "
+          f"({n_k5_launch}: every segment width, one to five bands, codes 0..4, 1-base pairs, "
+          f"one block, fewer blocks than bands over rings of 2 rows); "
           f"band_batch_fill equal to xla.score_batch in {n_kb} ragged batches (all 38 "
           f"instantiations, global, semiglobal, infix and local, three strips at k x 32 "
           f"rows); align_score_batch with empty pairs mixed in equal to align_score in "
@@ -2067,9 +2152,10 @@ def main() -> None:
         words = sum(m * -(-n // bitpal.WORD) for m, n in lens)
         nbytes = sum(m for m, _ in lens) + 8 * P + (bitpal.ALPHABET + bitpal.n_planes(g)) * P * nw * 8
         b_ms, by = bound(nbytes, words * (25 if g == 1 else 50) * 2)
-        k, threads = bitpal.kernel_geometry(nw)
+        plan = bitpal.batch_fill.last_plan
         report_batch(tag, "bitpal_batch_fill", kms, kruns, pms, b_ms, by,
-                     f"k = {k}, {threads} threads, {P} blocks")
+                     f"{plan.width} lanes a pair, {plan.bands} bands a pair, {plan.blocks} "
+                     f"blocks of one warp, rings of {plan.depth} rows")
 
     def time_band(tag, mix, cfg):
         packed, lens = drive_batch(tag, mix, cfg, "band_batch_fill")
@@ -2086,7 +2172,8 @@ def main() -> None:
 
     def report_batch(tag, kernel, kms, kruns, pms, b_ms, by, geometry):
         ph = batch_phases[tag]
-        ph.update(kernel=kernel, ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=by)
+        ph.update(kernel=kernel, ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                  geometry=geometry)
         print(f"[main path: align_score_batch {tag}] {ph['cells']} cells: one {kernel} "
               f"launch ({geometry}); every score equal to align_score's; the kernel equal to "
               f"its plain version; align_score_batch wall {ph['wall_s'] * 1e3:.3f} ms "
@@ -2136,6 +2223,9 @@ def main() -> None:
         "diag_fill": bound(2 * a20.size + 4, band_ops(g20, d_cells)),
     }
 
+    # K8's SW hold at the 64gb shape does K6's SW work
+    dk["bound_ms_64gb_sw"] = bounds["band_fill"][0]
+
     def extra(name):
         b_ms, by = bounds[name]
         return dict(bound_ms=b_ms, bound_by=by, library_ms=None)
@@ -2170,7 +2260,8 @@ def main() -> None:
         "shape": f"mix {main}", "bound_ms": batch_phases[main]["bound_ms"],
         "bound_by": batch_phases[main]["bound_by"], "library_ms": None,
         "phases": {tag: {key: ph[key] for key in ("launches", "ms", "plain_ms", "bound_ms",
-                                                  "wall_s", "warm_wall_s", "loop_s")}
+                                                  "wall_s", "warm_wall_s", "loop_s",
+                                                  "geometry")}
                    for tag, ph in batch_phases.items() if ph["kernel"] == kernel},
     } for kernel, source, replaces, held, main in (
         ("bitpal_batch_fill", BATCH_SOURCE, BATCH_REPLACES, k5, "A (1, 0, -1)"),

@@ -96,14 +96,16 @@ def same(got, want, where):
 
 
 def parent_fill(lib, t, q, cfg):
-    """One launch of the parent's one-block K9: its outputs as Checkpoints."""
+    """One launch of the parent's one-block K9 (a thread a diagonal element,
+    up to 1,024): its outputs as Checkpoints."""
     m, n = t.numel(), q.numel()
     groups = -(-(n + m) // K)
     diag = torch.empty((3, n + 1), dtype=torch.int32, device=t.device)
     ck = torch.empty((2, groups, n + 1), dtype=torch.int32, device=t.device)
     best = torch.empty((2, n + 1), dtype=torch.int32, device=t.device)
     err = lib.diag_ckpt_fill(t.data_ptr(), m, q.data_ptr(), n, cfg.match, cfg.mismatch, cfg.gap,
-                             int(cfg.is_local), K, pallas_diag.kernel_threads(n), diag.data_ptr(),
+                             int(cfg.is_local), K, min(1024, -(-(n + 1) // 32) * 32),
+                             diag.data_ptr(),
                              ck[0].data_ptr(), ck[1].data_ptr(), best[0].data_ptr(),
                              best[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:

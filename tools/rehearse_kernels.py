@@ -4,15 +4,16 @@
 
 Compiles ``tpualign_torch/csrc/band_fill.cu`` (both entry points),
 ``band_capture_affine.cu``, ``band_batch.cu`` and ``diag_ckpt.cu`` (with
-the template they share, ``band_fill.cuh``), ``diag_fill.cu`` (with its
-wavefront, ``diag_fill.cuh``), and ``bitpal_gfill.cu``,
-``bitpal_batch.cu`` and ``bitpal_rc.cu`` (with the step they share,
-``bitpal_step.cuh``, and the band pieces of the first and last,
-``bitpal_band.cuh``) with
+the template they share, ``band_fill.cuh``), ``diag_fill.cu`` (the same
+template), and ``bitpal_gfill.cu``, ``bitpal_batch.cu`` and
+``bitpal_rc.cu`` (with the step they share, ``bitpal_step.cuh``, the band
+pieces of all three, ``bitpal_band.cuh``, and the band body of the first
+two, ``bitpal_gband.cuh``) with
 ``g++`` as C++20 through a shim ``cuda_runtime.h``: one ``std::thread``
 per CUDA thread of a block, the blocks of a grid one after another,
-``__syncthreads`` as a ``std::barrier``, the warp shuffles (``up``,
-``down`` and indexed) through a slot array between two barriers,
+``__syncthreads`` as a ``std::barrier``, the warp shuffles (``up``, also
+inside segments of a width, ``down`` and indexed) through a slot array
+between two barriers,
 ``__shared__`` as ``static``, the DPX intrinsics as plain max, the
 atomics, fences and ``cuda::atomic_ref`` (``<cuda/atomic>``) over
 ``std::atomic_ref``, ``__ldcg``/``__stcg`` as plain loads and stores,
@@ -178,6 +179,11 @@ template <class T> T shuffle(T v, int src_offset) {
 }
 template <class T> T __shfl_sync(unsigned, T v, int src) { return shuffle_from(v, src & 31, true); }
 template <class T> T __shfl_up_sync(unsigned, T v, int d) { return shuffle(v, -d); }
+// inside segments of `width` lanes: a lane less than d into its segment keeps v
+template <class T> T __shfl_up_sync(unsigned, T v, int d, int width) {
+  const int lane = threadIdx.x & 31;
+  return shuffle_from(v, lane - d, lane % width >= d);
+}
 template <class T> T __shfl_down_sync(unsigned, T v, int d) { return shuffle(v, d); }
 """
 
@@ -227,7 +233,7 @@ using ::std::memory_order_release;
 LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<(\w+), (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
 SOURCES = ("band_fill.cu", "band_capture_affine.cu", "band_batch.cu", "diag_fill.cu",
            "diag_ckpt.cu", "bitpal_gfill.cu", "bitpal_batch.cu", "bitpal_rc.cu")
-HEADERS = ("band_fill.cuh", "diag_fill.cuh", "bitpal_step.cuh", "bitpal_band.cuh")
+HEADERS = ("band_fill.cuh", "bitpal_step.cuh", "bitpal_band.cuh", "bitpal_gband.cuh")
 
 
 def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
@@ -268,13 +274,13 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
         "band_capture_affine": ([vp, i32, vp, i32, vp] + [i32] * 10
                                 + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]),
         "band_batch_fill": [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3,
-        "diag_fill": [vp, i32, vp, i32] + [i32] * 5 + [vp, vp, vp],
+        "diag_fill": [vp, i32, vp, i32] + [i32] * 7 + [vp, i32, vp, vp, vp],
         "diag_ckpt_fill": [vp, i32, vp, i32] + [i32] * 8 + [vp, i32, vp, vp, vp, vp, vp, vp],
         "bitpal_gfill": [vp, vp, i64] + [i32] * 3 + [vp, i32, vp, vp, vp],
         "bitpal_capture_fill": ([vp, vp, i64] + [i32] * 3 + [vp, i32, vp, vp, i32]
                                 + [vp, vp, vp]),
         "rehearse_concurrent": [i32],
-        "bitpal_batch_fill": [vp, i64, vp, vp] + [i32] * 5 + [vp, vp],
+        "bitpal_batch_fill": [vp, i64, vp, vp] + [i32] * 4 + [vp, i32, vp, vp, vp],
         "bitpal_rc_fill": [vp, vp, i64] + [i32] * 3 + [vp, i32, vp, vp, vp],
         "bitpal_rc_chunk": chunk,
         "bitpal_gfill_chunk": chunk,
@@ -483,34 +489,90 @@ def _gfill_cases(dll, rng, cases):
             sys.exit(f"bitpal_gfill / bitpal_capture_fill differs from fill_g_plain: {where}")
 
 
+def batch_case(dll, rng, nqs, mts, g, blocks=None, shallow=False, concurrent=False, lo=0):
+    """``bitpal_batch_fill`` against ``batch_fill_plain`` on the pairs of
+    query lengths ``nqs`` and text lengths ``mts``: planes word for word,
+    the texts past each pair's length, the ring and the planes seeded with
+    garbage (a column read past a pair's text, a byte read before it is
+    written, or a word left unwritten, shows), the flags checked at the
+    end.  ``blocks`` as ``bitpal.batch_plan`` takes it; ``shallow`` cuts the
+    rings to 2 rows; ``concurrent`` runs the grid's blocks at once.
+    Returns ``(ok, where)``."""
+    P = len(nqs)
+    nq, m_cap = int(max(nqs)), int(max(mts))
+    nw = -(-nq // bitpal.WORD)
+    plan = bitpal.batch_plan(P, nw, m_cap, blocks)
+    if shallow and plan.depth > 2:
+        plan = plan._replace(depth=2)
+    texts = torch.from_numpy(rng.integers(-3, 8, (P, m_cap)).astype(np.int8))
+    qpad = torch.full((P, nw * bitpal.WORD), -1, dtype=torch.int8)
+    for p in range(P):
+        texts[p, : mts[p]] = torch.from_numpy(rng.integers(lo, 5, mts[p]).astype(np.int8))
+        qpad[p, : nqs[p]] = torch.from_numpy(rng.integers(lo, 5, nqs[p]).astype(np.int8))
+    tlen = torch.tensor([int(x) for x in mts], dtype=torch.int64)
+    eqb = bitpal._eq_planes_batch(qpad)
+    B = bitpal.n_planes(g)
+    planes = torch.from_numpy(rng.integers(-2**62, 2**62, (P, B, nw)))
+    ring = torch.from_numpy(rng.integers(0, 256, (P, max(plan.depth, 1), m_cap)).astype(np.uint8))
+    sync = torch.zeros(1 + P * plan.bands, dtype=torch.int32)
+    dll.rehearse_concurrent(int(concurrent))
+    try:
+        err = dll.bitpal_batch_fill(texts.data_ptr(), m_cap, tlen.data_ptr(), eqb.data_ptr(), P,
+                                    nw, g, plan.blocks, ring.data_ptr(), plan.depth,
+                                    sync.data_ptr(), planes.data_ptr(), None)
+    finally:
+        dll.rehearse_concurrent(0)
+    want = bitpal.batch_fill_plain(texts, tlen, eqb, nq, g)
+    ok = not err and torch.equal(planes, want)
+    if plan.width == bitpal.BAND:  # every band took a ticket, each pair's published its text
+        progress = sync[1:].view(P, plan.bands)
+        ok = ok and int(sync[0]) == P * plan.bands + plan.blocks and all(
+            progress[p].tolist() == [int(mts[p])] * (plan.bands - 1) + [0] for p in range(P))
+    return ok, (f"g {g}, queries {[int(x) for x in nqs]}, texts {[int(x) for x in mts]}, "
+                f"{plan}, concurrent {concurrent}")
+
+
 def _bitpal_cases(dll, rng, cases):
-    """``bitpal_batch_fill`` against ``batch_fill_plain``: g = 1..7 in turn,
-    every words-per-thread count, ragged batches with 1 x 1 pairs."""
+    """``bitpal_batch_fill`` against ``batch_fill_plain`` (``batch_case``):
+    g = 1..7 in turn, every segment width and one band to three, forced
+    block counts, rings of 2 rows, ragged batches with 1 x 1 pairs, at
+    times the blocks at once."""
     for c in range(cases):
         g = c % 7 + 1
-        k = [1, 2, 4, 8, 16][c % 5]
-        P = int(rng.integers(1, 6))
-        nqs = rng.integers(1, 300, P)
-        mts = rng.integers(1, 60, P)
+        P = int(rng.integers(1, 12))
+        nq_max = [64, 128, 256, 512, 1024, 2048, 3 * 2048][c % 7]
+        nqs = rng.integers(1, nq_max + 1, P)
+        # at times texts past 2,048 columns, where the rows a band down
+        # stop saturating and one pair's ring read for another's shows
+        mts = rng.integers(1, 2600 if c % 4 == 3 else 90, P)
         if c % 3 == 0:
             nqs[0], mts[-1] = 1, 1
-        nw = -(-int(nqs.max()) // bitpal.WORD)
-        threads = -(-nw // k)
-        texts = torch.zeros((P, int(mts.max())), dtype=torch.int8)
-        qpad = torch.full((P, nw * bitpal.WORD), -1, dtype=torch.int8)
-        for p in range(P):
-            texts[p, : mts[p]] = torch.from_numpy(rng.integers(0, 5, mts[p]).astype(np.int8))
-            qpad[p, : nqs[p]] = torch.from_numpy(rng.integers(0, 5, nqs[p]).astype(np.int8))
-        tlen = torch.from_numpy(mts.astype(np.int64))
-        eqb = bitpal._eq_planes_batch(qpad)
-        planes = torch.empty((P, bitpal.n_planes(g), nw), dtype=torch.int64)
-        err = dll.bitpal_batch_fill(texts.data_ptr(), texts.shape[1], tlen.data_ptr(),
-                                    eqb.data_ptr(), P, nw, g, k, threads, planes.data_ptr(),
-                                    None)
-        want = bitpal.batch_fill_plain(texts, tlen, eqb, int(nqs.max()), g)
-        if err or not torch.equal(planes, want):
-            sys.exit(f"bitpal_batch_fill differs from batch_fill_plain: g {g}, texts "
-                     f"{mts.tolist()}, queries {nqs.tolist()}, k {k}")
+        blocks = [1, 2, 3, None][int(rng.integers(0, 4))]
+        ok, where = batch_case(dll, rng, nqs, mts, g, blocks, shallow=c % 2 == 0,
+                               concurrent=c % 5 == 0)
+        if not ok:
+            sys.exit(f"bitpal_batch_fill differs from batch_fill_plain: {where}")
+
+
+def diag_case(dll, rng, cfg, m, n, geometry=None, shallow=False):
+    """``diag_fill`` against ``score_plain``: ``s1`` (m) on the strips'
+    columns, ``s2`` (n <= m) on their rows, at ``geometry`` (default the
+    planner's; ``shallow``: the ring cut to 2 rows), ``out`` seeded with
+    the max's identity as the wrapper seeds it, the flags checked at the
+    end.  Returns ``(ok, where)``."""
+    s1 = torch.from_numpy(rng.integers(0, 5, m).astype(np.int8))
+    s2 = torch.from_numpy(rng.integers(0, 5, n).astype(np.int8))
+    plan, keep, pipe = _pipe_scratch(rng, n, m, False, geometry, band.MAX_K, False)
+    if shallow and plan.depth > 2:
+        plan = plan._replace(depth=2)
+        pipe = (pipe[0], 2) + pipe[2:]
+    out = np.full(1, 0 if cfg.is_local else band.NEG, np.int32)
+    err = dll.diag_fill(s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch, cfg.gap,
+                        int(cfg.is_local), plan.k, plan.threads, plan.blocks, *pipe[:3],
+                        out.ctypes.data, None)
+    want = int(pallas_diag.score_plain(s1, s2, cfg))
+    ok = not err and int(out[0]) == want and _flags_done(keep[1], plan, m)
+    return ok, f"{cfg} {m} x {n}, {plan}: {int(out[0])}, plain {want}"
 
 
 def wave_case(dll, rng, nq, mt, g, rc, lengths, blocks=None, shallow=False,
@@ -683,18 +745,13 @@ def main() -> None:
                             gap=int(rng.integers(-4, 1)),
                             mode=AlignMode.LOCAL if c % 2 else AlignMode.GLOBAL)
         n, m = sorted(int(x) for x in rng.integers(1, 150, 2))
-        s1 = torch.from_numpy(rng.integers(0, 5, m).astype(np.int8))
-        s2 = torch.from_numpy(rng.integers(0, 5, n).astype(np.int8))
-        threads = pallas_diag.kernel_threads(n)
-        diag = np.empty(3 * (n + 1), np.int32)
-        out = np.empty(1, np.int32)
-        err = dll.diag_fill(s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch,
-                            cfg.gap, int(cfg.is_local), threads, diag.ctypes.data,
-                            out.ctypes.data, None)
-        want = int(pallas_diag.score_plain(s1, s2, cfg))
-        if err or int(out[0]) != want:
-            sys.exit(f"diag_fill differs from score_plain: {cfg} {m} x {n}: "
-                     f"{int(out[0])} != {want}")
+        if c % 3 == 0:  # up to 12 strips of 32 rows
+            m = int(rng.integers(150, 400))
+            n = int(rng.integers(90, m + 1))
+        geometry = geometries[int(rng.integers(0, len(geometries)))]
+        ok, info = diag_case(dll, rng, cfg, m, n, geometry, shallow=c % 5 == 0)
+        if not ok:
+            sys.exit(f"diag_fill differs from score_plain: {info}")
     print(f"[rehearse] diag_fill equal to score_plain in {args.cases // 4} cases")
     ckpt_cfgs = [ScoringConfig(), ScoringConfig(match=2, mismatch=-1, gap=-2,
                                                 mode=AlignMode.LOCAL),
@@ -729,7 +786,9 @@ def main() -> None:
           f"{args.cases // 2} cases (one band and many, bands past the blocks, rings of 2 "
           f"rows, captures on band edges, blocks at once)")
     _bitpal_cases(dll, rng, args.cases // 2)
-    print(f"[rehearse] bitpal_batch_fill equal to batch_fill_plain in {args.cases // 2} cases")
+    print(f"[rehearse] bitpal_batch_fill equal to batch_fill_plain in {args.cases // 2} cases "
+          f"(every segment width, one band to three, forced blocks, rings of 2 rows, blocks at "
+          f"once)")
     _wave_cases(dll, rng, args.cases // 2)
     print(f"[rehearse] bitpal_rc_fill equal to fill_rc_plain, bitpal_rc_chunk and "
           f"bitpal_gfill_chunk to chunk_plain chunk by chunk in {args.cases // 2} cases (one "

@@ -127,12 +127,12 @@ def load() -> ctypes.CDLL:
         lib.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp] + [i32] * 10
                                             + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp])
         lib.band_capture_affine.restype = i32
-        lib.diag_fill.argtypes = [vp, i32, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp]
+        lib.diag_fill.argtypes = [vp, i32, vp, i32] + [i32] * 7 + [vp, i32, vp, vp, vp]
         lib.diag_fill.restype = i32
         lib.diag_ckpt_fill.argtypes = ([vp, i32, vp, i32] + [i32] * 8
                                        + [vp, i32, vp, vp, vp, vp, vp, vp])
         lib.diag_ckpt_fill.restype = i32
-        lib.bitpal_batch_fill.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, i32, vp, vp]
+        lib.bitpal_batch_fill.argtypes = [vp, i64, vp, vp] + [i32] * 4 + [vp, i32, vp, vp, vp]
         lib.bitpal_batch_fill.restype = i32
         lib.band_batch_fill.argtypes = [
             vp, vp, vp, vp, vp, vp, i32, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32,

@@ -70,7 +70,8 @@ def align_score(
     configs.  ``band`` refuses a linear pair-scored config only past the
     int32 headroom, where ``pallas`` refuses it too, or on a card without
     the memory for its ring of 2 rows (``band.pipeline_plan``), so that
-    error is raised.  ``bitpal`` on a card without the memory for its ring
+    error is raised; ``pallas`` runs the same strip pipeline and raises it
+    too.  ``bitpal`` on a card without the memory for its ring
     of 2 rows raises ``torch.OutOfMemoryError`` (``bitpal.pipeline_plan``),
     no refusal, so no engine takes its place; so does ``align``."""
     impl = resolve_impl(engine, scoring)

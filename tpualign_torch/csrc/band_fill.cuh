@@ -6,8 +6,9 @@
 // band_capture_affine.cu, a translation unit of its own so that nvcc
 // compiles its 36 kernels beside the other 80 (all in one file took 20 s
 // to build, against 12 s); band_batch.cu runs the in-place schedule;
-// diag_ckpt.cu runs K9's checkpoint contract (CKPT, stated there) on the
-// pipelined schedule.
+// diag_ckpt.cu runs K9's checkpoint contract (CKPT, stated there) and
+// diag_fill.cu K8's score (band_fill's under pair scoring and linear gaps)
+// on the pipelined schedule.
 //
 // band_fill (CAPTURE = false) replaces the TPU kernel
 // tpualign/ops/band.py:_band_kernel_body (K6).  Contract, cell for cell the
@@ -59,8 +60,8 @@
 // Column 0 is injected in closed form; F at column 0 is never read.  One
 // __syncthreads() per step.
 //
-// The pipelined schedule (fill_pipe: band_fill's, the capture fills' and
-// diag_ckpt_fill's kernels): S = ceil(n/R) strips over G blocks of one
+// The pipelined schedule (fill_pipe: band_fill's, the capture fills',
+// diag_fill's and diag_ckpt_fill's kernels): S = ceil(n/R) strips over G blocks of one
 // launch.  A block takes strip numbers in order from an atomic ticket,
 // never from blockIdx, so it only ever waits on a lower strip, which a
 // running block holds: no grid size deadlocks, and blocks need not be

@@ -37,8 +37,10 @@ tensors:
 
 :func:`fill_g_plain` is the plain version of both, :func:`fill_plain` it at
 g = 1 (K1's contract).  A third kernel (``csrc/bitpal_batch.cu``) fills a
-batch of pairs, one thread block each: :func:`batch_fill` (K5's port), with
-the plain version :func:`batch_fill_plain`, behind :func:`score_batch`.
+batch of pairs in one launch, short pairs as segments of a warp, long ones
+as the bands above, a ring a pair (:func:`batch_plan`): :func:`batch_fill`
+(K5's port), with the plain version :func:`batch_fill_plain`, behind
+:func:`score_batch`.
 
 ``csrc/bitpal_rc.cu`` staggers each word one step behind the word above
 (K3a's schedule), so that a chunk of steps resumes from an explicit
@@ -72,11 +74,11 @@ WORD = 64  # query rows per int64 word
 ALPHABET = 5  # match planes for codes 0..4 (.bdna: 0 = gap byte, 1..4 = ATGC)
 #: largest reduced gap weight of the (1, 0, -g) family (``tpualign``'s MAX_G)
 MAX_G = 7
-#: the one-block kernel's geometry (K5's batch, one block a pair), and the
-#: family's routing rule (:func:`kernel_geometry`, :func:`wave_geometry`,
+#: the one-block kernel's geometry (``tpualign``'s), kept as the family's
+#: routing rule (:func:`kernel_geometry`, :func:`wave_geometry`,
 #: :func:`_orientation`, ``hirschberg``'s MAX_QUERY_ROWS): one block of up
 #: to MAX_THREADS threads, each owning K consecutive words, K a power of
-#: two up to MAX_K (registers per thread)
+#: two up to MAX_K
 MAX_THREADS = 1024
 MAX_K = 16
 #: the pipelined fills (``csrc/bitpal_gfill.cu``: K1, K2 and K4's captures;
@@ -88,6 +90,9 @@ MAX_K = 16
 BAND = 32
 SMS = 132
 BLOCKS_PER_SM = 4
+#: the batch fill (``csrc/bitpal_batch.cu``, K5's port): a pair of at most
+#: SEGMENT_MAX words takes a segment of a warp, a wider one bands of BAND
+SEGMENT_MAX = 16
 #: the longest ring row the pipelined fills take, in text columns
 #: (``bitpal_gfill``) or steps (``csrc/bitpal_rc.cu``): their progress
 #: flags are int32
@@ -132,11 +137,11 @@ def _from_unit(cfg: ScoringConfig, total_len, unit_score):
 
 
 def kernel_geometry(nw: int) -> Tuple[int, int]:
-    """``(k, threads)`` of the one-block kernel (K5's batch) for ``nw``
-    words: the fewest words per thread that fit the block.  Raises
-    ValueError past ``MAX_THREADS * MAX_K`` words, the family's routing
-    rule (:func:`_orientation`) for every kernel, the pipelined fills
-    included."""
+    """``(k, threads)`` of the one-block kernel for ``nw`` words: the
+    fewest words per thread that fit the block.  Raises ValueError past
+    ``MAX_THREADS * MAX_K`` words, the family's routing rule
+    (:func:`_orientation`, :func:`score_batch`'s query bucket) for every
+    kernel, the pipelined fills included."""
     k = 1
     while k <= MAX_K:
         threads = -(-nw // k)
@@ -1060,44 +1065,110 @@ def batch_fill_plain(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor, 
     return torch.stack(V, dim=1)
 
 
+class BatchPlan(NamedTuple):
+    """One launch of the batch fill (``csrc/bitpal_batch.cu``) over
+    ``blocks`` blocks of one warp: each pair takes ``width`` lanes, a
+    segment of a warp (1..:data:`SEGMENT_MAX`) or :data:`BAND` (``bands``
+    bands of one warp), and with two bands or more a ring of ``depth`` rows
+    (0 otherwise)."""
+
+    width: int
+    bands: int
+    blocks: int
+    depth: int
+
+
+def batch_plan(P: int, nw: int, m_cap: int, blocks: Optional[int] = None,
+               budget: Optional[int] = None) -> BatchPlan:
+    """The launch of the batch fill of ``P`` pairs of ``nw`` words and texts
+    of up to ``m_cap`` columns.  At most :data:`SEGMENT_MAX` words a pair
+    takes a segment of the next power of two lanes, ``32 / width`` pairs a
+    warp, and ``blocks`` defaults to a warp a block.  Past it a pair takes
+    ``ceil(nw / BAND)`` bands, the blocks default to ``min(P * bands, SMS *
+    BLOCKS_PER_SM)``, and with two bands or more each pair has a ring of
+    ``min(bands, blocks + 1)`` rows of ``m_cap`` bytes, fewer if the ``P``
+    rings pass ``budget`` bytes (default ``band.RING_BUDGET``; the CUDA
+    wrapper passes ``band.ring_budget()``), never fewer than 2.
+    ValueError for a batch or a block count the kernel refuses;
+    ``torch.OutOfMemoryError`` when rings of 2 rows do not fit the budget,
+    which no route falls back on."""
+    if P < 1 or nw < 1:
+        raise ValueError(f"the batch fill needs a pair and a word, got {P} pairs, {nw} words")
+    if not 1 <= m_cap <= MAX_PIPE_TEXT:
+        raise ValueError(f"the batch fill takes texts of 1..{MAX_PIPE_TEXT} columns, got {m_cap}")
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    if nw <= SEGMENT_MAX:
+        width = 1 << (nw - 1).bit_length()
+        blocks = -(-P * width // BAND) if blocks is None else int(blocks)
+        return BatchPlan(width, 1, blocks, 0)
+    bands = -(-nw // BAND)
+    blocks = min(P * bands, SMS * BLOCKS_PER_SM) if blocks is None else int(blocks)
+    if P * bands + blocks > 2**31 - 1:  # the tickets are int32
+        raise ValueError(f"{P} pairs of {bands} bands over {blocks} blocks pass the int32 ticket")
+    if bands == 1:
+        return BatchPlan(BAND, 1, blocks, 0)
+    if budget is None:
+        from .band import RING_BUDGET as budget  # band imports this module
+    depth = min(bands, blocks + 1, int(budget) // (P * m_cap))
+    if depth < 2:
+        raise torch.OutOfMemoryError(
+            f"{P} rings of 2 rows of {m_cap} columns take {2 * P * m_cap} bytes, past the "
+            f"budget of {budget} bytes of device memory")
+    return BatchPlan(BAND, bands, blocks, depth)
+
+
 def batch_fill(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
-               geometry: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+               blocks: Optional[int] = None) -> torch.Tensor:
     """The batch fill's final columns (K5's contract,
     :func:`batch_fill_plain`) on the device of its tensors: the CUDA kernel
-    ``bitpal_batch_fill`` (``csrc/bitpal_batch.cu``), one thread block per
-    pair and the whole batch in one launch, for CUDA tensors;
+    ``bitpal_batch_fill`` (``csrc/bitpal_batch.cu``), the whole batch in
+    one launch, short pairs as segments of a warp and long ones as bands
+    over many blocks (:func:`batch_plan`), for CUDA tensors;
     :func:`batch_fill_plain` for CPU tensors.
 
-    ``geometry``: ``(k, threads)`` words per thread (1, 2, 4, 8 or 16) and
-    threads (up to 1024, ``k * threads >= nw``) of every block; default
-    :func:`kernel_geometry` of ``nw``.  It never changes the result.  On
-    CUDA it allocates the output, launches on the current stream without
-    synchronising, and counts the launch in ``batch_fill.launches``.  A
-    launch the device refuses raises; nothing falls back to the plain
-    version."""
+    ``blocks``: the launch's blocks (:func:`batch_plan`'s default where
+    None); it never changes the result.  On CUDA it allocates the output,
+    then the rings (within ``band.ring_budget``: ``torch.OutOfMemoryError``
+    past it) and the flags, launches on the current stream without
+    synchronising, counts the launch in ``batch_fill.launches`` and keeps
+    its plan in ``batch_fill.last_plan``.  A launch the device refuses
+    raises; nothing falls back to the plain version."""
     _check_batch_args(texts, tlen, eq, nq)
     _check_g(g)
+    _check_blocks(blocks)
     if texts.device.type == "cpu":
         return batch_fill_plain(texts, tlen, eq, nq, g)
     if texts.device.type != "cuda":
         raise ValueError(f"the fills run on cpu or cuda tensors, got {texts.device}")
+    from .band import ring_budget  # band imports this module
     P, m_cap = texts.shape
     nw = eq.shape[2]
-    k, threads = geometry or kernel_geometry(nw)
+    dev = texts.device
+    # only two bands or more take a ring (the free memory is a driver call)
+    plan = batch_plan(P, nw, m_cap, blocks, ring_budget(dev) if nw > BAND else None)
     lib = _build.load()
-    planes = torch.empty((P, n_planes(g), nw), dtype=torch.int64, device=texts.device)
-    with torch.cuda.device(texts.device):
+    planes = torch.empty((P, n_planes(g), nw), dtype=torch.int64, device=dev)
+    ring = (torch.empty((P, plan.depth, m_cap), dtype=torch.uint8, device=dev)
+            if plan.depth else None)
+    sync = (torch.zeros(1 + P * plan.bands, dtype=torch.int32, device=dev)
+            if plan.width == BAND else None)
+    with torch.cuda.device(dev):
         err = lib.bitpal_batch_fill(
-            texts.data_ptr(), m_cap, tlen.data_ptr(), eq.data_ptr(), P, nw, g, k, threads,
-            planes.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            texts.data_ptr(), m_cap, tlen.data_ptr(), eq.data_ptr(), P, nw, g, plan.blocks,
+            None if ring is None else ring.data_ptr(), plan.depth,
+            None if sync is None else sync.data_ptr(), planes.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"bitpal_batch_fill launch failed with CUDA error {err}")
     batch_fill.launches += 1
+    batch_fill.last_plan = plan
     return planes
 
 
 batch_fill.launches = 0
+batch_fill.last_plan = None
 
 
 def _batch_scores(planes: torch.Tensor, mt: torch.Tensor, nq: torch.Tensor, g: int,

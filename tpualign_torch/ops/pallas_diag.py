@@ -4,14 +4,16 @@ one ``bitpal`` falls back to).  It holds no Pallas; the module keeps its
 counterpart's name so that a reader finds one from the other.
 
 Pair scoring, linear gaps, global (Needleman-Wunsch) or local
-(Smith-Waterman), as ``tpualign``'s kernel.  The kernel
-(``csrc/diag_fill.cu``, K8's port) sweeps the anti-diagonals of the table
-with the shorter sequence on the diagonal axis, three rotating diagonals in
-global memory; the TPU kernel's VMEM cap (``MAX_DIAG_ELEMS``) and its
-rolled, staged window of ``s1`` have no counterpart.  Its contract, shared
-by :func:`diag_fill` and :func:`score_plain`: ``s1`` (m,) int8 across the
+(Smith-Waterman), as ``tpualign``'s kernel.  Its contract, shared by
+:func:`diag_fill` and :func:`score_plain`: ``s1`` (m,) int8 across the
 columns, ``s2`` (n,) int8 down the rows, ``n <= m``; the result is
-``H(n, m)`` (global) or the max over every cell and 0 (local).
+``H(n, m)`` (global) or the max over every cell and 0 (local).  Neither
+depends on the order the cells are filled in, so the kernel
+(``csrc/diag_fill.cu``, K8's port) runs the row strips of the band fills
+(``csrc/band_fill.cuh``'s pipeline over many thread blocks,
+:func:`tpualign_torch.ops.band.pipeline_plan`), ``s1`` the strips' text
+and ``s2`` their query; the TPU kernel's VMEM cap (``MAX_DIAG_ELEMS``) and
+its rolled, staged window of ``s1`` have no counterpart.
 
 The checkpointed fill (``csrc/diag_ckpt.cu``, K9's port, the forward pass
 of :func:`tpualign_torch.ops.traceback_diag.align_diag`) keeps the
@@ -39,8 +41,6 @@ from . import band, xla
 from .bitpal import _device
 from .pairs import int8_codes
 
-MAX_THREADS = 1024
-WARP = 32
 #: the checkpoints' value on slots outside the table (``tpualign``'s
 #: ``pallas_diag.NEG_INF``)
 NEG_INF = xla.CK_NEG
@@ -74,12 +74,6 @@ def _check_fill_args(s1: torch.Tensor, s2: torch.Tensor) -> None:
         raise ValueError("s2 (the diagonal axis) must be the shorter sequence")
 
 
-def kernel_threads(n: int) -> int:
-    """Threads of the one block for ``n`` rows: one a diagonal element
-    (``n + 1`` of them) up to ``MAX_THREADS``, rounded up to whole warps."""
-    return min(MAX_THREADS, -(-(n + 1) // WARP) * WARP)
-
-
 def score_plain(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig) -> torch.Tensor:
     """Plain PyTorch version of the diagonal kernel (module docstring) by
     the row scan of :func:`tpualign_torch.ops.xla.rows_scan`, as a 0-d
@@ -91,39 +85,49 @@ def score_plain(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig) -> torch
     return best.clamp(min=0) if local else h[-1]
 
 
-def diag_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig) -> torch.Tensor:
+def diag_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig,
+              geometry=None) -> torch.Tensor:
     """The diagonal kernel's result on the device of its tensors: the CUDA
     kernel ``diag_fill`` (``csrc/diag_fill.cu``) for CUDA tensors,
     :func:`score_plain` for CPU tensors; a 0-d int64 tensor.
 
-    On CUDA the wrapper allocates the diagonals and the output, launches on
-    the current stream without synchronising, and counts the launch in
-    ``diag_fill.launches``.  A launch the device refuses raises; nothing
-    falls back to the plain version."""
+    ``geometry``: ``(k, threads)`` or ``(k, threads, blocks)`` of the strip
+    pipeline (:func:`tpualign_torch.ops.band.pipeline_plan`), default
+    :func:`tpualign_torch.ops.band.pipeline_geometry`; it never changes the
+    result.  On CUDA the wrapper allocates the output, seeded with the
+    max's identity, then the ring (within
+    :func:`tpualign_torch.ops.band.ring_budget`: a ring past it raises
+    ValueError) and the flags, launches on the current stream without
+    synchronising, counts the launch in ``diag_fill.launches`` and keeps its
+    plan in ``diag_fill.last_plan``.  A launch the device refuses raises;
+    nothing falls back to the plain version."""
     _check_fill_args(s1, s2)
     if s1.device.type == "cpu":
         return score_plain(s1, s2, cfg)
     if s1.device.type != "cuda":
         raise ValueError(f"diag_fill runs on cpu or cuda tensors, got {s1.device}")
     m, n = s1.numel(), s2.numel()
-    threads = kernel_threads(n)
     dev = s1.device
     lib = _build.load()
-    diag = torch.empty((3, n + 1), dtype=torch.int32, device=dev)
-    out = torch.empty(1, dtype=torch.int32, device=dev)
+    out = torch.full((1,), 0 if cfg.is_local else band.NEG, dtype=torch.int32, device=dev)
+    # K8's rows (s2) are the strips' query, its columns (s1) their text
+    plan = band.pipeline_plan(n, m, False, geometry, band.MAX_K, band.ring_budget(dev))
+    ring, sync, _ = band._pipe_scratch(plan, m, False, dev, False)
     with torch.cuda.device(dev):
         err = lib.diag_fill(
-            s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch,
-            cfg.gap, int(cfg.is_local), threads, diag.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch, cfg.gap,
+            int(cfg.is_local), plan.k, plan.threads, plan.blocks, band._ptr(ring), plan.depth,
+            sync.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"diag_fill launch failed with CUDA error {err}")
     diag_fill.launches += 1
+    diag_fill.last_plan = plan
     return out[0].long()
 
 
 diag_fill.launches = 0
+diag_fill.last_plan = None
 
 
 def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
