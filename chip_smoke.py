@@ -102,7 +102,18 @@ path's shape:
   plain run (phase (a3)); every 64gb-shape fill above runs the planner's
   geometry (``band.pipeline_geometry``), and a small sweep of K6 SW's
   geometry (threads x blocks, the one-block schedule beside it) prints at
-  the 64gb shape and at 20,000 x 20,000.
+  the 64gb shape and at 20,000 x 20,000;
+- the host C++ of ``tpualign_torch/native/bdna_tools.cpp`` (built with
+  ``g++``), whose full-table walk walks every leaf of the (1, 0, -1) and SW
+  ``align`` trees above on 8 threads (their lines print ``leaf_walk``
+  ``native``, the affine ones ``numpy``), held string for string against
+  the NumPy walk on 20 leaf-sized pairs; and the command line (phase (m)):
+  the 64gb-shape pair as ``.bdna`` files through ``python -m
+  tpualign_torch score`` in a subprocess that blocks JAX and the JAX
+  package (its score ``align_score``'s), ``align --out`` at (1, 0, -1) and
+  under SW (this slice's main path: each file valid and re-scoring to
+  ``align_score``'s), ``bench --check native`` on the 20,000 x 20,000 pair,
+  ``generate`` and ``info``.
 
 With ``--corpus`` naming the reference's ``bdna`` directory the 64gb pair is
 read from it and the scores must be the reference's 73888 and the JAX
@@ -823,6 +834,176 @@ def ckpt_phase(ctx, s1, s2, score, a20, b20):
             "align_sw_s": sw_wall}
 
 
+#: phase (m)'s walk hold: pairs (rows, columns) of the 64gb trees' leaf size
+#: (~640 x 640), one- and two-sided; codes 0..4 in every other pair
+NATIVE_SHAPES = ((640, 640), (641, 639), (600, 700), (1, 640), (640, 1))
+#: lines that block the JAX package and JAX in a subprocess before it imports
+BLOCK_JAX = (
+    "import sys\n"
+    "for k in [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]:\n"
+    "    del sys.modules[k]\n"
+    "sys.modules['jax'] = sys.modules['jaxlib'] = sys.modules['tpualign'] = None\n"
+)
+
+
+def cli_phase(ctx, s1, s2, score, score_sw, a20, b20, want20, kind):
+    """Phase (m): the host C++ walk and the command line.  The C++ walk
+    (``utils.native.traceback``) against the NumPy walk
+    (``ops.oracle.traceback``) string for string on leaf-sized pairs; then
+    the 64gb-shape pair written as ``.bdna`` files and run through
+    ``python -m tpualign_torch score`` in a subprocess that blocks JAX and
+    the JAX package (its ``Score:`` line ``score``), ``cli.main(["align",
+    ..., "--out", F])`` at (1, 0, -1) and under SW (2, -1, -2) with the
+    launch counts set to 0 just before each (each file valid and
+    re-scoring to ``score`` / ``score_sw``), ``bench --check native`` on the
+    20k pair (its row ``want20``, the C++ scorer timed on its own), a
+    ``generate`` round trip and ``info`` (the card ``kind`` listed)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpualign_torch import cli
+    from tpualign_torch.config import AlignMode, ScoringConfig
+    from tpualign_torch.io import bdna
+    from tpualign_torch.matrices import dna
+    from tpualign_torch.ops import oracle
+    from tpualign_torch.utils import native
+
+    t_phase = time.perf_counter()
+    cfgs = {"(1, 0, -1)": ScoringConfig(),
+            "(2, -1, -3)": ScoringConfig(match=2, mismatch=-1, gap=-3),
+            "SW (2, -1, -2)": ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL),
+            "DNA matrix": ScoringConfig(matrix=dna(2, -1, -3), gap=-3)}
+    c_s = np_s = 0.0
+    n_pairs = 0
+    for cfg in cfgs.values():
+        for rows, cols in NATIVE_SHAPES:
+            lo = n_pairs % 2  # codes 0..4, then 1..4
+            text = ctx.rng.integers(lo, 5, cols).astype(np.int8)
+            query = ctx.rng.integers(lo, 5, rows).astype(np.int8)
+            t0 = time.perf_counter()
+            got = native.traceback(text, query, cfg)
+            t1 = time.perf_counter()
+            want = oracle.traceback(text, query, cfg)
+            np_s += time.perf_counter() - t1
+            c_s += t1 - t0
+            if got != want:
+                raise AssertionError(f"native.traceback differs from oracle.traceback at "
+                                     f"{rows} x {cols}, {cfg}")
+            n_pairs += 1
+    shapes = ", ".join(f"{r} x {c}" for r, c in NATIVE_SHAPES)
+    print(f"[native] {n_pairs} leaf-sized pairs ({shapes}; codes 0..4 and 1..4) under "
+          f"{', '.join(cfgs)}: native.traceback equal to oracle.traceback string for string; "
+          f"C++ walks {c_s:.3f} s, NumPy walks {np_s:.3f} s "
+          f"({np_s / c_s:.1f}x, one thread each, host clock)")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    dev_args = [] if ctx.dev.type == "cuda" else ["--device", str(ctx.dev)]
+    m, n = s1.size, s2.size
+
+    def run(argv):
+        """``cli.main(argv)`` in this process: its printed lines and wall."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli.main({argv}) exited with {rc}")
+        return buf.getvalue().splitlines(), wall
+
+    with tempfile.TemporaryDirectory() as d:
+        a, b = os.path.join(d, "64gb-1.bdna"), os.path.join(d, "64gb-2.bdna")
+        bdna.write_bdna(a, s1)
+        bdna.write_bdna(b, s2)
+        code = BLOCK_JAX + (
+            "import runpy\n"
+            "sys.argv[0] = 'python -m tpualign_torch'\n"
+            "try:\n"
+            "    runpy.run_module('tpualign_torch', run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "from tpualign_torch.ops import bitpal\n"
+            "print('launches', bitpal.fill_g.launches)\n"
+            "assert not [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'tpualign') and sys.modules[k] is not None]\n"
+            "sys.exit(rc)\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, "score", a, b, *dev_args], cwd=repo,
+                              env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                              text=True, timeout=600)
+        process_s = time.perf_counter() - t0
+        out = proc.stdout.splitlines()
+        # the wrappers count launches of their kernels only, none on the CPU
+        launches = 1 if ctx.dev.type == "cuda" else 0
+        if proc.returncode or out[1:] != [f"Score: {score}", f"launches {launches}"]:
+            raise AssertionError(f"python -m tpualign_torch score: exit code {proc.returncode}, "
+                                 f"{out}, want Score: {score} after one bitpal_gfill launch\n"
+                                 f"{proc.stderr}")
+        print(f"[cli] python -m tpualign_torch score 64gb-1.bdna 64gb-2.bdna ({m} x {n}) in a "
+              f"subprocess with jax and tpualign blocked: {out[1]}, equal to align_score's, one "
+              f"bitpal_gfill launch; the call {out[0]} ms, the process "
+              f"{process_s:.3f} s (host clock)")
+        for name, args, cfg, want, ok in (
+                ("(1, 0, -1)", [], ScoringConfig(), score, alignment_ok),
+                ("SW (2, -1, -2)", ["--mode", "sw", "--match", "2", "--mismatch", "-1", "--gap",
+                                    "-2"], cfgs["SW (2, -1, -2)"], score_sw, core_ok)):
+            f = os.path.join(d, "aln.txt")
+            ctx.reset_counts()
+            out, wall = run(["align", a, b, "--out", f, *args, *dev_args])
+            counts = {k: v for k, v in ctx.read_counts().items() if v}
+            kernel = "band_capture_fill" if cfg.is_local else "capture_fill"
+            if counts.get(kernel, 0) < 2 or len(counts) != 1:
+                raise AssertionError(f"cli align {name} did not run {kernel} alone: {counts}")
+            with open(f) as fh:
+                a1, a2 = fh.read().splitlines()
+            rescored = oracle.alignment_score(a1, a2, cfg)
+            if out[1] != f"Score: {want}" or rescored != want or not ok(s1, s2, a1, a2,
+                                                                        oracle.BASES):
+                raise AssertionError(f"cli align {name}: {out[:2]}, the file re-scores to "
+                                     f"{rescored}, align_score {want}")
+            cmd = " ".join(["align 64gb-1.bdna 64gb-2.bdna --out F", *args])
+            print(f"[cli] {cmd}: {out[1]}, the "
+                  f"file valid ({len(a1)} columns) and re-scoring to align_score's; launches "
+                  f"{counts}; the call {out[0]} ms, cli.main {wall:.3f} s (host clock)")
+
+        corpus = os.path.join(d, "corpus")
+        os.mkdir(corpus)
+        bdna.write_bdna(os.path.join(corpus, "20k-1.bdna"), a20)
+        bdna.write_bdna(os.path.join(corpus, "20k-2.bdna"), b20)
+        js = os.path.join(d, "bench.json")
+        out, wall = run(["bench", "--pairs", "20k", "--corpus", corpus, "--check", "native",
+                         "--runs", "3", "--json", js, *dev_args])
+        with open(js) as fh:
+            payload = json.load(fh)
+        t0 = time.perf_counter()
+        nat = native.score(a20, b20)
+        nat_s = time.perf_counter() - t0
+        row = payload["results"][0]
+        meta = payload["meta"]
+        on_card = ctx.dev.type == "cuda"
+        if (row["score"] != nat or nat != want20
+                or on_card and (meta["backend"], meta["device"]) != ("cuda", kind)):
+            raise AssertionError(f"bench row {row}, meta {meta}: native {nat}, oracle {want20}")
+        print(f"[cli] bench --check native 20k ({b20.size} x {a20.size}): {out[0]!r}, score "
+              f"equal to native.score's; JSON backend {meta['backend']}, device {meta['device']}; "
+              f"ms_best {row['ms_best']} (CUDA events, one call of align_score a sample), "
+              f"cli.main {wall:.3f} s; native.score alone {nat_s:.3f} s "
+              f"({a20.size * b20.size / nat_s / 1e9:.3f} GCUPS on one host thread)")
+
+        g1, g2 = os.path.join(d, "g1.bdna"), os.path.join(d, "g2.bdna")
+        out, _ = run(["generate", g1, g2, "--lengths", "100000", "120000", "--seed", "7"])
+        r1, r2 = bdna.random_pair(100000, 120000, seed=7)
+        if not (np.array_equal(bdna.read_bdna(g1), r1) and np.array_equal(bdna.read_bdna(g2), r2)):
+            raise AssertionError("generate's files differ from random_pair's")
+        info, _ = run(["info"])
+        if ctx.dev.type == "cuda" and not any(kind in line for line in info):
+            raise AssertionError(f"info does not list {kind}: {info}")
+        print(f"[cli] generate --lengths 100000 120000 --seed 7: {out[0]!r}, read back equal to "
+              f"random_pair's; info: {' | '.join(info)}")
+    print(f"[phase m] {time.perf_counter() - t_phase:.1f} s")
+
+
 #: the ring budget's phase: the planner's wide shapes (n, m, affine), and
 #: a query planted whole in a text whose 2 ring rows pass 1 GiB
 WIDE_PLANS = ((5000, 140_000_000, False), (5000, 70_000_000, True))
@@ -1096,6 +1277,7 @@ def main() -> None:
     from tpualign_torch.ops import band, band_batch, bitpal, hirschberg, oracle, pallas_diag, xla
     from tpualign_torch.ops import pairs as packing
     from tpualign_torch.probe import read_pairs, serve_pairs
+    from tpualign_torch.utils import native
 
     counted = {"fill_g": bitpal.fill_g, "capture_fill": bitpal.capture_fill,
                "band_fill": band.band_fill, "diag_fill": pallas_diag.diag_fill,
@@ -1171,6 +1353,14 @@ def main() -> None:
     if len(report) != N_INSTANTIATIONS:
         raise AssertionError(f"expected {N_INSTANTIATIONS} kernel instantiations, "
                              f"ptxas reported {len(report)}")
+    # the host C++ (leaf walks, the CLI's native check), with g++
+    native_file = native.library_file()
+    cached = os.path.exists(native_file)
+    t0 = time.perf_counter()
+    native.load()
+    print(f"[build] native {os.path.relpath(native_file)}: "
+          f"{'loaded from the cache' if cached else 'built by g++'} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # phase 3: K1 (bitpal_gfill at g = 1) against fill_plain (planes word
     # for word), the scores against the oracle (up to 300 x 300, and once at
@@ -1388,9 +1578,13 @@ def main() -> None:
     if not sc == rescored == score:
         raise AssertionError(f"64gb-shape alignment score {sc} (re-scored {rescored}) "
                              f"!= align_score's {score}")
+    if stats["leaf_walk"] != "native":
+        raise AssertionError(f"align's leaves were walked in {stats['leaf_walk']}, not C++")
     print(f"[path: align] {m} x {n} ({source}): alignment valid, "
           f"{len(a1)} columns, score {sc} equal to align_score's; launches "
-          f"{align_counts}; wall {align_wall:.3f} s")
+          f"{align_counts}; wall {align_wall:.3f} s; leaf_walk {stats['leaf_walk']}, "
+          f"leaf_walk_s {stats['leaf_walk_s']:.3f} s over {stats['leaves']} leaves, "
+          f"bisect_s {stats['bisect_s']:.3f} s")
     # the root's forward capture fill on its own (CUDA events), held
     # against fill_g_plain at the path's shape
     cap_ms, cap_runs, cap = cuda_ms(lambda: bitpal.capture_fill(t, eq, n, 1, root_rows))
@@ -1763,9 +1957,15 @@ def main() -> None:
     if not sc == rescored == score_sw:
         raise AssertionError(f"64gb-shape SW alignment score {sc} (re-scored {rescored}) "
                              f"!= align_score's {score_sw}")
+    if sw_stats["route"] != "core" or sw_stats["core_stats"]["leaf_walk"] != "native":
+        raise AssertionError(f"SW align took the {sw_stats['route']} route, or walked its "
+                             f"leaves in NumPy: {sw_stats}")
+    sw_tree = sw_stats["core_stats"]
     print(f"[main path: align SW] {m} x {n} ({source}), (2, -1, -2) local: alignment valid, "
           f"{len(a1)} columns, score {sc} equal to align_score's; launches "
-          f"{sw_align_counts}; wall {sw_align_wall:.3f} s")
+          f"{sw_align_counts}; wall {sw_align_wall:.3f} s; leaf_walk {sw_tree['leaf_walk']}, "
+          f"leaf_walk_s {sw_tree['leaf_walk_s']:.3f} s over {sw_tree['leaves']} leaves, "
+          f"bisect_s {sw_tree['bisect_s']:.3f} s")
     del a1, a2
     if sw_stats["route"] != "core" or tuple(sw_stats["end"]) != tuple(plain_cell[1:]):
         raise AssertionError(f"SW align took {sw_stats}, the plain locate {plain_cell}")
@@ -1831,9 +2031,14 @@ def main() -> None:
             raise AssertionError(f"64gb-shape affine {name} alignment valid {valid}, score {sc} "
                                  f"(re-scored {rescored}), align_score's {witness}")
         aff_paths[name] = dict(launches=n_launch, wall_s=wall, stats=stats)
+        tree = stats.get("core_stats", stats)
+        if tree["leaf_walk"] != "numpy":  # the flagged Gotoh walk has no C++ version
+            raise AssertionError(f"affine {name} align's leaves: {tree['leaf_walk']}")
         print(f"[main path: align affine {name}] {m} x {n} ({source}), (2, -1, open -5, "
               f"extend -2): alignment valid, {len(a1)} columns, score {sc} equal to "
-              f"align_score's (band_fill); launches {counts}; wall {wall:.3f} s")
+              f"align_score's (band_fill); launches {counts}; wall {wall:.3f} s; leaf_walk "
+              f"{tree['leaf_walk']}, leaf_walk_s {tree['leaf_walk_s']:.3f} s over "
+              f"{tree['leaves']} leaves, bisect_s {tree['bisect_s']:.3f} s")
         print(f"[path split: align affine {name}] {json.dumps(stats)}")
         del a1, a2
     # the Myers-Miller root's forward fill (rows 1..n/2 under tb = gap_open:
@@ -2202,6 +2407,10 @@ def main() -> None:
     # phase (k): the ring's budget from the card's free memory: the
     # planner's wide plans and a fill whose ring passes 1 GiB
     bk["wide"] = wide_phase(ctx)
+
+    # phase (m): the host C++ walk against the NumPy walk, and the command
+    # line (this slice's main path: python -m tpualign_torch align)
+    cli_phase(ctx, s1, s2, score, score_sw, a20, b20, want20, kind)
 
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:

@@ -181,6 +181,49 @@ def test_package_imports_and_scores_without_jax():
     assert [int(x) for x in out.stdout.split()] == [want] * 9 + [want, oracle.score(s2, s1)] * 2
 
 
+def test_cli_and_native_run_without_jax(tmp_path):
+    """The command line, the ``.bdna`` IO, the golden pins, the bench rows
+    and the host C++ import and run with ``jax`` and ``tpualign`` blocked,
+    ``python -m tpualign_torch --help`` included."""
+    a, b = str(tmp_path / "a.bdna"), str(tmp_path / "b.bdna")
+    code = (
+        "import runpy, sys\n"
+        "for k in [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]:\n"
+        "    del sys.modules[k]\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['tpualign'] = None\n"
+        "from tpualign_torch import bench, cli, golden\n"
+        "from tpualign_torch.io import bdna\n"
+        "from tpualign_torch.utils import native\n"
+        f"assert cli.main(['generate', {a!r}, {b!r}, '--lengths', '40', '25']) == 0\n"
+        f"assert cli.main(['score', {a!r}, {b!r}, '--device', 'cpu']) == 0\n"
+        f"s1, s2 = bdna.read_bdna({a!r}), bdna.read_bdna({b!r})\n"
+        "print('walk', native.traceback(s1, s2)[0], native.score(s1, s2))\n"
+        "assert golden.GOLDEN_NW_UNIT['64gb'] == 73888 and bench.BenchResult\n"
+        "sys.argv = ['python -m tpualign_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tpualign_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "assert not [k for k in sys.modules if k.startswith('jax') and sys.modules[k] is not None]\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    from tpualign.io.bdna import read_bdna, random_pair
+
+    s1, s2 = random_pair(40, 25)
+    assert read_bdna(a).tobytes() == s1.tobytes() and read_bdna(b).tobytes() == s2.tobytes()
+    want = oracle.score(s1, s2)
+    lines = out.stdout.splitlines()
+    assert lines[2:4] == [f"Score: {want}", f"walk {want} {want}"]
+    assert "{score,align,generate,bench,info}" in out.stdout
+
+
 def test_scoring_config_fields_match_jax_package():
     ours = [(f.name, f.default) for f in dataclasses.fields(ScoringConfig)]
     theirs = [(f.name, f.default) for f in dataclasses.fields(jconfig.ScoringConfig)]

@@ -13,6 +13,10 @@ Public API:
 - :func:`align` — score plus aligned strings of one pair.
 - :func:`align_score_batch` — scores of many pairs in one kernel launch.
 - :class:`ScoringConfig`, :class:`EngineConfig`, :class:`AlignMode` — config.
+
+``python -m tpualign_torch score|align|generate|bench|info`` is its command
+line (:mod:`tpualign_torch.cli`); :mod:`tpualign_torch.utils.native` its host
+C++ (the leaf walks).
 """
 
 from .api import align, align_score, align_score_batch

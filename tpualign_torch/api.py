@@ -7,7 +7,8 @@ the band engine for everything else, and the same fallbacks when an engine
 refuses a config or a shape with ValueError.  Every engine runs on
 ``engine.device``: its CUDA kernel on a CUDA device, its plain PyTorch
 version on the CPU.  ``align`` serves every ``ScoringConfig`` too: it walks
-the full table up to ``FULL_TABLE_CELL_LIMIT`` cells; above it, it runs the
+the full table up to ``FULL_TABLE_CELL_LIMIT`` cells (in C++ for linear-gap
+global configs, ``utils/native.py``); above it, it runs the
 bit-parallel Hirschberg split for the family, Myers-Miller over K7's affine
 capture fill (``ops/affine_align.py``) for affine gaps, the split over
 K7's port (``ops/band_align.py``, ``ops/ends_free.py``) for the other
@@ -27,10 +28,12 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .config import UNPORTED_IMPLS, EngineConfig, ScoringConfig
 from .ops import (affine_align, band, band_align, band_batch, bitpal, ends_free, hirschberg,
                   oracle, pallas_diag, traceback, traceback_diag, xla)
+from .utils import native
 
 #: ``align`` walks the exact full table up to this many DP cells (as
 #: ``tpualign.api.FULL_TABLE_CELL_LIMIT``), and bisects above it
@@ -106,8 +109,11 @@ def align(
     """Score plus aligned strings (gap ``-``) of ``s1`` (text, columns)
     against ``s2`` (query, rows), with the semantics of ``tpualign.align``.
 
-    Up to ``FULL_TABLE_CELL_LIMIT`` cells: the exact full-table traceback
-    (:func:`tpualign_torch.ops.oracle.traceback`), any config, on the host.
+    Up to ``FULL_TABLE_CELL_LIMIT`` cells: the exact full-table traceback on
+    the host, any config; in C++ for linear-gap global configs
+    (:func:`tpualign_torch.utils.native.traceback`, as
+    ``tpualign/api.py:221-231``), else in NumPy
+    (:func:`tpualign_torch.ops.oracle.traceback`), the same strings.
     Above it, on ``engine.device``, routed as ``tpualign/api.py:218-288``
     routes on a TPU: matrix or ends-free configs to
     :func:`tpualign_torch.ops.ends_free.align_large`; other affine configs,
@@ -144,6 +150,10 @@ def align(
     s1 = np.asarray(s1, dtype=np.int8)
     s2 = np.asarray(s2, dtype=np.int8)
     if (s1.size + 1) * (s2.size + 1) <= FULL_TABLE_CELL_LIMIT:
+        if native.walks(scoring) and not scoring.is_local:
+            # the oracle's refusal of codes outside a matrix, a ValueError
+            xla.check_codes(torch.from_numpy(s1), torch.from_numpy(s2), scoring)
+            return native.traceback(s1, s2, scoring)
         return oracle.traceback(s1, s2, scoring)
     dev = engine.device
     if scoring.has_matrix or scoring.is_ends_free:

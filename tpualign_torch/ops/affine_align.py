@@ -149,8 +149,10 @@ def align(s1, s2, cfg: ScoringConfig, *, device,
     ``stats``, when given, is filled with counts and host-clock seconds:
     ``nodes`` (two fills each), ``gap_nodes`` (those whose crossing is a
     vertical gap), ``leaves``, ``leaf_cells``, ``bisect_s``
-    (until the last node's crossing is read back), ``leaf_walk_s`` (the
-    leaf walks' own times, summed over the threads) and ``wall_s``."""
+    (until the last node's crossing is read back), ``leaf_walk`` (always
+    ``"numpy"``: the flagged Gotoh walk has no C++ counterpart, ROADMAP
+    item 15), ``leaf_walk_s`` (the leaf walks' own times, summed over the
+    threads) and ``wall_s``."""
     _check_cfg(cfg)
     if cfg.is_local:
         return align_local(s1, s2, cfg, device=device, stats=stats)
@@ -208,7 +210,8 @@ def align(s1, s2, cfg: ScoringConfig, *, device,
     if score is None:  # the root is a leaf
         score = walked[0][1][0]
     if stats is not None:
-        stats.update(counts, bisect_s=bisect_s, leaf_walk_s=sum(s for s, _ in walked),
+        stats.update(counts, bisect_s=bisect_s, leaf_walk="numpy",
+                     leaf_walk_s=sum(s for s, _ in walked),
                      wall_s=time.perf_counter() - t_start)
     return score, "".join(r[1] for _, r in walked), "".join(r[2] for _, r in walked)
 

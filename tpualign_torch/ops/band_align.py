@@ -14,8 +14,10 @@ or a substitution matrix of up to 16 codes; ``s1`` is the text (columns),
   half, and the crossing row the same way.  Leaves are walked on the host.
 - **Local** (:func:`align_local`): one fill locates the end cell
   ``(i*, j*)`` of an optimal local alignment, the row-major first maximum
-  (the oracle's cell).  A short hit is walked in a window ending there,
-  doubled until its score is the maximum.  A long hit takes the *anchored*
+  (the oracle's cell).  A short hit is walked in a window ending there by
+  the C++ full-table walk (:func:`tpualign_torch.utils.native.traceback`,
+  the oracle's strings), the window doubled until its score is the
+  maximum.  A long hit takes the *anchored*
   start locate: the reversed prefixes ``s1[:j*]``, ``s2[:i*]`` filled under
   global boundaries with no floor, so every path starts at the end cell,
   and the maximum over all cells is the start; then :func:`align_global`
@@ -54,7 +56,8 @@ import numpy as np
 import torch
 
 from ..config import AlignMode, ScoringConfig
-from . import band, hirschberg, oracle, xla
+from ..utils import native
+from . import band, hirschberg, xla
 from .bitpal import _device
 from .pairs import int8_codes
 
@@ -169,7 +172,8 @@ def align_local(s1, s2, cfg: ScoringConfig, *, device,
 
     ``stats``, when given, gets ``end`` and ``vmax`` (the located end cell
     and the optimum), ``route`` (``"window"`` or ``"core"``), for a window
-    ``window`` (its rows and columns), for a core ``start`` and ``core``
+    ``window`` (its rows and columns) and ``leaf_walk`` (``"native"``), for
+    a core ``start`` and ``core``
     (its rows and columns) and ``core_stats`` (the tree's), and host-clock
     seconds ``locate_s``, ``start_s`` and ``wall_s``."""
     t_start = time.perf_counter()
@@ -194,10 +198,10 @@ def align_local(s1, s2, cfg: ScoringConfig, *, device,
         span = SW_WINDOW_LIMIT
         while (min(span, i_end) + 1) * (min(span, j_end) + 1) <= WINDOW_MAX_CELLS:
             ia, ja = max(0, i_end - span), max(0, j_end - span)
-            sc, a1, a2 = oracle.traceback(s1[ja:j_end], s2[ia:i_end], cfg)
+            sc, a1, a2 = native.traceback(s1[ja:j_end], s2[ia:i_end], cfg)
             if sc == vmax:
                 info.update(route="window", window=(i_end - ia, j_end - ja),
-                            wall_s=time.perf_counter() - t_start)
+                            leaf_walk="native", wall_s=time.perf_counter() - t_start)
                 return sc, a1, a2
             if ia == 0 and ja == 0:  # pragma: no cover - a broken locate
                 raise AssertionError(f"window walk found {sc}, the locate {vmax}")

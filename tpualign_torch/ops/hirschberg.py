@@ -23,8 +23,10 @@ Both reductions run on the device; a node reads back only its crossing
 points.  Nodes are visited breadth first, so that the fills of a level are
 queued on the stream before the oldest node's crossings are read.
 Segments of at most ``BASE_CELLS`` cells are leaves: they are walked by the
-exact full-table traceback (:func:`tpualign_torch.ops.oracle.traceback`) on
-a thread pool while the bisection goes on, and concatenated in path order.
+exact full-table traceback in C++ (:func:`tpualign_torch.utils.native.traceback`,
+string for string :func:`tpualign_torch.ops.oracle.traceback`'s) on a pool
+of ``NATIVE_LEAF_WORKERS`` threads while the bisection goes on, and
+concatenated in path order.
 
 The first-argmax crossings of one k-way node lie on the leftmost optimal
 path, so they are jointly consistent; if they ever were not (non-monotone
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 
 from ..config import ScoringConfig
+from ..utils import native
 from . import bitpal, oracle
 
 #: segments at or under this many DP cells are leaves, walked by the exact
@@ -71,10 +74,18 @@ KWAY_FANOUT = 33
 #: ... and otherwise straight into spans of this many rows (leaf-sized)
 KWAY_LEAF_ROWS = 640
 
-#: threads walking leaves, beside the thread that runs the bisection.  The
-#: NumPy walk holds the interpreter lock, so more threads only contend for
-#: it: at the 64gb shape (199 leaves of ~640 x 640) one walker took 3.2 s,
-#: two 8.0 s, eight 25.2 s (H100 80GB HBM3 host, 700 W card)
+#: threads walking leaves in C++ beside the thread that runs the bisection
+#: (``tpualign``'s pool): ctypes releases the interpreter lock for a walk.
+#: At the 64gb shape (1, 0, -1) ``align`` took 0.279 s with one walker and
+#: 0.154-0.164 s with eight (``tools/ab_leaf_walk.py``, H100 80GB HBM3
+#: host, 700 W card)
+NATIVE_LEAF_WORKERS = 8
+
+#: threads walking leaves in NumPy (:func:`tpualign_torch.ops.oracle.traceback`,
+#: ``affine_align``'s Gotoh walk).  The NumPy walk holds the interpreter
+#: lock, so more threads only contend for it: at the 64gb shape (199 leaves
+#: of ~640 x 640) one walker took 3.2 s, two 8.0 s, eight 25.2 s (H100 80GB
+#: HBM3 host, 700 W card)
 LEAF_WORKERS = 1
 
 #: the fills are one thread block: queries past this many rows are refused
@@ -175,13 +186,19 @@ def tree(s1: np.ndarray, s2: np.ndarray, cfg: ScoringConfig, kway_node, split_no
     crossing column of each row of ``rows`` (segment-local, a ``(J,)``
     device tensor) and ``split_node(seqs, ta, mid, tb, qa, qb)`` the
     crossing row of column ``mid`` (segment-local, 0-d).  Leaves are walked
-    by :func:`tpualign_torch.ops.oracle.traceback` under ``cfg``.
+    under ``cfg`` by :func:`tpualign_torch.utils.native.traceback` where it
+    serves ``cfg`` (:func:`tpualign_torch.utils.native.walks`), else by
+    :func:`tpualign_torch.ops.oracle.traceback`.
 
     ``stats``, when given, is filled with counts and host-clock seconds:
     ``kway_nodes``, ``binary_nodes``, ``leaves``, ``leaf_cells``,
     ``bisect_s`` (until the last node's crossings are read back),
-    ``leaf_walk_s`` (the leaf walks' own times, summed over the threads)
-    and ``wall_s``."""
+    ``leaf_walk`` (``"native"`` or ``"numpy"``), ``leaf_walk_s`` (the leaf
+    walks' own times, summed over the threads) and ``wall_s``."""
+    in_cpp = native.walks(cfg)
+    if in_cpp:
+        native.load()  # built at first use, before the clock starts
+    walk_table = native.traceback if in_cpp else oracle.traceback
     t_start = time.perf_counter()
     dev = bitpal._device(device)
     q = torch.from_numpy(s2).to(dev)
@@ -193,7 +210,7 @@ def tree(s1: np.ndarray, s2: np.ndarray, cfg: ScoringConfig, kway_node, split_no
 
     def walk(ta, tb, qa, qb):
         t0 = time.perf_counter()
-        result = oracle.traceback(s1[ta:tb], s2[qa:qb], cfg)
+        result = walk_table(s1[ta:tb], s2[qa:qb], cfg)
         return time.perf_counter() - t0, result
 
     def submit(ta, tb, qa, qb, force_bin=False):
@@ -214,7 +231,7 @@ def tree(s1: np.ndarray, s2: np.ndarray, cfg: ScoringConfig, kway_node, split_no
         split = split_node(seqs, ta, mid, tb, qa, qb)
         pending.append(("binary", ta, tb, qa, qb, mid, split))
 
-    with ThreadPoolExecutor(max_workers=LEAF_WORKERS) as pool:
+    with ThreadPoolExecutor(max_workers=NATIVE_LEAF_WORKERS if in_cpp else LEAF_WORKERS) as pool:
         submit(0, s1.size, 0, s2.size)
         while pending:
             kind, ta, tb, qa, qb, at, found = pending.popleft()
@@ -239,7 +256,7 @@ def tree(s1: np.ndarray, s2: np.ndarray, cfg: ScoringConfig, kway_node, split_no
     a1 = "".join(r[1] for _, r in walked)
     a2 = "".join(r[2] for _, r in walked)
     if stats is not None:
-        stats.update(counts, bisect_s=bisect_s,
+        stats.update(counts, bisect_s=bisect_s, leaf_walk="native" if in_cpp else "numpy",
                      leaf_walk_s=sum(s for s, _ in walked),
                      wall_s=time.perf_counter() - t_start)
     return sum(r[0] for _, r in walked), a1, a2
