@@ -113,7 +113,21 @@ path's shape:
   package (its score ``align_score``'s), ``align --out`` at (1, 0, -1) and
   under SW (this slice's main path: each file valid and re-scoring to
   ``align_score``'s), ``bench --check native`` on the 20,000 x 20,000 pair,
-  ``generate`` and ``info``.
+  ``generate`` and ``info``;
+- the sharded pipelines (``tpualign_torch.parallel``, phase (n)) on a
+  group of 4 shards in one process on the card: ``bitpal_strips.score``
+  at (1, 0, -1) and (1, 0, -2) on the 64gb-shape pair over
+  ``bitpal_gfill_stream`` (K4's upstream stream in and tail out) and
+  ``band_strips.score`` under SW there over ``band_capture_edge`` (K7's
+  top row and left column in), each equal to the one-launch kernel's
+  score above, ``col_deltas_fn`` row for row K1's final column, the band
+  strips at 20,000 x 20,000 under the DNA matrix, semiglobal and infix,
+  the row-scan ``strips`` NW and affine at 20,000 x 4,000,
+  ``hirschberg.align_sharded`` at 20,000 x 20,000, ``align_score`` under
+  each sharded name on the default group and ``python -m tpualign_torch
+  score --impl bitpal-strips``; both new entries held word for word
+  against their plain versions (``chunk_plain`` with a random upstream
+  stream, ``capture_plain`` with random edges at 20,000 x 20,000).
 
 With ``--corpus`` naming the reference's ``bdna`` directory the 64gb pair is
 read from it and the scores must be the reference's 73888 and the JAX
@@ -167,8 +181,10 @@ BAND_BATCH_SOURCE = "tpualign_torch/csrc/band_batch.cu"
 #: counts), band_batch_fill (40 less local affine at 16
 #: rows a thread), bitpal_rc_kernel (3 rc, one word a lane),
 #: bitpal_chunk_kernel (rc 2..4 at 2 planes and rc 1 at 2..4 planes),
-#: diag_ckpt_kernel (5 rows per thread x global, local)
-N_INSTANTIATIONS = 6 + 40 + 76 + 10 + 18 + 38 + 3 + 6 + 10
+#: diag_ckpt_kernel (5 rows per thread x global, local), band_edge_kernel
+#: (40: band_capture_fill's linear ones), bitpal_stream_kernel (3 plane
+#: counts)
+N_INSTANTIATIONS = 6 + 40 + 76 + 10 + 18 + 38 + 3 + 6 + 10 + 40 + 3
 #: the least time of a kernel's work: bytes over the HBM rate, operations
 #: over the table's rate for 32-bit operations outside the tensor cores
 #: (the float32 rate; the table lists no int32 rate), NVIDIA H100 SXM
@@ -205,7 +221,8 @@ def ptxas_report(log: str):
         if m:
             mangled = m.group(1)
             base = re.search(r"((?:bitpal_g|band_|diag_)fill_kernel|(?:bitpal|band)_batch_kernel"
-                             r"|bitpal_(?:rc|chunk)_kernel|diag_ckpt_kernel)", mangled)
+                             r"|bitpal_(?:rc|chunk|stream)_kernel|band_edge_kernel|diag_ckpt_kernel)",
+                             mangled)
             args = re.search(r"kernelI(.*?)EEv", mangled)
             targs = re.findall(r"L[ib](\d+)E", args.group(1) + "E") if args else []
             name = f"{base.group(1) if base else mangled}<{','.join(targs)}>"
@@ -1260,6 +1277,367 @@ def k6_sweep(ctx, tag, text, query, cfg, ends, grid, runs=3):
     return out
 
 
+#: phase (n), the sharded pipelines: a group of SHARDS shards in one
+#: process on the card; (n1) K4's stream cases (query rows, text columns,
+#: g, chunk lengths, blocks, tail word: None the last); (n2) K7's edges at
+#: the 20k pair; (n5) the row-scan strips at (text, query) STRIPS_SHAPE,
+#: about 3.6 s NW and 5.8 s affine on 4 shards of an H100 80GB HBM3 at 700 W
+SHARDS = 4
+STREAM_CASES = [(6000, 4000, 2, [1500, 33, 2048], None, None),
+                (6000, 4000, 1, [4100], 1, 50),
+                (2000, 6000, 3, [700, 1000], 2, 0),
+                (64 * 33, 3000, 5, [513], None, None)]
+STRIPS_SHAPE = (20000, 4000)
+EDGE_ROWS = (1, 1024, 10000)
+STREAM_SOURCE = RC_SOURCE
+EDGE_SOURCE = "tpualign_torch/csrc/band_capture_edge.cu"
+
+
+def replay_chunk(bitpal, bitpal_strips, s1, s2, cfg, group, phase):
+    """(n3) One launch of ``bitpal_gfill_stream`` as the main path runs
+    it, held word for word against ``chunk_plain``: in one more run of
+    ``bitpal_strips.score`` under ``cfg`` on ``s1`` x ``s2``, the first
+    chunk with an upstream stream that starts past the text's middle step
+    (shard 1's: it runs before shard 2 in a superstep and a superstep
+    ahead of it) is recorded with its state in, its ``u_in`` (shard 0's
+    tail) and its ``t0``, and replayed through ``chunk_plain`` on the same
+    device.  Planes, hand-offs and tail must be equal."""
+    import functools
+
+    import torch
+
+    kernel, rec = bitpal.fill_g_stream, {}
+
+    # fill_g_stream counts its launches on the module's name, the recorder's
+    # while it stands there: wraps gives it the counter and the plan
+    @functools.wraps(kernel)
+    def recorder(text, eq, nq, g, t0, t_steps, state, u_in, tail_word, blocks=None):
+        take = not rec and u_in is not None and 2 * t0 >= text.numel()
+        if take:
+            rec.update(args=(text, eq, nq, g, 1, t0, t_steps,
+                             bitpal.WaveState(tuple(p.clone() for p in state.planes),
+                                              state.hand.clone()),
+                             u_in.clone(), tail_word))
+        out = kernel(text, eq, nq, g, t0, t_steps, state, u_in, tail_word, blocks)
+        if take:
+            rec["got"] = (tuple(p.clone() for p in out[0].planes), out[0].hand.clone(),
+                          out[1].clone())
+        return out
+
+    bitpal.fill_g_stream = recorder
+    try:
+        bitpal_strips.score(s1, s2, cfg, group=group)
+    finally:
+        bitpal.fill_g_stream = kernel
+    if "got" not in rec:
+        raise AssertionError("the sharded run launched no chunk with an upstream stream past "
+                             "the text's middle step")
+    text, eq, nq, g, rc, t0, steps, state, u_in, tw = rec["args"]
+    t_plain = time.perf_counter()
+    pst, ptail = bitpal.chunk_plain(text, eq, nq, g, rc, t0, steps, state, u_in, tw)
+    plain_s = time.perf_counter() - t_plain
+    planes, hand, tail = rec["got"]
+    same = (all(torch.equal(a, b) for a, b in zip(planes, pst.planes))
+            and torch.equal(hand, pst.hand) and torch.equal(tail, ptail))
+    err = max(int((hand.long() - pst.hand.long()).abs().max()),
+              int((tail.long() - ptail.long()).abs().max()),
+              int((bitpal.row_deltas(planes, nq, g) - bitpal.row_deltas(pst.planes, nq, g))
+                  .abs().max()))
+    if err or not same:
+        raise AssertionError(f"bitpal_gfill_stream differs from chunk_plain on the main path's "
+                             f"chunk at steps {t0 + 1}..{t0 + steps}, {nq} rows x {text.numel()} "
+                             f"columns (max abs err {err})")
+    phase["max_abs_err"] = max(phase["max_abs_err"], err)
+    phase["main_path_replay"] = dict(rows=nq, steps=steps, t0=t0, plain_s=plain_s)
+    print(f"[n3 main-path chunk vs plain] one bitpal_gfill_stream launch of the sharded run "
+          f"(shard 1: {nq} rows, steps {t0 + 1}..{t0 + steps} of {text.numel()} columns, "
+          f"shard 0's tail in) equal to chunk_plain word for word (planes, hand-offs, tail); "
+          f"plain replay {plain_s:.1f} s")
+
+
+def sharded_phase(ctx, s1, s2, pins):
+    """Phase (n), the sharded pipelines (``tpualign_torch.parallel``) on a
+    group of ``SHARDS`` shards in one process on ``ctx.dev``:
+
+    - (n1) K4's sharded contract, ``bitpal_gfill_stream``, chunk by chunk
+      against ``chunk_plain`` with the same random upstream stream (planes,
+      hand-offs and tail word for word; ``STREAM_CASES``);
+    - (n2) K7's, ``band_capture_edge``, against ``capture_plain`` with the
+      same random top row and left column at the 20k pair, NW and SW
+      (2, -1, -2): rows ``EDGE_ROWS``, the last row and column, the cell;
+    - (n3) ``bitpal_strips.score`` on ``s1`` x ``s2`` (the 64gb shape) at
+      (1, 0, -1) and (1, 0, -2), equal to K1's and K2's scores
+      (``pins["k1"]``, ``pins["k2"]``), and ``col_deltas_fn`` equal row for
+      row to ``bitpal.row_deltas`` of one K1 launch's planes; one launch
+      of the g = 1 run replayed through ``chunk_plain`` (:func:`replay_chunk`);
+    - (n4) ``band_strips.score`` there under SW (2, -1, -2), equal to K6's
+      (``pins["sw"]``), and at the 20k pair the DNA matrix NW, semiglobal
+      and infix, each equal to phase (d)'s K6 score (``pins["d20"]``);
+    - (n5) ``strips.score`` (the row scan, no kernel) at ``STRIPS_SHAPE``,
+      NW (2, -1, -2) and affine (2, -1, -5, -2), equal to K6's;
+    - (n6) ``hirschberg.align_sharded`` at the 20k pair, (1, 0, -1): valid,
+      re-scoring to K1's score there (``pins["k1_20k"]``);
+    - (n7) ``api.align_score`` under each sharded name on the default group
+      (one shard a card) and ``python -m tpualign_torch score --impl
+      bitpal-strips`` in this process.
+
+    Each main-path run has the counts set to 0 just before it and read
+    just after; its line prints the shards, chunks, supersteps, the new
+    entries' launches (which must be above 0), the wall (host clock) and
+    the kernels' device time (``torch.profiler``, a second run).  Returns
+    the ``phases`` of the K4 and K7 rows of the ``kernels`` line."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpualign_torch
+    from tpualign_torch import cli, matrices
+    from tpualign_torch.config import AlignMode, EngineConfig, ScoringConfig
+    from tpualign_torch.io import bdna
+    from tpualign_torch.ops import band, bitpal, hirschberg, oracle
+    from tpualign_torch.parallel import band_strips, bitpal_strips, mesh, strips
+
+    dev, rng, smi = ctx.dev, ctx.rng, ctx.smi
+    t_phase = time.perf_counter()
+    group = mesh.make_group(SHARDS, device=dev)
+    a20, b20 = pins["a20"], pins["b20"]
+    m, n = s1.size, s2.size
+    sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+    phases = {"bitpal_gfill_stream": dict(route="cuda", source=STREAM_SOURCE,
+                                          replaces=RC_REPLACES["bitpal_gfill_chunk"],
+                                          max_abs_err=0, launches=0, library_ms=None),
+              "band_capture_edge": dict(route="cuda", source=EDGE_SOURCE,
+                                        replaces=CAPTURE_REPLACES, max_abs_err=0, launches=0,
+                                        library_ms=None)}
+    kernel_names = {"bitpal_gfill_stream": "bitpal_stream_kernel",
+                    "band_capture_edge": "band_edge_kernel"}
+
+    def device_ms(fn, kernel):
+        """The device time of ``kernel``'s launches in one call of ``fn``
+        (``torch.profiler``), in ms, or None off the card."""
+        if dev.type != "cuda":
+            return None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if kernel in e.name and e.device_type.name == "CUDA") / 1e3
+
+    def counted(fn):
+        """``(result, wall s, counts)`` of one main-path run."""
+        ctx.reset_counts()
+        ctx.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        ctx.sync()
+        return out, time.perf_counter() - t0, ctx.read_counts()
+
+    def only_new(counts, name):
+        """The run launched ``name`` (one of the new entries) and no other
+        counted kernel."""
+        return counts[name] > 0 and sum(counts.values()) == counts[name]
+
+    # (n1) K4's sharded contract against chunk_plain, chunk by chunk
+    t0 = time.perf_counter()
+    n_chunks, plain_s = 0, 0.0
+    for nq, mt, g, lengths, blocks, tail_word in STREAM_CASES:
+        q = torch.from_numpy(rng.integers(1, 5, nq).astype(np.int8)).to(dev)
+        t = torch.from_numpy(rng.integers(1, 5, mt).astype(np.int8)).to(dev)
+        eq = bitpal._eq_planes(q, nq)
+        nw = eq.shape[1]
+        tw = nw - 1 if tail_word is None else tail_word
+        total = bitpal.total_steps(mt, nw, 1)
+        kst = pst = bitpal.init_state(nw, g, dev)
+        t0_, i = 0, 0
+        while t0_ < total:
+            steps = min(lengths[i % len(lengths)], total - t0_)
+            u_in = torch.from_numpy(rng.integers(0, 1 << bitpal.n_planes(g), steps)
+                                    .astype(np.uint8)).to(dev)
+            kst, ktail = bitpal.fill_g_stream(t, eq, nq, g, t0_, steps, kst, u_in, tw, blocks)
+            ctx.sync()
+            t_plain = time.perf_counter()
+            pst, ptail = bitpal.chunk_plain(t, eq, nq, g, 1, t0_, steps, pst, u_in, tw)
+            ctx.sync()
+            plain_s += time.perf_counter() - t_plain
+            err = max(int((bitpal.row_deltas(kst.planes, nq, g)
+                            - bitpal.row_deltas(pst.planes, nq, g)).abs().max()),
+                      int((ktail.long() - ptail.long()).abs().max()),
+                      int((kst.hand.long() - pst.hand.long()).abs().max()))
+            same = (all(torch.equal(a, b) for a, b in zip(kst.planes, pst.planes))
+                    and torch.equal(kst.hand, pst.hand) and torch.equal(ktail, ptail))
+            if err or not same:
+                raise AssertionError(f"bitpal_gfill_stream differs from chunk_plain at steps "
+                                     f"{t0_ + 1}..{t0_ + steps}, {nq} x {mt}, g = {g}, "
+                                     f"blocks {blocks}, tail word {tw} (max abs err {err})")
+            t0_, i, n_chunks = t0_ + steps, i + 1, n_chunks + 1
+    n1_s = time.perf_counter() - t0
+    print(f"[n1 K4 stream vs plain] bitpal_gfill_stream equal to chunk_plain in {n_chunks} "
+          f"chunks of {len(STREAM_CASES)} cases (planes, hand-offs and tails word for word; "
+          f"random upstream streams; g 1, 2, 3, 5; blocks 1, 2 and the planner's; tails of "
+          f"words 0, 50 and the last); {n1_s:.1f} s, chunk_plain on {dev} {plain_s:.1f} s")
+    phases["bitpal_gfill_stream"].update(plain_ms=plain_s * 1e3,
+                                         plain_shape="the (n1) cases' chunks")
+
+    # (n2) K7's sharded contract against capture_plain at the 20k pair
+    t0 = time.perf_counter()
+    ta, tq = torch.from_numpy(a20).to(dev), torch.from_numpy(b20).to(dev)
+    lim = 3 * (a20.size + b20.size)
+    edge_ms = {}
+    for name, cfg in (("NW", ScoringConfig(match=2, mismatch=-1, gap=-2)), ("SW", sw)):
+        top = torch.from_numpy(rng.integers(-lim, lim + 1, a20.size + 1).astype(np.int32))
+        left = torch.from_numpy(rng.integers(-lim, lim + 1, b20.size + 1).astype(np.int32))
+        left[0] = top[0]
+        top, left = top.to(dev), left.to(dev)
+        rows = list(EDGE_ROWS) + [b20.size]
+        k_ms, _, got = ctx.cuda_ms(lambda: band.edge_fill(ta, tq, cfg, top, left, rows,
+                                                          cell=True), runs=3)
+        p_ms, want = ctx.host_ms(lambda: band.capture_plain(ta, tq, cfg, rows, col=True,
+                                                            cell=True, top=top, left=left))
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want)
+                  if a is not None)
+        if err or not all(a is b is None or torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"band_capture_edge differs from capture_plain at 20k, {name} "
+                                 f"(max abs err {err})")
+        edge_ms[name] = (k_ms, p_ms)
+        phases["band_capture_edge"]["max_abs_err"] = max(
+            phases["band_capture_edge"]["max_abs_err"], err)
+    print(f"[n2 K7 edges vs plain] band_capture_edge equal to capture_plain at {a20.size} x "
+          f"{b20.size} with random edges in (rows {rows}, the last column, the cell), NW and "
+          f"SW (2, -1, -2): kernel {edge_ms['NW'][0]:.3f} / {edge_ms['SW'][0]:.3f} ms, plain "
+          f"{edge_ms['NW'][1]:.1f} / {edge_ms['SW'][1]:.1f} ms; {time.perf_counter() - t0:.1f} s")
+
+    def report(tag, kernel, fn, want, counts_name, extra=""):
+        """One main-path run of ``fn`` (its counts, its result ``want``, the
+        group's supersteps), then its kernels' device time in a second
+        run."""
+        group.stats.update(supersteps=0)
+        got, wall, counts = counted(fn)
+        stats = dict(group.stats)
+        if got != want:
+            raise AssertionError(f"{tag}: {got} != {want}")
+        if counts_name is not None and not only_new(counts, counts_name):
+            raise AssertionError(f"{tag} did not run only {counts_name}: {counts}")
+        if counts_name is None and sum(counts.values()):
+            raise AssertionError(f"{tag} launched a counted kernel: {counts}")
+        dms = device_ms(fn, kernel_names[kernel]) if kernel else None
+        print(f"[{tag}] {got} equal to {extra}; launches {counts}; supersteps "
+              f"{stats['supersteps']}; wall {wall:.3f} s; "
+              f"kernels' device time {dms if dms is None else f'{dms:.3f} ms'}")
+        return got, wall, counts, dms, stats
+
+    # (n3) the bit-parallel strips at the 64gb shape
+    for g, pin in ((1, "k1"), (2, "k2")):
+        cfg = ScoringConfig(gap=-g)
+        nw, nwl, d, K = bitpal_strips.geometry(n, m, SHARDS, bitpal_strips.CHUNK_COLS)
+        _, wall, counts, dms, stats = report(
+            f"n3 bitpal_strips g = {g}", "bitpal_gfill_stream",
+            lambda: bitpal_strips.score(s1, s2, cfg, group=group), pins[pin], "fill_g_stream",
+            f"K{g}'s at {m} x {n} ({SHARDS} shards of {nwl} words, {K} chunks of "
+            f"{bitpal_strips.CHUNK_COLS} steps, a delay of {d} steps)")
+        if g == 1:
+            ph = phases["bitpal_gfill_stream"]
+            ph.update(launches=counts["fill_g_stream"], ms=dms, wall_s=wall,
+                      shape=f"{n}x{m}", shards=SHARDS, words_a_shard=nwl, chunks=K,
+                      supersteps=stats["supersteps"])
+    replay_chunk(bitpal, bitpal_strips, s1, s2, ScoringConfig(), group,
+                 phases["bitpal_gfill_stream"])
+    q1, t1_ = torch.from_numpy(s2).to(dev), torch.from_numpy(s1).to(dev)
+    eq1 = bitpal._eq_planes(q1, n)
+    want_d = bitpal.row_deltas(bitpal.fill_g(t1_, eq1, n, 1), n, 1)
+    ctx.reset_counts()
+    got_d = bitpal_strips.col_deltas_fn(m, n, ScoringConfig(), group=group)(s1, s2)
+    if not torch.equal(got_d.to(want_d.device), want_d):
+        raise AssertionError("col_deltas_fn differs from K1's planes row for row")
+    print(f"[n3 col_deltas_fn] {n} rows equal to bitpal.row_deltas of one K1 launch's planes; "
+          f"launches {ctx.read_counts()}")
+
+    # (n4) the band strips: SW at the 64gb shape, three configs at 20k
+    for tag, x1, x2, cfg, want in (
+            ("SW (2, -1, -2)", s1, s2, sw, pins["sw"]),
+            ("dna NW", a20, b20, ScoringConfig(matrix=matrices.dna(2, -1, -3), gap=-3),
+             pins["d20"]["dna NW"]),
+            ("semiglobal", a20, b20, ScoringConfig(match=2, mismatch=-1, gap=-2,
+                                                   mode=AlignMode.SEMIGLOBAL),
+             pins["d20"]["semiglobal"]),
+            ("infix", a20, b20, ScoringConfig(match=2, mismatch=-1, gap=-2,
+                                              mode=AlignMode.INFIX), pins["d20"]["infix"])):
+        p = band.plan(x1.size, x2.size, cfg)
+        mb, ns = (x2.size, x1.size) if p.swapped else (x1.size, x2.size)
+        K = -(-ns // min(band_strips.CHUNK_ROWS, ns))
+        _, wall, counts, dms, stats = report(
+            f"n4 band_strips {tag}", "band_capture_edge",
+            lambda: band_strips.score(x1, x2, cfg, group=group), want, "edge_fill",
+            f"K6's at {x1.size} x {x2.size} ({SHARDS} shards of {-(-mb // SHARDS)} columns, "
+            f"{K} chunks of {band_strips.CHUNK_ROWS} rows)")
+        if cfg is sw:
+            phases["band_capture_edge"].update(
+                launches=counts["edge_fill"], ms=dms, wall_s=wall, shape=f"{ns}x{mb}",
+                shards=SHARDS, chunks=K, supersteps=stats["supersteps"],
+                ms_20k_edges=edge_ms,
+                plain_ms=edge_ms["SW"][1],
+                plain_shape=f"{b20.size}x{a20.size} SW with random edges")
+
+    # (n5) the row-scan strips (no kernel) against K6
+    sm, sn = STRIPS_SHAPE
+    xs1, xs2 = a20[:sm], b20[:sn]
+    strips_want = {}
+    for tag, cfg in (("NW (2, -1, -2)", ScoringConfig(match=2, mismatch=-1, gap=-2)),
+                     ("affine (2, -1, -5, -2)",
+                      ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2))):
+        want = band.score(xs1, xs2, cfg, device=dev)
+        strips_want[tag] = want
+        report(f"n5 strips {tag}", None, lambda: strips.score(xs1, xs2, cfg, group=group,
+                                                             chunk_rows=2048),
+               want, None, f"K6's at {sm} x {sn} ({SHARDS} shards, chunks of 2048 rows)")
+
+    # (n6) the sharded Hirschberg at the 20k pair
+    ctx.reset_counts()
+    t0 = time.perf_counter()
+    sc, x1, x2 = hirschberg.align_sharded(a20, b20, group=group)
+    hs_s = time.perf_counter() - t0
+    hs_counts = ctx.read_counts()
+    if not (alignment_ok(a20, b20, x1, x2, oracle.BASES) and sc == pins["k1_20k"]
+            and oracle.alignment_score(x1, x2) == sc and only_new(hs_counts, "fill_g_stream")):
+        raise AssertionError(f"align_sharded at 20k: score {sc} (K1 {pins['k1_20k']}), "
+                             f"launches {hs_counts}")
+    print(f"[n6 align_sharded] {a20.size} x {b20.size} (1, 0, -1) on {SHARDS} shards: valid, "
+          f"score {sc} equal to K1's; launches {hs_counts}; wall {hs_s:.3f} s")
+    phases["bitpal_gfill_stream"]["align_sharded_20k"] = dict(
+        wall_s=hs_s, launches=hs_counts["fill_g_stream"])
+
+    # (n7) the API's sharded names on the default group, and the CLI
+    one = mesh.default_group(dev)
+    for impl, x1, x2, cfg, want, kernel in (
+            ("bitpal-strips", s1, s2, ScoringConfig(), pins["k1"], "fill_g_stream"),
+            ("band-strips", s1, s2, sw, pins["sw"], "edge_fill"),
+            ("strips", xs1, xs2, ScoringConfig(match=2, mismatch=-1, gap=-2),
+             strips_want["NW (2, -1, -2)"], None)):
+        report(f"n7 align_score {impl}", None,
+               lambda: tpualign_torch.align_score(x1, x2, cfg, EngineConfig(impl=impl,
+                                                                            device=str(dev))),
+               want, kernel, f"the pins ({one.size} shard(s) in the default group)")
+    with tempfile.TemporaryDirectory() as tmp:
+        p1, p2 = os.path.join(tmp, "a.bdna"), os.path.join(tmp, "b.bdna")
+        bdna.write_bdna(p1, s1)
+        bdna.write_bdna(p2, s2)
+        buf = io.StringIO()
+        ctx.reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["score", p1, p2, "--impl", "bitpal-strips", "--device", str(dev)])
+        lines = buf.getvalue().splitlines()
+        counts = ctx.read_counts()
+    if rc != 0 or lines[1] != f"Score: {pins['k1']}" or not only_new(counts, "fill_g_stream"):
+        raise AssertionError(f"python -m tpualign_torch score --impl bitpal-strips: rc {rc}, "
+                             f"{lines}, launches {counts}")
+    print(f"[n7 cli] python -m tpualign_torch score --impl bitpal-strips: {lines[1]} in "
+          f"{lines[0]} ms; launches {counts}")
+    print(f"[phase n] {time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--corpus", default=None,
@@ -1284,7 +1662,8 @@ def main() -> None:
                "band_capture_fill": band.capture_fill,
                "bitpal_batch_fill": bitpal.batch_fill, "band_batch_fill": band_batch.batch_fill,
                "fill_rc": bitpal.fill_rc, "fill_rc_chunk": bitpal.fill_rc_chunk,
-               "fill_g_chunk": bitpal.fill_g_chunk, "diag_ckpt_fill": pallas_diag.ckpt_fill}
+               "fill_g_chunk": bitpal.fill_g_chunk, "diag_ckpt_fill": pallas_diag.ckpt_fill,
+               "fill_g_stream": bitpal.fill_g_stream, "edge_fill": band.edge_fill}
 
     def reset_counts():
         for fn in counted.values():
@@ -2082,9 +2461,11 @@ def main() -> None:
     ]
     a20, b20 = a, b
     further_ms = {}
+    d20 = {}
     for name, cfg, impl in further:
         reset_counts()
         got = tpualign_torch.align_score(a20, b20, cfg, EngineConfig(impl=impl))
+        d20[name] = got
         counts = read_counts()
         kernel = "diag_fill" if impl == "pallas" else "band_fill"
         if not only(counts, kernel):
@@ -2412,6 +2793,11 @@ def main() -> None:
     # line (this slice's main path: python -m tpualign_torch align)
     cli_phase(ctx, s1, s2, score, score_sw, a20, b20, want20, kind)
 
+    # phase (n): this slice's main path, the sharded pipelines on a group of
+    # 4 shards on the card, held to the kernels' scores above
+    sharded = sharded_phase(ctx, s1, s2, dict(k1=score, k2=score2, sw=score_sw, d20=d20,
+                                              k1_20k=want20, a20=a20, b20=b20))
+
     for pkg in ("jax", "tpualign"):
         if pkg in sys.modules:
             raise AssertionError(f"the port imported {pkg}")
@@ -2430,7 +2816,17 @@ def main() -> None:
         "band_fill": bound(m + n + 4, band_ops(cfg_sw, cells)),
         "band_capture_fill": bound(m + mid + 8 * (m + 1), band_ops(cfg_aff, m * mid)),
         "diag_fill": bound(2 * a20.size + 4, band_ops(g20, d_cells)),
+        # the sharded paths do K1's and K6 SW's work at the 64gb shape, and
+        # move each shard's tails (a byte a step) and right columns
+        "bitpal_gfill_stream": bound(plane_bytes + SHARDS * (m + nw), m * nw * 25 * 2),
+        "band_capture_edge": bound(m + n + 8 * SHARDS * (m + n), band_ops(cfg_sw, cells, True)),
     }
+    for name, ph in sharded.items():
+        ph.update(dict(zip(("bound_ms", "bound_by"), bounds[name])))
+    for row in rc_kernels:
+        if row["name"] == "bitpal_gfill_chunk":
+            row["phases"] = {"bitpal_gfill_stream": sharded["bitpal_gfill_stream"]}
+    ck["phases"] = {"band_capture_edge": sharded["band_capture_edge"]}
 
     # K8's SW hold at the 64gb shape does K6's SW work
     dk["bound_ms_64gb_sw"] = bounds["band_fill"][0]

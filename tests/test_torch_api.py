@@ -166,6 +166,13 @@ def test_package_imports_and_scores_without_jax():
         "from tpualign_torch.ops import traceback, traceback_diag\n"
         "print(traceback_diag.align_diag(s1, s2, k_stride=16, device='cpu')[0])\n"
         "print(traceback.align_checkpointed(s1, s2, k=16, device='cpu')[0])\n"
+        "from tpualign_torch.parallel import band_strips, bitpal_strips, mesh, strips\n"
+        "group = mesh.make_group(3, device='cpu')\n"
+        "for impl in ('bitpal-strips', 'band-strips', 'strips'):\n"
+        "    print(align_score(s1, s2, engine=EngineConfig(impl, 'cpu')))\n"
+        "for mod in (bitpal_strips, band_strips, strips):\n"
+        "    print(mod.score(s1, s2, group=group, device='cpu'))\n"
+        "print(hirschberg.align_sharded(s1, s2, group=group, base_cells=64, device='cpu')[0])\n"
         "for impl in ('auto', 'band'):\n"
         "    print(*tpualign_torch.align_score_batch([s1, s2], [s2, s1],\n"
         "                                            engine=EngineConfig(impl, 'cpu')))\n"
@@ -178,7 +185,7 @@ def test_package_imports_and_scores_without_jax():
     )
     assert out.returncode == 0, out.stderr
     want = oracle.score(s1, s2)
-    assert [int(x) for x in out.stdout.split()] == [want] * 9 + [want, oracle.score(s2, s1)] * 2
+    assert [int(x) for x in out.stdout.split()] == [want] * 16 + [want, oracle.score(s2, s1)] * 2
 
 
 def test_cli_and_native_run_without_jax(tmp_path):
@@ -221,7 +228,7 @@ def test_cli_and_native_run_without_jax(tmp_path):
     want = oracle.score(s1, s2)
     lines = out.stdout.splitlines()
     assert lines[2:4] == [f"Score: {want}", f"walk {want} {want}"]
-    assert "{score,align,generate,bench,info}" in out.stdout
+    assert "{score,align,generate,bench,tune,info}" in out.stdout
 
 
 def test_scoring_config_fields_match_jax_package():
@@ -407,11 +414,12 @@ def test_band_chunked_is_the_band_engine(kw):
 
 
 def test_unported_impls_raise():
+    """The sharded engines, once refused, run on the default group of the
+    CPU (one shard) and give ``tpualign``'s scores."""
     s1, s2 = _pair(20, 30, seed=1)
-    for impl, item in [("bitpal-strips", "item 13"), ("band-strips", "item 13"),
-                       ("strips", "item 13")]:
-        with pytest.raises(NotImplementedError, match=item):
-            align_score(s1, s2, engine=EngineConfig(impl=impl, device="cpu"))
+    for impl in ("bitpal-strips", "band-strips", "strips"):
+        got = align_score(s1, s2, engine=EngineConfig(impl=impl, device="cpu"))
+        assert got == tpualign.align_score(s1, s2)
 
 
 @pytest.mark.parametrize(

@@ -2,7 +2,7 @@
 with ``--device cpu`` against the JAX package's (``tpualign.cli.main``) on
 the same ``.bdna`` files: ``score``'s and ``align``'s lines and files,
 ``generate``'s bytes, ``bench``'s rows, its swap rule and its checks, the
-refused sharded engines, ``info``; and the port's copies of the ``.bdna``
+sharded engines, ``tune``, ``info``; and the port's copies of the ``.bdna``
 IO and the golden pins against the JAX package's."""
 
 import json
@@ -15,7 +15,7 @@ from tpualign.cli import main as jmain
 from tpualign.io import bdna as jbdna
 from tpualign_torch import api, golden
 from tpualign_torch.cli import main
-from tpualign_torch.config import UNPORTED_IMPLS, AlignMode, ScoringConfig
+from tpualign_torch.config import AlignMode, ScoringConfig
 from tpualign_torch.io import bdna
 from tpualign_torch.ops import hirschberg, oracle
 
@@ -183,15 +183,44 @@ def test_bench_check_withholds_a_wrong_row(tmp_path, monkeypatch, capsys, check,
         assert jrc == 1 and jerr == err
 
 
-@pytest.mark.parametrize("impl", list(UNPORTED_IMPLS))
+@pytest.mark.parametrize("impl", ["bitpal-strips", "band-strips", "strips"])
 @pytest.mark.parametrize("cmd", ["score", "align", "bench"])
-def test_sharded_impls_are_refused(pair_files, capsys, cmd, impl):
-    p1, p2, _, _ = pair_files
-    argv = [cmd, *([p1, p2] if cmd != "bench" else []), "--impl", impl, "--device", "cpu"]
-    rc, out, err = _run(main, argv, capsys)
-    assert rc == 2 and out == []
-    assert err.strip() == (f"error: impl={impl!r} is not ported yet: "
-                           "ROADMAP queue 1 item 13 (sharded pipelines)")
+def test_sharded_impls_are_refused(pair_files, tmp_path, capsys, cmd, impl):
+    """The sharded engines, once refused, now run: ``score`` and ``bench``
+    give the JAX CLI's score (its ``auto``), ``align`` its lines (the full
+    table at this size, whatever the engine), with ``--chunk-rows`` read."""
+    p1, p2, s1, s2 = pair_files
+    if cmd == "bench":
+        corpus, s1, s2 = _corpus(tmp_path, "x", 60, 55, seed=77)
+        argv = ["bench", "--pairs", "x", "--corpus", corpus, "--runs", "1"]
+    else:
+        argv = [cmd, p1, p2]
+    rc, out, _ = _run(main, [*argv, "--impl", impl, "--device", "cpu", "--chunk-rows", "16"],
+                      capsys)
+    jrc, jout, _ = _run(jmain, argv, capsys)
+    assert rc == jrc == 0
+    if cmd == "bench":
+        assert out[0].split("\t")[-1] == jout[0].split("\t")[-1] == \
+            f"score {oracle.score(s1, s2)}"
+    else:
+        assert out[1:] == jout[1:] and out[1] == f"Score: {oracle.score(s1, s2)}"
+
+
+@pytest.mark.parametrize("engine, values", [("strips", "16,32"), ("bitpal", "16,32"),
+                                            ("band", "1:32,8:64"), ("rc-chunk", None)])
+def test_tune_rows(pair_files, tmp_path, capsys, engine, values):
+    """``tune``: one row a knob value, each with the pair's score, on 3
+    shards in this process for the sharded engines, the TSV beside it."""
+    p1, p2, s1, s2 = pair_files
+    tsv = str(tmp_path / "t.tsv")
+    argv = ["tune", p1, p2, "--engine", engine, "--device", "cpu", "--devices", "3",
+            "--runs", "1", "--tsv", tsv]
+    argv += ["--values", values] if values else ["--rc", "1,2", "--blocks", "0,1"]
+    rc, out, _ = _run(main, argv, capsys)
+    assert rc == 0 and len(out) == (5 if engine == "rc-chunk" else 3)
+    want = oracle.score(s1, s2)
+    assert all(line.endswith(f"score {want}") for line in out[:-1])
+    assert len(open(tsv).read().splitlines()) == len(out)
 
 
 def test_info(capsys):

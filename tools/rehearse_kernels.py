@@ -200,26 +200,47 @@ namespace cuda {
 enum thread_scope { thread_scope_system, thread_scope_device, thread_scope_block };
 // the blocks run one after another here, so a flag that a load finds
 // unset is never set: a thread that spins on one aborts instead of hanging.
-// Run concurrently, a spinning thread yields, and aborts after 60 s
+// Run concurrently, a spinning thread yields, and aborts after
+// REHEARSE_SPIN_LIMIT_S seconds (default 60) of one wait: counted from the
+// last change of the value it loads, from its first load of another flag,
+// or from a load a second or more after its previous one (a new wait)
+#ifndef REHEARSE_SPIN_LIMIT_S
+#define REHEARSE_SPIN_LIMIT_S 60
+#endif
 template <class T, thread_scope S = thread_scope_system>
 struct atomic_ref {
   ::std::atomic_ref<T> a;
-  explicit atomic_ref(T& x) : a(x) {}
+  const T* p;
+  explicit atomic_ref(T& x) : a(x), p(&x) {}
   T load(::std::memory_order order) const {
+    using clock = ::std::chrono::steady_clock;
     static thread_local long loads = 0;
-    static thread_local auto since = ::std::chrono::steady_clock::now();
-    if (shim::concurrent) {
-      ::std::this_thread::yield();
-      if ((++loads & 1023) == 0 &&
-          ::std::chrono::steady_clock::now() - since > ::std::chrono::seconds(60)) {
-        ::std::fprintf(stderr, "rehearse: a thread spins on a flag for 60 s\n");
+    static thread_local const T* flag = nullptr;
+    static thread_local T last{};
+    static thread_local auto since = clock::now();
+    static thread_local auto prev = clock::now();
+    if (!shim::concurrent) {
+      if (++loads > (1L << 20)) {
+        ::std::fprintf(stderr, "rehearse: a thread spins on a flag that is never set\n");
         ::std::abort();
       }
-    } else if (++loads > (1L << 20)) {
-      ::std::fprintf(stderr, "rehearse: a thread spins on a flag that is never set\n");
+      return a.load(order);
+    }
+    ::std::this_thread::yield();
+    const T v = a.load(order);
+    const auto now = clock::now();
+    if (p != flag || v != last || now - prev >= ::std::chrono::seconds(1)) {
+      flag = p;
+      last = v;
+      since = now;
+    } else if ((++loads & 1023) == 0 &&
+               now - since > ::std::chrono::seconds(REHEARSE_SPIN_LIMIT_S)) {
+      ::std::fprintf(stderr, "rehearse: a thread spins on a flag for %d s\n",
+                     REHEARSE_SPIN_LIMIT_S);
       ::std::abort();
     }
-    return a.load(order);
+    prev = now;
+    return v;
   }
   void store(T v, ::std::memory_order order) const { a.store(v, order); }
 };
@@ -231,15 +252,19 @@ using ::std::memory_order_release;
 """
 
 LAUNCH = re.compile(r"([\w:]+(?:<[^;<>]*>)?)<<<(\w+), (\w+), 0, ([^>]+)>>>\((.*?)\);", re.S)
-SOURCES = ("band_fill.cu", "band_capture_affine.cu", "band_batch.cu", "diag_fill.cu",
+SOURCES = ("band_fill.cu", "band_capture_affine.cu", "band_capture_edge.cu", "band_batch.cu",
+           "diag_fill.cu",
            "diag_ckpt.cu", "bitpal_gfill.cu", "bitpal_batch.cu", "bitpal_rc.cu")
 HEADERS = ("band_fill.cuh", "bitpal_step.cuh", "bitpal_band.cuh", "bitpal_gband.cuh")
 
 
-def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
-    """Compile ``sources`` (default every kernel source) with g++ through
-    the shim into ``out_dir`` (default ``tpualign_torch/_build/rehearse``);
-    return the library."""
+def build(out_dir: Optional[str] = None, sources=SOURCES, src_dir: Optional[str] = None,
+          defines=()) -> ctypes.CDLL:
+    """Compile ``sources`` (default every kernel source) from ``src_dir``
+    (default ``tpualign_torch/csrc``) with g++ through the shim into
+    ``out_dir`` (default ``tpualign_torch/_build/rehearse``), each
+    ``NAME=VALUE`` of ``defines`` a ``-D`` (``REHEARSE_SPIN_LIMIT_S``: the
+    concurrent mode's watchdog); return the library."""
     out_dir = out_dir or os.path.join(_build.BUILD_DIR, "rehearse")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
@@ -249,7 +274,8 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
         f.write(CUDA_ATOMIC)
     objs = []
     for name in tuple(sources) + HEADERS:  # the headers beside the sources that include them
-        with open(os.path.join(_build.CSRC, name)) as f:
+        with open(os.path.join(src_dir or _build.CSRC, name)
+                  if name in sources else os.path.join(_build.CSRC, name)) as f:
             src = LAUNCH.sub(r"shim::launch(\2, \3, [&] { \1(\5); });", f.read())
         path = os.path.join(out_dir, name if name in HEADERS else name + ".cpp")
         with open(path, "w") as f:
@@ -257,7 +283,8 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
         if name in sources:
             objs.append(path)
     # one g++ per source, all started together, then the link
-    procs = [subprocess.Popen(["g++", "-std=c++20", "-O1", "-fPIC", "-I", out_dir, "-c",
+    flags = [f"-D{d}" for d in defines]
+    procs = [subprocess.Popen(["g++", "-std=c++20", "-O1", "-fPIC", *flags, "-I", out_dir, "-c",
                                "-o", src + ".o", src]) for src in objs]
     if any(proc.wait() for proc in procs):
         raise RuntimeError("g++ failed on a kernel source through the shim")
@@ -271,6 +298,8 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
         "band_fill": [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp],
         "band_capture_fill": ([vp, i32, vp, i32, vp] + [i32] * 8
                               + [vp, i32, vp, vp, vp, vp, i32, vp, vp, vp]),
+        "band_capture_edge": ([vp, i32, vp, i32, vp] + [i32] * 8
+                              + [vp, i32, vp, vp, vp, vp, vp, vp, i32, vp, vp, vp]),
         "band_capture_affine": ([vp, i32, vp, i32, vp] + [i32] * 10
                                 + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]),
         "band_batch_fill": [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3,
@@ -284,6 +313,7 @@ def build(out_dir: Optional[str] = None, sources=SOURCES) -> ctypes.CDLL:
         "bitpal_rc_fill": [vp, vp, i64] + [i32] * 3 + [vp, i32, vp, vp, vp],
         "bitpal_rc_chunk": chunk,
         "bitpal_gfill_chunk": chunk,
+        "bitpal_gfill_stream": chunk[:-1] + [vp, vp, i32, vp],
     }
     for name, types in argtypes.items():
         if hasattr(dll, name):  # the entries of the sources built
@@ -384,6 +414,106 @@ def _capture_case(dll, rng, local, matrix, m, n, geometry, locate, affine=False)
     ok = err == 0 and all(a is b is None or np.array_equal(a, b.numpy())
                           for a, b in zip(got, want)) and _flags_done(keep[1], plan, m)
     return ok, (cfg, tb, zr, zc, m, n, plan, rows, cell, want.cell)
+
+
+def edge_case(dll, rng, cfg, m, n, geometry=None, locate=False, shallow=False):
+    """``band_capture_edge`` (K7's sharded contract) against
+    ``capture_plain`` with the same edges in: random top row and left
+    column (the corner in both), rows around the strip edges, the last
+    column, with ``locate`` the located cell; the ring, the blocks' cells
+    and every output seeded with garbage, the flags checked at the end.
+    ``shallow`` cuts the ring to 2 rows.  Returns ``(ok, where)``."""
+    hi = len(cfg.matrix) if cfg.has_matrix else 5
+    text = torch.from_numpy(rng.integers(0, hi, m).astype(np.int8))
+    query = torch.from_numpy(rng.integers(0, hi, n).astype(np.int8))
+    top = torch.from_numpy(rng.integers(-3 * (m + n), 3 * (m + n) + 1, m + 1).astype(np.int32))
+    left = torch.from_numpy(rng.integers(-3 * (m + n), 3 * (m + n) + 1, n + 1).astype(np.int32))
+    left[0] = top[0]
+    plan, keep, pipe = _pipe_scratch(rng, n, m, False, geometry, band.max_k(cfg), locate)
+    if shallow and plan.depth > 2:
+        plan = plan._replace(depth=2)
+        pipe = (pipe[0], 2) + pipe[2:]
+    R = plan.k * plan.threads
+    rows = sorted({r for r in (1, R - 1, R, R + 1, 2 * R, n - 1, n,
+                               int(rng.integers(1, n + 1))) if 1 <= r <= n})
+    K = len(cfg.matrix) if cfg.has_matrix else 0
+    mat = np.ascontiguousarray(np.asarray(cfg.matrix if K else [0], np.int32).reshape(-1))
+    cap_rows = np.asarray(rows, np.int32)
+    caps = rng.integers(-99, 99, (len(rows), m + 1)).astype(np.int32)
+    col = rng.integers(-99, 99, n + 1).astype(np.int32)
+    cell = rng.integers(-99, 99, 3).astype(np.int32)
+    err = dll.band_capture_edge(
+        text.data_ptr(), m, query.data_ptr(), n, mat.ctypes.data, K, cfg.match, cfg.mismatch,
+        cfg.gap, band._flags(cfg, (False,) * 4), plan.k, plan.threads, plan.blocks,
+        cap_rows.ctypes.data, len(rows), caps.ctypes.data, col.ctypes.data,
+        cell.ctypes.data if locate else None, top.data_ptr(), left.data_ptr(), *pipe, None)
+    want = band.capture_plain(text, query, cfg, rows, col=True, cell=locate, top=top, left=left)
+    got = (caps[-1], caps, col, cell if locate else None)
+    ok = err == 0 and all(a is b is None or np.array_equal(a, b.numpy())
+                          for a, b in zip(got, want)) and _flags_done(keep[1], plan, m)
+    return ok, f"{cfg} {m} x {n}, {plan}, rows {rows}, locate {locate}"
+
+
+def shim_edge_fill(dll):
+    """``band.edge_fill`` on CPU tensors through the shim's
+    ``band_capture_edge`` (the planner's geometry, a fresh ring and flags a
+    launch): a sharded pipeline driven through the kernel's entry."""
+
+    def edge_fill(text, query, cfg, top, left, rows=(), *, cell=False):
+        m, n = text.numel(), query.numel()
+        krows = list(rows) if rows and rows[-1] == n else list(rows) + [n]
+        plan = band.pipeline_plan(n, m, False, None, band.max_k(cfg))
+        ring = torch.zeros((max(plan.depth, 1), m + 1), dtype=torch.int32)
+        sync = torch.zeros(plan.strips + 2, dtype=torch.int32)
+        cells = torch.zeros((plan.blocks, 3), dtype=torch.int32)
+        K = len(cfg.matrix) if cfg.has_matrix else 0
+        mat = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32)
+        cap_rows = torch.tensor(krows, dtype=torch.int32)
+        caps = torch.empty((len(krows), m + 1), dtype=torch.int32)
+        last_col = torch.empty(n + 1, dtype=torch.int32)
+        found = torch.empty(3, dtype=torch.int32)
+        err = dll.band_capture_edge(
+            text.data_ptr(), m, query.data_ptr(), n, mat.data_ptr(), K, cfg.match, cfg.mismatch,
+            cfg.gap, band._flags(cfg, (False,) * 4), plan.k, plan.threads, plan.blocks,
+            cap_rows.data_ptr(), len(krows), caps.data_ptr(), last_col.data_ptr(),
+            found.data_ptr() if cell else None, top.data_ptr(), left.data_ptr(),
+            ring.data_ptr(), plan.depth, sync.data_ptr(), cells.data_ptr(), None)
+        if err:
+            raise RuntimeError(f"band_capture_edge refused the launch ({err})")
+        edge_fill.launches += 1
+        return band.Capture(caps[-1], caps[: len(rows)] if rows else None, last_col,
+                            found if cell else None, None)
+
+    edge_fill.launches = 0
+    return edge_fill
+
+
+def shim_fill_g_stream(dll):
+    """``bitpal.fill_g_stream`` on CPU tensors through the shim's
+    ``bitpal_gfill_stream`` (the planner's blocks, a fresh ring and flags
+    a launch)."""
+
+    def fill_g_stream(text, eq, nq, g, t0, t_steps, state, u_in, tail_word, blocks=None):
+        nw, mt = eq.shape[1], text.shape[0]
+        plan = bitpal.wave_plan(nw, t_steps, blocks)
+        ring = torch.zeros((max(plan.depth, 1), t_steps), dtype=torch.uint8)
+        sync = torch.zeros(plan.bands + 1, dtype=torch.int32)
+        v_in = torch.stack(state.planes)
+        v_out = torch.empty_like(v_in)
+        h_out = torch.empty(nw, dtype=torch.uint8)
+        tail = torch.empty(t_steps, dtype=torch.uint8)
+        err = dll.bitpal_gfill_stream(
+            text.data_ptr(), eq.data_ptr(), mt, nw, g, plan.blocks, ring.data_ptr(), plan.depth,
+            sync.data_ptr(), t0, t_steps, v_in.data_ptr(), state.hand.data_ptr(),
+            v_out.data_ptr(), h_out.data_ptr(), None if u_in is None else u_in.data_ptr(),
+            tail.data_ptr(), tail_word, None)
+        if err:
+            raise RuntimeError(f"bitpal_gfill_stream refused the launch ({err})")
+        fill_g_stream.launches += 1
+        return bitpal.WaveState(tuple(v_out.unbind(0)), h_out), tail
+
+    fill_g_stream.launches = 0
+    return fill_g_stream
 
 
 def _band_batch_case(dll, rng, c):
@@ -651,6 +781,67 @@ def wave_case(dll, rng, nq, mt, g, rc, lengths, blocks=None, shallow=False,
         t, eq, nq, rc)
     if not junk and not all(torch.equal(a, b) for a, b in zip(state.planes, want)):
         return False, f"chunks in turn differ from one fill: {where}"
+    return True, where
+
+
+def stream_case(dll, rng, nq, mt, g, lengths, blocks=None, shallow=False, concurrent=False,
+                tail_word=None, junk=False, with_u=True):
+    """``bitpal_gfill_stream`` (K4's sharded contract) chunk by chunk
+    against ``chunk_plain`` with the same upstream stream in: a random
+    ``u_in`` byte a step (B bits; none with ``with_u`` false), the tail of
+    ``tail_word`` (default the last word) out, chunk lengths cycled from
+    ``lengths`` up to the last step: planes, hand-offs and tail byte for
+    byte after every chunk, the flags after every launch; the ring and the
+    outputs start as garbage, and ``junk`` starts from a random state.
+    ``blocks``, ``shallow`` and ``concurrent`` as in ``wave_case``.
+    Returns ``(ok, where)``."""
+    nw = -(-nq // bitpal.WORD)
+    B = bitpal.n_planes(g)
+    tail_word = nw - 1 if tail_word is None else tail_word
+    q = torch.from_numpy(rng.integers(0, 5, nq).astype(np.int8))
+    t = torch.from_numpy(rng.integers(0, 5, mt).astype(np.int8))
+    eq = bitpal._eq_planes(q, nq)
+    total = bitpal.total_steps(mt, nw, 1)
+    where = f"g {g}, {nq} x {mt}, blocks {blocks}, ring of 2 {shallow}, tail word {tail_word}"
+    plan = bitpal.wave_plan(nw, max(lengths), blocks)
+    if shallow and plan.depth > 2:
+        plan = plan._replace(depth=2)
+    ring = torch.from_numpy(rng.integers(0, 256, (max(plan.depth, 1), max(lengths)))
+                            .astype(np.uint8))
+    sync = torch.zeros(plan.bands + 1, dtype=torch.int32)
+    if junk:
+        state = bitpal.WaveState(
+            tuple(torch.from_numpy(rng.integers(-2**63, 2**63 - 1, nw, dtype=np.int64))
+                  for _ in range(B)),
+            torch.from_numpy(rng.integers(0, 1 << B, nw).astype(np.uint8)))
+    else:
+        state = bitpal.init_state(nw, g, "cpu")
+    dll.rehearse_concurrent(int(concurrent))
+    try:
+        t0, i = 0, 0
+        while t0 < total:
+            t_steps = lengths[i % len(lengths)]
+            u_in = (torch.from_numpy(rng.integers(0, 1 << B, t_steps).astype(np.uint8))
+                    if with_u else None)
+            v_out = torch.from_numpy(rng.integers(-2**62, 2**62, (B, nw)))
+            h_out = torch.from_numpy(rng.integers(0, 256, nw).astype(np.uint8))
+            tail = torch.from_numpy(rng.integers(0, 256, t_steps).astype(np.uint8))
+            v_in = torch.stack(state.planes)
+            sync.zero_()
+            err = dll.bitpal_gfill_stream(
+                t.data_ptr(), eq.data_ptr(), mt, nw, g, plan.blocks, ring.data_ptr(), plan.depth,
+                sync.data_ptr(), t0, t_steps, v_in.data_ptr(), state.hand.data_ptr(),
+                v_out.data_ptr(), h_out.data_ptr(), None if u_in is None else u_in.data_ptr(),
+                tail.data_ptr(), tail_word, None)
+            state, want_tail = bitpal.chunk_plain(t, eq, nq, g, 1, t0, t_steps, state, u_in,
+                                                  tail_word)
+            if err or not (torch.equal(v_out, torch.stack(state.planes))
+                           and torch.equal(h_out, state.hand) and torch.equal(tail, want_tail)
+                           and _flags_of(sync, plan, t_steps)):
+                return False, f"chunk at steps {t0 + 1}..{t0 + t_steps}, {where}, {plan}"
+            t0, i = t0 + t_steps, i + 1
+    finally:
+        dll.rehearse_concurrent(0)
     return True, where
 
 

@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
         for entry in (lib.bitpal_rc_chunk, lib.bitpal_gfill_chunk):
             entry.argtypes = gfill + [i64, i64, vp, vp, vp, vp, vp]
             entry.restype = i32
+        lib.bitpal_gfill_stream.argtypes = gfill + [i64, i64, vp, vp, vp, vp, vp, vp, i32, vp]
+        lib.bitpal_gfill_stream.restype = i32
         # the pipelined fills: geometry (k, threads, blocks), then the ring,
         # its depth, the flags and (capture entries) the blocks' cells
         lib.band_fill.argtypes = [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp]
@@ -127,6 +129,9 @@ def load() -> ctypes.CDLL:
         lib.band_capture_affine.argtypes = ([vp, i32, vp, i32, vp] + [i32] * 10
                                             + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp])
         lib.band_capture_affine.restype = i32
+        lib.band_capture_edge.argtypes = ([vp, i32, vp, i32, vp] + [i32] * 8
+                                          + [vp, i32, vp, vp, vp, vp, vp, vp, i32, vp, vp, vp])
+        lib.band_capture_edge.restype = i32
         lib.diag_fill.argtypes = [vp, i32, vp, i32] + [i32] * 7 + [vp, i32, vp, vp, vp]
         lib.diag_fill.restype = i32
         lib.diag_ckpt_fill.argtypes = ([vp, i32, vp, i32] + [i32] * 8

@@ -19,8 +19,10 @@ gap, and the checkpointed row-scan traceback (``ops/traceback.py``) for
 ``align_score_batch`` scores many pairs in one kernel launch: the
 bit-parallel batch kernel (K5's port) for the family, the strip kernel's
 batch contract (K7's) for every other config, routed as ``tpualign``'s.
-What is not ported raises NotImplementedError naming the ROADMAP item
-that ports it; nothing runs quietly on another engine or device.
+The sharded engines (:mod:`tpualign_torch.parallel`) run over the default
+shard group, which ``auto`` takes where the group has more than one shard
+and the pair gives each a large enough block.  Nothing runs quietly on
+another engine or device.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .config import UNPORTED_IMPLS, EngineConfig, ScoringConfig
+from .config import EngineConfig, ScoringConfig
 from .ops import (affine_align, band, band_align, band_batch, bitpal, ends_free, hirschberg,
                   oracle, pallas_diag, traceback, traceback_diag, xla)
+from .parallel import band_strips, bitpal_strips, mesh, strips
 from .utils import native
 
 #: ``align`` walks the exact full table up to this many DP cells (as
@@ -40,21 +43,50 @@ from .utils import native
 FULL_TABLE_CELL_LIMIT = 16 * 1024 * 1024
 
 
-def resolve_impl(engine: EngineConfig, scoring: ScoringConfig) -> str:
+#: a sharded engine takes a pair under ``auto`` when its sharded axis gives
+#: each shard at least this many bases (``tpualign``'s rule)
+SHARD_MIN = 4096
+
+
+def resolve_impl(engine: EngineConfig, scoring: ScoringConfig, shape=None) -> str:
     """The engine for ``engine.impl`` and ``scoring``: a named engine as it
-    is; ``auto`` gives ``bitpal`` for the (1, 0, -g) family, g = 1..7, and
-    ``band`` for every other config, affine included (``tpualign``'s rule
-    on a TPU).  ``band-chunked`` gives ``band``: the JAX tier exists to lift
-    the TPU kernel's SMEM cap on the boundary row, which the port's band
-    kernel does not have.  The sharded engines raise NotImplementedError."""
-    if engine.impl in UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f"impl={engine.impl!r} is not ported yet: {UNPORTED_IMPLS[engine.impl]}")
+    is; ``auto`` by ``tpualign``'s rule on a TPU (``tpualign/api.py:40-109``),
+    with ``n_dev`` the size of the default shard group of
+    ``engine.device`` (:func:`tpualign_torch.parallel.mesh.default_group`:
+    the ``torch.distributed`` world, else the visible cards, else 1 on the
+    CPU).  Given ``shape = (len(s1), len(s2))`` on a group of more than one
+    shard: affine configs without a matrix or ends-free mode take
+    ``strips`` when ``max(m, n) >= 4096 * n_dev``; matrix and ends-free
+    configs ``band-strips`` by the same test; the (1, 0, -g) family
+    ``bitpal-strips`` when ``min(m, n) >= 4096 * n_dev``, other configs
+    ``band-strips`` when ``max(m, n)`` is.  Otherwise ``bitpal`` for the
+    family, g = 1..7, and ``band`` for every other config, affine included.
+    On one card ``n_dev`` is 1, so ``auto`` stays on one device, as
+    ``tpualign`` does on one chip.  ``band-chunked`` gives ``band``: the
+    JAX tier exists to lift the TPU kernel's SMEM cap on the boundary row,
+    which the port's band kernel does not have."""
     if engine.impl == "band-chunked":
         return "band"
     if engine.impl != "auto":
         return engine.impl
-    return "bitpal" if bitpal.family(scoring) is not None else "band"
+    fam = bitpal.family(scoring)
+    if shape is not None:
+        n_dev = mesh.default_group(engine.device).size
+        m, n = shape
+        wide = max(m, n) >= SHARD_MIN * n_dev
+        if n_dev > 1:
+            if scoring.is_affine:
+                if wide and not (scoring.has_matrix or scoring.is_ends_free):
+                    return "strips"
+            elif scoring.has_matrix or scoring.is_ends_free:
+                if wide:
+                    return "band-strips"
+            elif fam is not None:
+                if min(m, n) >= SHARD_MIN * n_dev:
+                    return "bitpal-strips"
+            elif wide:
+                return "band-strips"
+    return "bitpal" if fam is not None else "band"
 
 
 def align_score(
@@ -76,9 +108,34 @@ def align_score(
     error is raised; ``pallas`` runs the same strip pipeline and raises it
     too.  ``bitpal`` on a card without the memory for its ring
     of 2 rows raises ``torch.OutOfMemoryError`` (``bitpal.pipeline_plan``),
-    no refusal, so no engine takes its place; so does ``align``."""
-    impl = resolve_impl(engine, scoring)
+    no refusal, so no engine takes its place; so does ``align``.
+
+    The sharded engines fall back as ``tpualign/api.py:130-161``, on the
+    refusals their ``check`` finds before they run (a ValueError raised
+    inside a pipeline propagates): ``bitpal-strips`` (``chunk_cols``
+    ``engine.chunk_rows``) to ``strips``; ``band-strips`` to ``strips``, or
+    for matrix and ends-free configs to ``band``; ``strips``
+    (``engine.chunk_rows``) refuses matrix and ends-free configs."""
+    s1, s2 = np.asarray(s1), np.asarray(s2)
+    impl = resolve_impl(engine, scoring, (int(s1.size), int(s2.size)))
     dev = engine.device
+    if impl == "bitpal-strips":
+        try:
+            bitpal_strips.check(s1, s2, scoring)
+        except ValueError:  # outside the family or its codes
+            impl = "strips"
+        else:
+            return bitpal_strips.score(s1, s2, scoring, chunk_cols=engine.chunk_rows,
+                                       device=dev)
+    if impl == "band-strips":
+        try:
+            band_strips.check(s1, s2, scoring)
+        except ValueError:  # affine gaps, or past the int32 headroom
+            impl = "band" if (scoring.has_matrix or scoring.is_ends_free) else "strips"
+        else:
+            return band_strips.score(s1, s2, scoring, device=dev)
+    if impl == "strips":
+        return strips.score(s1, s2, scoring, chunk_rows=engine.chunk_rows, device=dev)
     if impl == "oracle":
         return oracle.score(s1, s2, scoring)
     if impl == "bitpal":
@@ -130,7 +187,8 @@ def align(
     it (past ``pallas_diag.MAX_DIAG_ELEMS`` rows, past the int32 headroom,
     a positive global gap), and for ``impl="oracle"`` or ``"xla"``, the
     checkpointed row-scan traceback
-    (:func:`tpualign_torch.ops.traceback.align_checkpointed`).  Where the
+    (:func:`tpualign_torch.ops.traceback.align_checkpointed`), which the
+    sharded engines' names take too, as in ``tpualign``.  Where the
     bit-parallel split refuses a pair (ValueError), the port goes on to the
     band split: its own choice, where ``tpualign`` goes to the checkpointed
     traceback.  The alignments are optimal; the two checkpointed

@@ -11,13 +11,18 @@ codes.
                  DP-table footprint, the bytes ``tpualign generate`` writes.
 - ``bench``    — corpus pairs -> TSV/JSON rows; a row whose score fails
                  ``--check golden|native`` is withheld (exit 1).
+- ``tune``     — sweep an engine's knob on a pair: the sharded engines'
+                 chunk depth on the default shard group (``strips``,
+                 ``bitpal``), as ``tpualign``'s; the port's own knobs for
+                 the single-device fills (``rc-chunk``: the staggered
+                 fill's blocks at each columns-a-step; ``band``: the strip
+                 pipeline's rows a thread x threads).
 - ``info``     — torch's and CUDA's versions and each device's name.
 
 The port adds ``--device`` (default ``cuda``), as ``EngineConfig`` has:
 the CLI runs on the card unless it is asked for the CPU.  ``--impl`` takes
-``tpualign``'s names; its sharded engines are refused with the ROADMAP item
-that ports them (item 13), which also ports ``tpualign``'s ``tune``: its
-engines are those.
+``tpualign``'s names, the sharded engines' included (over the default
+shard group, ``--chunk-rows`` their chunk depth).
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ import sys
 import time
 from typing import List
 
-from .config import UNPORTED_IMPLS, AlignMode, EngineConfig, ScoringConfig
+import numpy as np
+
+from .config import AlignMode, EngineConfig, ScoringConfig
 
 
 def _scoring(args) -> ScoringConfig:
@@ -75,15 +82,14 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
                             "band-strips", "strips"],
                    default="auto")
     p.add_argument("--chunk-rows", type=int, default=2048,
-                   help="pipelined chunk depth for the sharded engine "
-                        "(not ported: ROADMAP queue 1 item 13)")
+                   help="pipelined chunk depth for the sharded engine")
     p.add_argument("--device", default="cuda",
                    help="torch device the engines run on: 'cuda' (default) "
                         "runs the kernels, 'cpu' their plain versions")
 
 
 def _engine(args) -> EngineConfig:
-    return EngineConfig(impl=args.impl, device=args.device)
+    return EngineConfig(impl=args.impl, device=args.device, chunk_rows=args.chunk_rows)
 
 
 def _load_pair(args):
@@ -243,6 +249,151 @@ def cmd_bench(args) -> int:
     return 1 if bad else 0
 
 
+def _tune_rows(args, header: str, rows) -> None:
+    if args.tsv:
+        with open(args.tsv, "w") as f:
+            f.write(header + "\n")
+            for row in rows:
+                f.write("\t".join(str(v) for v in row) + "\n")
+        print(f"wrote {args.tsv}")
+
+
+def cmd_tune_rc_chunk(args, s1, s2) -> int:
+    """The staggered fill's blocks (``bitpal.wave_plan``) at each columns a
+    step of ``--rc`` (the family's g = 1 only past 1): the port's own knob
+    in place of ``tpualign``'s ``cols_per_step x chunk chars``.  The
+    longer sequence is the text, as ``tpualign``'s tuner has it; the fill
+    runs in chunks of ``bitpal.chunk_steps`` steps, a block count of 0 the
+    planner's."""
+    import torch
+
+    from .bench import time_call
+    from .ops import bitpal
+
+    if len(s2) > len(s1):
+        s1, s2 = s2, s1
+    scoring = _scoring(args)
+    fam = bitpal.family(scoring)
+    if fam is None:
+        print("error: rc-chunk tunes the (1, 0, -g) family", file=sys.stderr)
+        return 2
+    g = fam[1]
+    dev = torch.device(args.device)
+    text = torch.from_numpy(bitpal._codes(s1)).to(dev)
+    nq = len(s2)
+    eq = bitpal._eq_planes(torch.from_numpy(bitpal._codes(s2)).to(dev), nq)
+    nw, mt = eq.shape[1], len(s1)
+    rows = []
+    for rc in (int(v) for v in args.rc.split(",")):
+        if rc > 1 and g > 1:
+            continue
+        total = bitpal.total_steps(mt, nw, rc)
+        t_steps = bitpal.chunk_steps(rc)
+        for blocks in (int(v) for v in args.blocks.split(",")):
+
+            def run():
+                state = bitpal.init_state(nw, g, dev)
+                for t0 in range(0, total, t_steps):
+                    steps = min(t_steps, total - t0)
+                    if rc > 1:
+                        state = bitpal.fill_rc_chunk(text, eq, nq, rc, t0, steps, state,
+                                                     blocks or None)
+                    else:
+                        state = bitpal.fill_g_chunk(text, eq, nq, g, t0, steps, state,
+                                                    blocks or None)
+                unit = int(bitpal._reduce_score(state.planes, nq, mt, g))
+                return bitpal._from_unit(scoring, mt + nq, unit)
+
+            r = time_call(run, label=f"rc{rc}/b{blocks}", cells=mt * nq, device=dev,
+                          runs=args.runs)
+            print(f"rc={rc}\tblocks={blocks}\t{r.wall_s_best*1e3:.2f} ms\t"
+                  f"{r.gcups_best:.3f} GCUPS\tscore {r.score}")
+            rows.append((rc, blocks, round(r.wall_s_best * 1e3, 3), round(r.gcups_best, 3),
+                         r.score))
+    _tune_rows(args, "rc\tblocks\tms_best\tgcups\tscore", rows)
+    return 0
+
+
+def cmd_tune_band(args, s1, s2) -> int:
+    """The strip pipeline's geometry, rows a thread x threads
+    (``band.pipeline_geometry``'s knobs, ``tools/sweep_band_pipeline.py``'s
+    grid) from ``--values`` as ``K:THREADS`` (``band-chunked``: the same,
+    the port's band engine having no chunked tier): the port's own knob in
+    place of ``tpualign``'s ``rows``.  One ``band_fill`` a run, in
+    ``band.plan``'s orientation."""
+    import torch
+
+    from .bench import time_call
+    from .ops import band
+
+    scoring = _scoring(args)
+    p = band.plan(len(s1), len(s2), scoring)
+    text, query = (s2, s1) if p.swapped else (s1, s2)
+    dev = torch.device(args.device)
+    t = torch.from_numpy(np.ascontiguousarray(text, dtype=np.int8)).to(dev)
+    q = torch.from_numpy(np.ascontiguousarray(query, dtype=np.int8)).to(dev)
+    rows = []
+    for value in args.values.split(","):
+        k, threads = (int(v) for v in value.split(":"))
+
+        def run():
+            res = int(band.band_fill(t, q, p.cfg, p.ends, (k, threads)))
+            return max((res,) + p.floor)
+
+        r = time_call(run, label=f"k{k}/t{threads}", cells=len(s1) * len(s2), device=dev,
+                      runs=args.runs)
+        print(f"k={k}\tthreads={threads}\t{r.wall_s_best*1e3:.2f} ms\t"
+              f"{r.gcups_best:.3f} GCUPS\tscore {r.score}")
+        rows.append((k, threads, round(r.wall_s_best * 1e3, 3), round(r.gcups_best, 3),
+                     r.score))
+    _tune_rows(args, "k\tthreads\tms_best\tgcups\tscore", rows)
+    return 0
+
+
+#: ``tune``'s default ``--values`` for each engine
+TUNE_VALUES = {"strips": "256,512,1024,2048,4096", "bitpal": "256,512,1024,2048,4096",
+               "band": "4:128,8:64,8:128,16:64,16:128",
+               "band-chunked": "4:128,8:64,8:128,16:64,16:128"}
+
+
+def cmd_tune(args) -> int:
+    """Sweep a sharded engine's chunk depth on the default shard group
+    (``--devices`` shards in this process when positive), as
+    ``tpualign``'s ``tune``, or the port's own knobs (``rc-chunk``,
+    ``band``)."""
+    from .io.bdna import read_bdna
+    from .parallel import bitpal_strips, mesh, strips
+
+    s1, s2 = read_bdna(args.seq1), read_bdna(args.seq2)
+    if args.values is None:
+        args.values = TUNE_VALUES.get(args.engine, "")
+    if args.engine == "rc-chunk":
+        return cmd_tune_rc_chunk(args, s1, s2)
+    if args.engine in ("band", "band-chunked"):
+        return cmd_tune_band(args, s1, s2)
+    from .bench import time_call
+
+    group = mesh.make_group(args.devices if args.devices > 0 else None, device=args.device)
+    rows = []
+    for chunk in (int(v) for v in args.values.split(",")):
+        if args.engine == "bitpal":
+            fn = bitpal_strips.score_fn(len(s1), len(s2), _scoring(args), group=group,
+                                        chunk_cols=chunk)
+
+            def run():
+                return fn(s1, s2)
+        else:
+            def run():
+                return strips.score(s1, s2, _scoring(args), group=group, chunk_rows=chunk)
+        r = time_call(run, label=str(chunk), cells=len(s1) * len(s2), device=args.device,
+                      runs=args.runs)
+        print(f"chunk={chunk}\t{r.wall_s_best*1e3:.2f} ms\t{r.gcups_best:.3f} GCUPS\t"
+              f"score {r.score}")
+        rows.append((chunk, f"{r.wall_s_best*1e3:.2f}", f"{r.gcups_best:.3f}", r.score))
+    _tune_rows(args, "chunk\tms_best\tgcups\tscore", rows)
+    return 0
+
+
 def cmd_info(args) -> int:
     import torch
 
@@ -301,12 +452,31 @@ def main(argv: List[str] | None = None) -> int:
     _add_engine_args(p)
     p.set_defaults(fn=cmd_bench)
 
+    p = sub.add_parser("tune", help="sweep engine tuning knobs")
+    p.add_argument("seq1")
+    p.add_argument("seq2")
+    p.add_argument("--engine", choices=["strips", "bitpal", "rc-chunk", "band", "band-chunked"],
+                   default="strips",
+                   help="sharded chunk depth (strips/bitpal) on the default shard group, "
+                        "the staggered fill's blocks x columns a step (rc-chunk), or the "
+                        "strip pipeline's rows a thread x threads (band)")
+    p.add_argument("--values", default=None,
+                   help="chunk depths (strips, bitpal; default 256,...,4096) or K:THREADS "
+                        "geometries (band)")
+    p.add_argument("--rc", default="1,2,3,4", help="columns a step for --engine rc-chunk")
+    p.add_argument("--blocks", default="0,1,2,4",
+                   help="blocks of a launch for --engine rc-chunk (0: the planner's)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shards in this process (0: the default shard group)")
+    p.add_argument("--runs", type=int, default=3)
+    p.add_argument("--tsv")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the engines run on: 'cuda' (default) or 'cpu'")
+    _add_scoring_args(p)
+    p.set_defaults(fn=cmd_tune)
+
     p = sub.add_parser("info", help="torch, CUDA and device info")
     p.set_defaults(fn=cmd_info)
 
     args = ap.parse_args(argv)
-    if getattr(args, "impl", None) in UNPORTED_IMPLS:
-        print(f"error: impl={args.impl!r} is not ported yet: {UNPORTED_IMPLS[args.impl]}",
-              file=sys.stderr)
-        return 2
     return args.fn(args)

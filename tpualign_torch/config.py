@@ -17,19 +17,11 @@ import torch
 
 __all__ = ["AlignMode", "EngineConfig", "ScoringConfig"]
 
-#: the engines of ``tpualign``'s ``EngineConfig`` that the port runs;
-#: ``auto`` resolves by scoring config and ``band-chunked`` to ``band``
-#: (:func:`tpualign_torch.api.resolve_impl`)
-IMPLS = ("auto", "bitpal", "band", "pallas", "xla", "oracle", "band-chunked")
-
-#: ``tpualign``'s other engines, accepted by name and refused by
-#: :func:`tpualign_torch.api.resolve_impl` with the ROADMAP item that ports
-#: them
-UNPORTED_IMPLS = {
-    "bitpal-strips": "ROADMAP queue 1 item 13 (sharded pipelines)",
-    "band-strips": "ROADMAP queue 1 item 13 (sharded pipelines)",
-    "strips": "ROADMAP queue 1 item 13 (sharded pipelines)",
-}
+#: the engines of ``tpualign``'s ``EngineConfig``, every one of which the
+#: port runs; ``auto`` resolves by scoring config and shape and
+#: ``band-chunked`` to ``band`` (:func:`tpualign_torch.api.resolve_impl`)
+IMPLS = ("auto", "bitpal", "band", "pallas", "xla", "oracle", "band-chunked",
+         "bitpal-strips", "band-strips", "strips")
 
 
 class AlignMode(enum.Enum):
@@ -152,9 +144,15 @@ class EngineConfig:
     ``band`` (the general-scoring strip engine) or ``pallas`` (the flat
     anti-diagonal engine), each a CUDA kernel on a CUDA device and its
     plain PyTorch version on the CPU; ``xla`` (the PyTorch row scan on the
-    device) or ``oracle`` (the NumPy row scan on the host).  The names are
-    ``tpualign``'s; :data:`UNPORTED_IMPLS` are accepted and refused when
-    resolved.
+    device) or ``oracle`` (the NumPy row scan on the host); the sharded
+    engines ``bitpal-strips``, ``band-strips`` and ``strips``
+    (:mod:`tpualign_torch.parallel`) over the default shard group
+    (:func:`tpualign_torch.parallel.mesh.default_group`).  The names are
+    ``tpualign``'s.
+
+    ``chunk_rows``: the sharded engines' chunk depth, ``tpualign``'s knob
+    (the row chunk of ``strips``, the ``chunk_cols`` of
+    ``bitpal-strips``); positive.
 
     ``device``: a torch device string.  The default is ``"cuda"``, and a run
     with it on a machine without CUDA raises: nothing falls back to the CPU
@@ -163,11 +161,13 @@ class EngineConfig:
 
     impl: str = "auto"
     device: str = "cuda"
+    chunk_rows: int = 2048
 
     def __post_init__(self) -> None:
-        if self.impl not in IMPLS and self.impl not in UNPORTED_IMPLS:
-            raise ValueError(f"unknown impl {self.impl!r}; expected one of "
-                             f"{IMPLS + tuple(UNPORTED_IMPLS)}")
+        if self.impl not in IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}; expected one of {IMPLS}")
+        if self.chunk_rows <= 0:
+            raise ValueError("chunk_rows must be positive")
         if torch.device(self.device).type not in ("cpu", "cuda"):
             raise ValueError(f"device must be a cpu or cuda device, got {self.device!r}")
 

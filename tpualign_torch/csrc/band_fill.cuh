@@ -100,6 +100,15 @@
 // F runs down a thread's rows in one register, so the thread that owns row
 // n keeps F as that row passes (a select a cell, affine captures only) and
 // stores it with the column.
+// The edges in (EDGE, band_capture_edge.cu: K7's sharded contract, linear
+// gaps): the table is a block of a larger one, and its top row H(0, 0..m)
+// and left column H(0..n, 0) (the corner in both) come in as arrays.
+// Strip 0 reads the top row in place of the closed form, as a later strip
+// reads the ring (warp 0 fetches it a chunk at a time, its flag always
+// ready), and each thread's column 0 takes its rows of the left column in
+// place of the closed form.  A template flag, so that the other fills
+// carry none of it.
+//
 // Locating (a template flag, so that fills that do not locate carry no
 // cell code): per step each thread takes its column's first maximum over
 // its rows (one DPX __vibmax_s32 and a select a cell), then keeps the best
@@ -186,6 +195,15 @@ struct CkptArgs {
   int groups;      // ceil((n + m) / every)
 };
 
+// EDGE: the block's edges in (see the header)
+struct Edge {
+  const int32_t* top;   // (m+1,) H(0, 0..m)
+  const int32_t* left;  // (n+1,) H(0..n, 0)
+};
+
+// EDGE: the progress of the top row in, which is whole before the launch
+__device__ int kEdgeReady = 0x7fffffff;
+
 // The pipeline's scratch, zeroed by the caller where it says so
 struct Pipe {
   int32_t* ring;    // (depth, 1 or 2, m+1): H, then F under affine gaps
@@ -245,11 +263,11 @@ __device__ __forceinline__ int32_t top_h(const Params& p, int j) {
 // top edge (see the header).  CKPT: K9's checkpoints in place of the
 // score (linear gaps, pair scoring)
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE,
-          bool PIPE, bool CKPT>
+          bool PIPE, bool CKPT, bool EDGE = false>
 __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
                                       const CkptArgs& ck, const int32_t* mat, int i0,
                                       const Link& l, int32_t& acc, int32_t& best_v,
-                                      int& best_i, int& best_j) {
+                                      int& best_i, int& best_j, const Edge& edge = Edge{}) {
   __shared__ int32_t hand_h[2][kWarps];
   __shared__ int32_t hand_f[2][kWarps];
   const int r = threadIdx.x;
@@ -358,6 +376,7 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
       } else if (PIPE) {
         in_h = in_buf[0][j % kChunk];
         if (AFFINE) in_f = in_buf[1][j % kChunk];
+        if (EDGE && want_col && i0 == 0 && j == m) c.col[0] = in_h;
       } else {
         in_h = l.in_h[j];
         if (AFFINE) in_f = l.in_f[j];
@@ -371,7 +390,11 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
 #pragma unroll
       for (int q = 0; q < K; ++q) {
         const int i = top + q + 1;
-        h[q] = (LOCAL || zc) ? 0 : (AFFINE ? open0 + i * p.ext : i * p.gap);
+        if (EDGE) {
+          h[q] = q < nlive ? edge.left[i] : 0;
+        } else {
+          h[q] = (LOCAL || zc) ? 0 : (AFFINE ? open0 + i * p.ext : i * p.gap);
+        }
         e[q] = kNeg;
       }
       out_h = h[K - 1];
@@ -618,9 +641,10 @@ __device__ __forceinline__ void fill_inplace(const Params& p) {
 // The pipelined schedule (see the header): the blocks take strips from a
 // ticket and hand rows down through the ring
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE,
-          bool CKPT>
+          bool CKPT, bool EDGE = false>
 __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
-                                          const Pipe& q, const CkptArgs& ck) {
+                                          const Pipe& q, const CkptArgs& ck,
+                                          const Edge& edge = Edge{}) {
   __shared__ int32_t mat[kMaxCodes * kMaxCodes];
   __shared__ int32_t red[LOCATE ? 3 : 1][kWarps];
   __shared__ int ticket;
@@ -648,6 +672,9 @@ __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
       l.in_h = row;
       l.in_f = row + m + 1;
       l.in_ready = progress + s - 1;
+    } else if (EDGE) {
+      l.in_h = edge.top;
+      l.in_ready = &kEdgeReady;
     }
     if (s + 1 < q.strips) {
       int32_t* row = q.ring + static_cast<size_t>(s % q.depth) * stride;
@@ -656,8 +683,8 @@ __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
       l.out_ready = progress + s;
       if (s >= q.depth) l.out_free = progress + s - q.depth + 1;
     }
-    strip<K, AFFINE, MATRIX, LOCAL, CAPTURE, LOCATE, true, CKPT>(
-        p, c, ck, mat, s * K * T, l, acc, best_v, best_i, best_j);
+    strip<K, AFFINE, MATRIX, LOCAL, CAPTURE, LOCATE, true, CKPT, EDGE>(
+        p, c, ck, mat, s * K * T, l, acc, best_v, best_i, best_j, edge);
   }
   if (CKPT) return;  // the checkpoints are written by their rows' owners
   if (!CAPTURE) {
@@ -706,6 +733,13 @@ template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool LOCATE>
 __global__ void __launch_bounds__(kPipeThreads)
     band_capture_kernel(Params p, CaptureArgs c, Pipe q) {
   fill_pipe<K, AFFINE, MATRIX, LOCAL, true, LOCATE, false>(p, c, q, CkptArgs{});
+}
+
+// K7's sharded contract: the linear captures with the block's edges in
+template <int K, bool MATRIX, bool LOCAL, bool LOCATE>
+__global__ void __launch_bounds__(kPipeThreads)
+    band_edge_kernel(Params p, CaptureArgs c, Edge e, Pipe q) {
+  fill_pipe<K, false, MATRIX, LOCAL, true, LOCATE, false, true>(p, c, q, CkptArgs{}, e);
 }
 
 // local affine captures stop at 8 rows a thread (band.py's max_k): at 16,

@@ -7,10 +7,11 @@
 //   _rc_chunk_kernel_body (K3b): K3a resumed over a chunk of steps, its
 //                                state carried in and out;
 //   _chunk_kernel_body    (K4):  the state in and out of the g-family chunk
-//                                (word 0's h_top the constant boundary, as
-//                                _score_chunked_fn passes it; the upstream
-//                                stream and the tail capture of the sharded
-//                                pipeline are not part of this port).
+//                                (bitpal_gfill_chunk: word 0's h_top the
+//                                constant boundary, as _score_chunked_fn
+//                                passes it), and with the sharded
+//                                pipeline's upstream stream in and tail
+//                                out (bitpal_gfill_stream, below).
 // Contract, word for word the same as _wave_plain in
 // tpualign_torch/ops/bitpal.py (fill_rc_plain, chunk_plain):
 //
@@ -62,6 +63,20 @@
 // last, run as the contract's do (no match, the planes held) and hand
 // their h_out on: the state's hand-offs include them.
 //
+// The sharded contract (bitpal_gfill_stream, K4's ustream and r_star tail
+// as parallel/bitpal_strips.py uses them; STREAM, a template flag, so that
+// the other entries carry none of it):
+//
+//   in:  u_in     (n,)      uint8 or null: word 0's h_top enc at steps
+//                           t0+1 .. t0+n, in place of the boundary's 0
+//                           (band 0's lane 0 fetches it a chunk of 32
+//                           steps at a time, as a lower band its ring row)
+//   out: tail     (n,)      uint8 or null: the h_out enc of word tail_word
+//                           at steps t0+1 .. t0+n (its lane stores a byte
+//                           a step)
+//
+// The state in and out is bitpal_gfill_chunk's.
+//
 // The steady part of a band, where every lane's window lies in 1..mt, runs
 // a chunk of 32 steps at a time without a branch in a step (the shuffle's
 // source at a constant phase, the bottom lane's store predicated); the
@@ -111,6 +126,9 @@ struct Wave {
   int* sync;            // zeroed (bands + 1,): the ticket, then progress[s]
   int bands;
   int depth;  // D, at least 2 when bands >= 2
+  const uint8_t* u_in;  // (n,) or null (STREAM): word 0's h_top enc a step
+  uint8_t* tail;        // (n,) or null (STREAM): word tail_word's h_out a step
+  int tail_word;
 };
 
 // the codes of window s (columns RC*s + 1 .. RC*s + RC), kCodeBits a column,
@@ -138,6 +156,7 @@ struct Lane {
   static constexpr int kHalf = 4 * sizeof(Word);
   int lane;     // also the word's position in the band
   bool bottom;  // the bottom lane of a band with a band below
+  bool tailer;  // STREAM: the lane of word tail_word, storing the tail
   int64_t base;  // lane 0's window at step k is base + k - 1
   const uint8_t* in;  // the band above's bottom row, or null (band 0)
   uint8_t* out;       // this band's bottom row, or null (the last band)
@@ -159,7 +178,7 @@ struct Lane {
 // Fetch the chunk of steps c .. c + 31 into the lanes' *_nxt: lane i's
 // ring byte is lane 0's h_top at step c + i (byte c + i - 2 of the row
 // above, h0 at step 1), its codes lane 0's at step c + i + 1
-template <int RC, int B>
+template <int RC, int B, bool STREAM>
 __device__ __forceinline__ void fetch(const Wave& a, Lane<RC, B>& l, int c) {
   const int k = c + l.lane;
   l.text_nxt = window_codes<RC>(a, l.base + k);
@@ -168,17 +187,19 @@ __device__ __forceinline__ void fetch(const Wave& a, Lane<RC, B>& l, int c) {
     const int need = min(c + kChunk - 1, a.n) - 1;
     while (l.seen < need) l.seen = load_acquire(l.in_ready);
     if (k >= 2 && k <= a.n) r = __ldcg(l.in + k - 2);
+  } else if (STREAM && a.u_in != nullptr && k <= a.n) {
+    r = a.u_in[k - 1];  // band 0: the upstream stream in
   }
   l.ring_nxt = r;
 }
 
 // The first step c of a chunk: this chunk's bytes and codes move in, the
 // next chunk's loads start
-template <int RC, int B>
+template <int RC, int B, bool STREAM>
 __device__ __forceinline__ void next_chunk(const Wave& a, Lane<RC, B>& l, int c) {
   l.ring_cur = l.ring_nxt;
   l.text_cur = l.text_nxt;
-  if (c + kChunk <= a.n) fetch(a, l, c + kChunk);
+  if (c + kChunk <= a.n) fetch<RC, B, STREAM>(a, l, c + kChunk);
 }
 
 // The word's step from the hand-off h: RC columns of window s in turn;
@@ -226,15 +247,16 @@ __device__ __forceinline__ typename Lane<RC, B>::Word shuffle(Lane<RC, B>& l,
 // Step k of a band, with every check: a chunk's first step fetches, the
 // word's columns may lie outside 1..mt, and the bottom lane may wait for
 // its row
-template <int RC, int B>
+template <int RC, int B, bool STREAM>
 __device__ __forceinline__ void step(const Wave& a, Lane<RC, B>& l, int k) {
   using Word = typename Lane<RC, B>::Word;
-  if (((k - 1) & (kChunk - 1)) == 0) next_chunk(a, l, k);
+  if (((k - 1) & (kChunk - 1)) == 0) next_chunk<RC, B, STREAM>(a, l, k);
   const Word got = shuffle(l, static_cast<Word>(l.ring_cur | (l.text_cur << 8)),
                            (k - 1) & (kChunk - 1));
   const unsigned h = static_cast<unsigned>(got) & 0xffu;
   const unsigned nx = static_cast<unsigned>(got >> 8) & ((1u << (kCodeBits * RC)) - 1);
   word<RC, B, true>(a, l, h, l.base + k - 1 - l.lane);
+  if (STREAM && l.tailer) a.tail[k - 1] = static_cast<uint8_t>(l.hp);
   if (l.bottom) {
     const int need = min(k + 1, a.n);
     if (l.out_free != nullptr && l.free_to < need) {
@@ -250,10 +272,10 @@ __device__ __forceinline__ void step(const Wave& a, Lane<RC, B>& l, int k) {
 
 // Steps c .. c + 31 of a band, c = 1 (mod 32), where every lane's window
 // lies in 1..mt: no branch in a step
-template <int RC, int B>
+template <int RC, int B, bool STREAM>
 __device__ __forceinline__ void chunk(const Wave& a, Lane<RC, B>& l, int c) {
   using Word = typename Lane<RC, B>::Word;
-  next_chunk(a, l, c);
+  next_chunk<RC, B, STREAM>(a, l, c);
   if (l.bottom && l.out_free != nullptr) {
     const int need = min(c + kChunk, a.n);
     while (l.free_to < need) l.free_to = load_acquire(l.out_free);
@@ -265,6 +287,7 @@ __device__ __forceinline__ void chunk(const Wave& a, Lane<RC, B>& l, int c) {
     const unsigned h = static_cast<unsigned>(got) & 0xffu;
     const unsigned nx = static_cast<unsigned>(got >> 8) & ((1u << (kCodeBits * RC)) - 1);
     word<RC, B, false>(a, l, h, 0);
+    if (STREAM && l.tailer) a.tail[c + q - 1] = static_cast<uint8_t>(l.hp);
     if (l.bottom) __stcg(l.out + c + q - 1, static_cast<uint8_t>(l.hp));
     l.ci = nx;
   }
@@ -273,7 +296,7 @@ __device__ __forceinline__ void chunk(const Wave& a, Lane<RC, B>& l, int c) {
 
 // One band: words 32s .. 32s + 31 of the query, steps 1 .. n of the launch
 // from the state in (STATE) or from the column-0 boundary
-template <int RC, int B, bool STATE>
+template <int RC, int B, bool STATE, bool STREAM>
 __device__ __forceinline__ void band(const Wave& a, int s) {
   Lane<RC, B> l;
   l.lane = threadIdx.x & 31;
@@ -300,20 +323,21 @@ __device__ __forceinline__ void band(const Wave& a, int s) {
   l.out_ready = a.sync + 1 + s;
   l.out_free = (l.out != nullptr && s >= a.depth) ? a.sync + 2 + s - a.depth : nullptr;
   l.bottom = l.out != nullptr && l.lane == 31;
+  l.tailer = STREAM && a.tail != nullptr && w == a.tail_word;
   l.seen = 0;
   l.free_to = 0;
   l.ring_cur = l.text_cur = 0;
   l.ring_nxt = l.text_nxt = 0;
-  if (n >= 1) fetch(a, l, 1);
+  if (n >= 1) fetch<RC, B, STREAM>(a, l, 1);
   // whole chunks over the steps where every lane's window is one of the
   // text's whole windows 0 .. mt/RC - 1, steps with checks around them
   const int64_t lo = 32 - l.base, hi = a.mt / RC - l.base;
   const int64_t first = lo <= 1 ? 1 : lo + ((1 - lo) & (kChunk - 1));
   const int last = static_cast<int>(hi < 0 ? 0 : hi < n ? hi : n);
   int k = 1;
-  for (; k < first && k <= n; ++k) step(a, l, k);
-  for (; k + kChunk - 1 <= last; k += kChunk) chunk(a, l, k);
-  for (; k <= n; ++k) step(a, l, k);
+  for (; k < first && k <= n; ++k) step<RC, B, STREAM>(a, l, k);
+  for (; k + kChunk - 1 <= last; k += kChunk) chunk<RC, B, STREAM>(a, l, k);
+  for (; k <= n; ++k) step<RC, B, STREAM>(a, l, k);
   if (real) {
 #pragma unroll
     for (int b = 0; b < B; ++b) a.v_out[b * static_cast<int64_t>(nw) + w] = l.V[b];
@@ -321,9 +345,9 @@ __device__ __forceinline__ void band(const Wave& a, int s) {
   }
 }
 
-template <int RC, int B, bool STATE>
+template <int RC, int B, bool STATE, bool STREAM = false>
 __device__ __forceinline__ void wave(const Wave& a) {
-  take_bands(a.sync, a.bands, [&](int s) { band<RC, B, STATE>(a, s); });
+  take_bands(a.sync, a.bands, [&](int s) { band<RC, B, STATE, STREAM>(a, s); });
 }
 
 // K3a's port: g = 1, RC columns a step, from the boundary to the end.
@@ -336,6 +360,13 @@ __global__ void __launch_bounds__(32) bitpal_rc_kernel(const Wave a) {
 template <int RC, int B>
 __global__ void __launch_bounds__(32) bitpal_chunk_kernel(const Wave a) {
   wave<RC, B, true>(a);
+}
+
+// K4's sharded contract: the state chunk at one column a step with the
+// upstream stream in and the tail out.
+template <int B>
+__global__ void __launch_bounds__(32) bitpal_stream_kernel(const Wave a) {
+  wave<1, B, true, true>(a);
 }
 
 // the checks every entry makes; fills in the bands
@@ -366,7 +397,8 @@ Wave wave_args(const void* text, const void* eq, int64_t mt, int nw, int vmax, v
   return Wave{static_cast<const int8_t*>(text), static_cast<const u64*>(eq), mt, nw, vmax, t0,
               0, static_cast<const u64*>(v_in), static_cast<const uint8_t*>(h_in),
               static_cast<u64*>(v_out), static_cast<uint8_t*>(h_out),
-              static_cast<uint8_t*>(ring), static_cast<int*>(sync), 0, depth};
+              static_cast<uint8_t*>(ring), static_cast<int*>(sync), 0, depth,
+              nullptr, nullptr, -1};
 }
 
 }  // namespace
@@ -425,4 +457,34 @@ extern "C" int bitpal_gfill_chunk(const void* text, const void* eq, int64_t mt, 
   if (g == 1) return launch<1, 2, true>(blocks, stream, a);
   if (g <= 3) return launch<1, 3, true>(blocks, stream, a);
   return launch<1, 4, true>(blocks, stream, a);
+}
+
+// K4's sharded contract: bitpal_gfill_chunk's launch with `u_in` (t_steps,)
+// uint8, word 0's h_top enc at each step in place of the boundary's 0,
+// and `tail` (t_steps,) uint8, the h_out enc of word `tail_word` (in
+// 0..nw-1) at each step; either may be null, and with both null the
+// result is bitpal_gfill_chunk's.
+extern "C" int bitpal_gfill_stream(const void* text, const void* eq, int64_t mt, int nw, int g,
+                                   int blocks, void* ring, int depth, void* sync, int64_t t0,
+                                   int64_t t_steps, const void* v_in, const void* h_in,
+                                   void* v_out, void* h_out, const void* u_in, void* tail,
+                                   int tail_word, void* stream) {
+  Wave a = wave_args(text, eq, mt, nw, 2 * g + 1, ring, depth, sync, t0, v_in, h_in, v_out,
+                     h_out);
+  a.u_in = static_cast<const uint8_t*>(u_in);
+  a.tail = static_cast<uint8_t*>(tail);
+  a.tail_word = tail_word;
+  if (t_steps < 1 || g < 1 || g > kMaxG || bad_launch(a, blocks, t_steps) ||
+      (tail != nullptr && (tail_word < 0 || tail_word >= nw))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  if (g == 1) {
+    bitpal_stream_kernel<2><<<blocks, 32, 0, s>>>(a);
+  } else if (g <= 3) {
+    bitpal_stream_kernel<3><<<blocks, 32, 0, s>>>(a);
+  } else {
+    bitpal_stream_kernel<4><<<blocks, 32, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -371,7 +371,8 @@ def _check_capture(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
 def capture_plain(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
                   rows=(), *, zero_row: bool = False, zero_col: bool = False,
                   col: bool = False, cell: bool = False,
-                  tb: Optional[int] = None) -> Capture:
+                  tb: Optional[int] = None, top: Optional[torch.Tensor] = None,
+                  left: Optional[torch.Tensor] = None) -> Capture:
     """Plain PyTorch version of the capture kernel: the fill of ``text``
     (columns) against ``query`` (rows) under ``cfg`` (in kernel
     coordinates), with H(0, :) = 0 under ``zero_row`` or local scoring and
@@ -381,19 +382,51 @@ def capture_plain(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     column, with ``cell`` the located cell, and under affine gaps the last
     row of F, where ``tb`` (default ``gap_open``, in ``[gap_open, 0]``) is
     Myers-Miller's top-edge open: F(0, j) = H(0, j) + tb and H(i, 0) =
-    tb + i*ext (:class:`Capture`)."""
+    tb + i*ext (:class:`Capture`).
+
+    K7's sharded contract, linear gaps: with ``top`` and ``left``
+    (:func:`edge_fill`) the table is a block of a larger one, its top row
+    H(0, 0..m) ``top`` ``(m+1,)`` and its left column H(0..n, 0) ``left``
+    ``(n+1,)`` (the corner in both), in place of the closed forms
+    (``zero_row`` and ``zero_col`` unread); the local floor applies to the
+    cells i, j >= 1 only."""
     rows, tb = _check_capture(text, query, cfg, rows, tb)
+    edges = _check_edges(text, query, cfg, top, left)
     zr, zc = cfg.is_local or zero_row, cfg.is_local or zero_col
     scan = xla.rows_scan(text, query, cfg, zero_row=zr, zero_col=zc, want_col=col,
                          capture_rows=rows, want_cell=cell,
-                         tb=tb if cfg.is_affine else None)
+                         tb=tb if cfg.is_affine else None,
+                         top_h=top if edges else None, left_h=left if edges else None)
     last_col = None
     if col:
-        h0m = 0 if zr else xla.gap_run(cfg, text.numel())
-        last_col = torch.cat([scan.col.new_full((1,), h0m), scan.col]).int()
+        if edges:
+            h0m = top[-1:].to(scan.col.dtype)
+        else:
+            h0m = scan.col.new_full((1,), 0 if zr else xla.gap_run(cfg, text.numel()))
+        last_col = torch.cat([h0m, scan.col]).int()
     return Capture(scan.h.int(), scan.caps.int() if rows else None, last_col,
                    scan.cell.int() if cell else None,
                    scan.f.int() if cfg.is_affine else None)
+
+
+def _check_edges(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
+                 top: Optional[torch.Tensor], left: Optional[torch.Tensor]) -> bool:
+    """Whether the edges come in: both or neither, linear gaps, int32
+    ``(m+1,)`` and ``(n+1,)`` contiguous on the text's device (ValueError
+    otherwise)."""
+    if top is None and left is None:
+        return False
+    if top is None or left is None:
+        raise ValueError("the edges in are the top row and the left column together")
+    if cfg.is_affine:
+        raise ValueError("the edges in take linear gaps")
+    for name, t, size in (("top", top, text.numel() + 1), ("left", left, query.numel() + 1)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (size,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor of shape ({size},), "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != text.device:
+            raise ValueError(f"{name} on {t.device} but text on {text.device}")
+    return True
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -459,6 +492,51 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
 
 
 capture_fill.launches = 0
+
+
+def edge_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
+              top: torch.Tensor, left: torch.Tensor, rows=(), *, cell: bool = False) -> Capture:
+    """K7's sharded contract, linear gaps: :func:`capture_fill` of a block
+    of a larger table whose top row ``top`` H(0, 0..m) and left column
+    ``left`` H(0..n, 0) (int32, the corner in both) come in
+    (:func:`capture_plain`'s ``top`` and ``left``), with the right column
+    H(0..n, m) always out, on the device of its tensors: the CUDA kernel
+    ``band_capture_edge`` (``csrc/band_capture_edge.cu``, the strip body of
+    ``band_fill.cuh`` with its EDGE flag) for CUDA tensors, planned as
+    :func:`capture_fill` and counted in ``edge_fill.launches``;
+    :func:`capture_plain` for CPU tensors."""
+    rows, _ = _check_capture(text, query, cfg, rows, None)
+    _check_edges(text, query, cfg, top, left)
+    if text.device.type == "cpu":
+        return capture_plain(text, query, cfg, rows, col=True, cell=cell, top=top, left=left)
+    if text.device.type != "cuda":
+        raise ValueError(f"edge_fill runs on cpu or cuda tensors, got {text.device}")
+    m, n = text.numel(), query.numel()
+    dev = text.device
+    lib = _build.load()
+    K = len(cfg.matrix) if cfg.has_matrix else 0
+    matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
+    krows = rows if rows and rows[-1] == n else rows + [n]
+    cap_rows = torch.tensor(krows, dtype=torch.int32).to(dev)
+    caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device=dev)
+    last_col = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
+    plan = pipeline_plan(n, m, False, None, max_k(cfg), ring_budget(dev))
+    ring, sync, block_cells = _pipe_scratch(plan, m, False, dev, cell)
+    with torch.cuda.device(dev):
+        err = lib.band_capture_edge(
+            text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K, cfg.match,
+            cfg.mismatch, cfg.gap, _flags(cfg, (False,) * 4), plan.k, plan.threads,
+            plan.blocks, cap_rows.data_ptr(), len(krows), caps.data_ptr(), last_col.data_ptr(),
+            _ptr(found), top.data_ptr(), left.data_ptr(), _ptr(ring), plan.depth,
+            sync.data_ptr(), _ptr(block_cells), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"band_capture_edge launch failed with CUDA error {err}")
+    edge_fill.launches += 1
+    return Capture(caps[-1], caps[: len(rows)] if rows else None, last_col, found, None)
+
+
+edge_fill.launches = 0
 
 
 class Plan(NamedTuple):

@@ -310,8 +310,8 @@ def fill_g_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
     _check_g(g)
     rows = _check_cap_rows([] if cap_rows is None else cap_rows, nq)
     nw, mt = eq.shape[1], text.shape[0]
-    planes, _, caps = _wave_plain(text, eq, g, 1, 0, total_steps(mt, nw, 1),
-                                  init_state(nw, g, eq.device), rows)
+    planes, _, caps, _ = _wave_plain(text, eq, g, 1, 0, total_steps(mt, nw, 1),
+                                     init_state(nw, g, eq.device), rows)
     return planes, caps
 
 
@@ -341,9 +341,10 @@ def total_steps(mt: int, nw: int, rc: int) -> int:
     return -(-mt // rc) + nw - 1
 
 
-def _wave_plain(text, eq, g: int, rc: int, t0: int, t1: int, state: WaveState, rows=()):
+def _wave_plain(text, eq, g: int, rc: int, t0: int, t1: int, state: WaveState, rows=(),
+                u_in=None, tail_word=None):
     """Steps ``t0 + 1 .. t1`` of the wavefront from ``state``:
-    ``(planes, hand, caps)``.
+    ``(planes, hand, caps, tail)``.
 
     Word ``w`` at step ``t`` advances its window ``s = t - 1 - w``, the
     columns ``rc*s + 1 .. rc*s + rc`` in turn (a word trails its
@@ -353,7 +354,10 @@ def _wave_plain(text, eq, g: int, rc: int, t0: int, t1: int, state: WaveState, r
     ``1..mt`` leave the planes as they are; the h_out they produce feeds
     only columns outside ``1..mt`` too.  A vectorised step runs every word
     at once.  Captures (``rows``, one column a step from the boundary
-    only) are :func:`fill_g_plain`'s."""
+    only) are :func:`fill_g_plain`'s.  At ``rc`` 1, ``u_in`` (``(t1 - t0,)``
+    uint8) is word 0's h_top enc at each step in place of the boundary's
+    0, and ``tail_word`` a word whose h_out enc at each step ``tail``
+    returns (``(t1 - t0,)`` uint8; None without it)."""
     nw, mt = eq.shape[1], text.shape[0]
     dev = eq.device
     B = n_planes(g)
@@ -381,23 +385,35 @@ def _wave_plain(text, eq, g: int, rc: int, t0: int, t1: int, state: WaveState, r
     cb = torch.tensor([(r - 1) % WORD for r in rows], dtype=torch.int64, device=dev)
     cidx = torch.arange(J, device=dev)
     caps_pad = torch.zeros((J, mt + 2 * nw), dtype=torch.int8, device=dev)
+    if u_in is not None:  # word 0's h_top bits at each step
+        u_top = [(u_in.to(dev, torch.int64) >> b) & 1 for b in range(B)]
+    tail = [] if tail_word is not None else None
     for t in range(t0 + 1, t1 + 1):
         hn = []
         for c in range(rc):
             a = hi - 1 - rc * (t - 1) - c
             E = eqx.gather(0, rev[a : a + span : rc].unsqueeze(0)).squeeze(0)
             live = live_rev[a : a + span : rc]
-            u = [torch.cat([zero, x[:-1]]) for x in h[c]]
+            if u_in is None:
+                u = [torch.cat([zero, x[:-1]]) for x in h[c]]
+            else:
+                k = t - t0 - 1
+                u = [torch.cat([ub[k : k + 1], x[:-1]]) for ub, x in zip(u_top, h[c])]
             Vn, U = _plane_step(E, *V, *u) if g == 1 else _g_plane_step(g, E, V, u)
             V = [torch.where(live, vn, v) for vn, v in zip(Vn, V)]
             # >> 63 is arithmetic on negative words: mask it
             hn.append([(x >> 63) & 1 for x in U])
+            if tail is not None:
+                tail.append(sum(hn[0][b][tail_word] << b for b in range(B)))
             if J:
                 enc = sum(((U[b][cw] >> cb) & 1) << b for b in range(B))
                 caps_pad[cidx, t - cw + nw - 2] = enc.to(torch.int8)
         h = hn
     packed = sum(h[c][b] << (c * B + b) for c in range(rc) for b in range(B))
-    return tuple(V), packed.to(torch.uint8), caps_pad[:, nw - 1 : nw - 1 + mt]
+    if tail is not None:
+        tail = (torch.stack(tail) if tail else torch.zeros(0, dtype=torch.int64, device=dev)
+                ).to(torch.uint8)
+    return tuple(V), packed.to(torch.uint8), caps_pad[:, nw - 1 : nw - 1 + mt], tail
 
 
 def _check_rc(rc: int) -> None:
@@ -434,8 +450,20 @@ def fill_rc_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int):
                        init_state(nw, 1, eq.device))[0]
 
 
+def _check_stream(nw: int, t_steps: int, rc: int, u_in, tail_word, device) -> None:
+    if (u_in is not None or tail_word is not None) and rc != 1:
+        raise ValueError("the upstream stream and the tail run at one column a step")
+    if u_in is not None and (u_in.dtype != torch.uint8 or tuple(u_in.shape) != (t_steps,)
+                             or u_in.device != device or not u_in.is_contiguous()):
+        raise ValueError(f"u_in must be a contiguous uint8 tensor of shape ({t_steps},) on "
+                         f"{device}, got {u_in.dtype} {tuple(u_in.shape)} on {u_in.device}")
+    if tail_word is not None and not (isinstance(tail_word, int) and 0 <= tail_word < nw):
+        raise ValueError(f"tail_word must be an int in 0..{nw - 1}, got {tail_word!r}")
+
+
 def chunk_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, rc: int, t0: int,
-                t_steps: int, state: WaveState) -> WaveState:
+                t_steps: int, state: WaveState, u_in: Optional[torch.Tensor] = None,
+                tail_word: Optional[int] = None):
     """Plain PyTorch version of the resumable fills (K3b's contract at
     g = 1 and ``rc`` 2..4, K4's state in and out at ``rc`` 1 and any g):
     steps ``t0 + 1 .. t0 + t_steps`` of :func:`_wave_plain` from ``state``,
@@ -444,12 +472,22 @@ def chunk_plain(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, rc: int, 
     :func:`init_state`, chunks run in turn up to :func:`total_steps` give
     :func:`fill_g_plain`'s planes (:func:`fill_rc_plain`'s at ``rc`` > 1),
     whatever the chunk lengths; steps past the end change only the
-    hand-offs."""
+    hand-offs.
+
+    K4's sharded contract at ``rc`` 1 (:func:`fill_g_stream`): ``u_in``
+    ``(t_steps,)`` uint8 is word 0's h_top enc at each step in place of
+    the boundary's 0, and with ``tail_word`` (a word) the result is
+    ``(state, tail)``, ``tail`` ``(t_steps,)`` uint8 that word's h_out enc
+    at each step."""
     _check_fill_args(text, eq, nq)
     _check_g(g)
     _check_chunk(eq, g, rc, t0, t_steps, state)
-    planes, hand, _ = _wave_plain(text, eq, g, rc, t0, t0 + t_steps, state)
-    return WaveState(planes, hand)
+    _check_stream(eq.shape[1], t_steps, rc, u_in, tail_word, eq.device)
+    planes, hand, _, tail = _wave_plain(text, eq, g, rc, t0, t0 + t_steps, state,
+                                        u_in=u_in, tail_word=tail_word)
+    if tail_word is None:
+        return WaveState(planes, hand)
+    return WaveState(planes, hand), tail
 
 
 def fill_plain(text: torch.Tensor, eq: torch.Tensor, nq: int):
@@ -644,12 +682,15 @@ def _check_blocks(blocks) -> None:
 
 
 def _wave_launch(name: str, text, eq, g: int, rc: int, blocks, t0: int = 0,
-                 t_steps: Optional[int] = None, state: Optional[WaveState] = None):
+                 t_steps: Optional[int] = None, state: Optional[WaveState] = None,
+                 stream_args=()):
     """Launch the entry ``name`` of ``csrc/bitpal_rc.cu`` on the current
     stream over :func:`wave_scratch`'s plan, ring and flags: returns
     ``(out, plan)``, ``out`` the planes for ``bitpal_rc_fill`` (``state``
     None), the state after the chunk for a chunk entry.  The entries take
-    ``rc``, or ``g`` at one column a step (``bitpal_gfill_chunk``)."""
+    ``rc``, or ``g`` at one column a step (``bitpal_gfill_chunk``);
+    ``stream_args`` are ``bitpal_gfill_stream``'s ``(u_in, tail,
+    tail_word)``."""
     if text.device.type != "cuda":
         raise ValueError(f"the fills run on cpu or cuda tensors, got {text.device}")
     nw, mt = eq.shape[1], text.shape[0]
@@ -669,7 +710,7 @@ def _wave_launch(name: str, text, eq, g: int, rc: int, blocks, t0: int = 0,
             v_in = torch.stack(state.planes)
             hand = torch.empty(nw, dtype=torch.uint8, device=dev)
             err = entry(*head, t0, t_steps, v_in.data_ptr(), state.hand.data_ptr(),
-                        planes.data_ptr(), hand.data_ptr(), stream)
+                        planes.data_ptr(), hand.data_ptr(), *stream_args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     return (planes.unbind(0) if state is None else WaveState(planes.unbind(0), hand)), plan
@@ -750,6 +791,36 @@ def fill_g_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, t0: int,
 
 fill_g_chunk.launches = 0
 fill_g_chunk.last_plan = None
+
+
+def fill_g_stream(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, t0: int,
+                  t_steps: int, state: WaveState, u_in: Optional[torch.Tensor],
+                  tail_word: int, blocks: Optional[int] = None):
+    """K4's sharded contract: :func:`fill_g_chunk` with word 0's h_top at
+    each step from ``u_in`` (``(t_steps,)`` uint8, the upstream shard's
+    tail; None: the boundary's 0) and the h_out of word ``tail_word`` at
+    each step out, as ``(state, tail)`` (:func:`chunk_plain`'s).  On the
+    device of its tensors: the CUDA kernel ``bitpal_gfill_stream``
+    (``csrc/bitpal_rc.cu``) for CUDA tensors, :func:`chunk_plain` for CPU
+    tensors; on CUDA as :func:`fill_g_chunk`, counted in
+    ``fill_g_stream.launches``, its plan in ``fill_g_stream.last_plan``."""
+    _check_fill_args(text, eq, nq)
+    _check_g(g)
+    _check_chunk(eq, g, 1, t0, t_steps, state)
+    _check_stream(eq.shape[1], t_steps, 1, u_in, tail_word, eq.device)
+    _check_blocks(blocks)
+    if text.device.type == "cpu":
+        return chunk_plain(text, eq, nq, g, 1, t0, t_steps, state, u_in, tail_word)
+    tail = torch.empty(t_steps, dtype=torch.uint8, device=text.device)
+    stream_args = (None if u_in is None else u_in.data_ptr(), tail.data_ptr(), tail_word)
+    out, fill_g_stream.last_plan = _wave_launch("bitpal_gfill_stream", text, eq, g, 1, blocks,
+                                                t0, t_steps, state, stream_args)
+    fill_g_stream.launches += 1
+    return out, tail
+
+
+fill_g_stream.launches = 0
+fill_g_stream.last_plan = None
 
 
 def chunk_steps(rc: int, text_cap: Optional[int] = None) -> int:

@@ -51,7 +51,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -260,3 +260,88 @@ def tree(s1: np.ndarray, s2: np.ndarray, cfg: ScoringConfig, kway_node, split_no
                      leaf_walk_s=sum(s for s, _ in walked),
                      wall_s=time.perf_counter() - t_start)
     return sum(r[0] for _, r in walked), a1, a2
+
+
+#: the sharded bisection's leaves: ``tpualign``'s ``base_cells`` and pool
+SHARDED_BASE_CELLS = 1 << 18
+SHARDED_LEAF_WORKERS = 4
+
+
+def _soft_bucket(x: int) -> int:
+    """``x`` rounded up to 1/8 of an octave (at least 16), as
+    ``tpualign``'s query buckets."""
+    x = max(16, x)
+    p = 1 << max(1, x.bit_length() - 4)
+    return -(-x // p) * p
+
+
+def align_sharded(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, group=None,
+                  chunk_cols: int = 512, base_cells: Optional[int] = None,
+                  device="cuda") -> Tuple[int, str, str]:
+    """Hirschberg's binary bisection whose forward and reverse column
+    scores run the sharded bit-parallel pipeline
+    (:func:`tpualign_torch.parallel.bitpal_strips.col_deltas_fn` over
+    ``group``, default the default group of ``device``): the port of
+    ``tpualign.ops.hirschberg.align_sharded``, split for split.
+
+    ``s1`` is the text (columns), ``s2`` the query (rows, sharded in bands
+    of words).  A segment of at most ``base_cells`` cells (or under 2 rows
+    or columns; default ``SHARDED_BASE_CELLS``) is a leaf; otherwise the
+    text is halved at ``mid``, the
+    query padded to its bucket (:func:`_soft_bucket`; rows below a segment
+    never change it), and the crossing row is the first argmax of the
+    forward and reverse column scores.  The leaves are walked after the
+    recursion on ``SHARDED_LEAF_WORKERS`` threads, in C++
+    (:func:`tpualign_torch.utils.native.traceback`), so the strings are
+    ``tpualign``'s; the score is the strings' (``oracle.alignment_score``).
+    ValueError for a config outside the family."""
+    fam = bitpal.family(cfg)
+    if fam is None:
+        raise ValueError("sharded hirschberg requires a bit-parallel scoring family")
+    g = fam[1]
+    base_cells = SHARDED_BASE_CELLS if base_cells is None else base_cells
+    from ..parallel import bitpal_strips, mesh
+
+    group = mesh.default_group(bitpal._device(device)) if group is None else group
+    s1, s2 = bitpal._codes(s1), bitpal._codes(s2)
+    solvers: dict = {}
+
+    def col_scores(text, query):
+        n_seg = len(query)
+        if n_seg == 0:
+            return np.zeros(1, np.int64) - g * len(text)
+        nb = _soft_bucket(n_seg)
+        qpad = np.ones(nb, np.int8)
+        qpad[:n_seg] = query
+        key = (len(text), nb)
+        if key not in solvers:
+            solvers[key] = bitpal_strips.col_deltas_fn(len(text), nb, cfg, group=group,
+                                                       chunk_cols=chunk_cols)
+        d = solvers[key](np.ascontiguousarray(text), qpad)[:n_seg].cpu().numpy()
+        return np.concatenate(([0], np.cumsum(d))) - g * len(text)
+
+    segs = []
+
+    def rec(ta, tb, qa, qb):
+        m, n = tb - ta, qb - qa
+        if (m + 1) * (n + 1) <= base_cells or m < 2 or n < 2:
+            segs.append((ta, tb, qa, qb))
+            return
+        mid = ta + m // 2
+        F = col_scores(s1[ta:mid], s2[qa:qb])
+        R = col_scores(s1[mid:tb][::-1], s2[qa:qb][::-1])
+        split = int(np.argmax(F + R[::-1]))
+        rec(ta, mid, qa, qa + split)
+        rec(mid, tb, qa + split, qb)
+
+    rec(0, len(s1), 0, len(s2))
+
+    def leaf(seg):
+        ta, tb, qa, qb = seg
+        return native.traceback(s1[ta:tb], s2[qa:qb], cfg)
+
+    with ThreadPoolExecutor(max_workers=SHARDED_LEAF_WORKERS) as pool:
+        results = list(pool.map(leaf, segs))
+    a1 = "".join(r[1] for r in results)
+    a2 = "".join(r[2] for r in results)
+    return oracle.alignment_score(a1, a2, cfg), a1, a2

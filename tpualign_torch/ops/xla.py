@@ -133,6 +133,7 @@ class Scan(NamedTuple):
     cols: Optional[torch.Tensor]  # (n, C): H(1..n, 0), H(1..n, k), ...: every k-th column
     ck: Optional[torch.Tensor]  # (2, groups, n+1): the diagonal checkpoints
     row_max: Optional[Tuple[torch.Tensor, torch.Tensor]]  # (n,) twice: max and first argmax
+    col_e: Optional[torch.Tensor] = None  # (n,): affine with want_col, E(1..n, m)
 
 
 def rows_scan(
@@ -150,6 +151,10 @@ def rows_scan(
     col_stride: Optional[int] = None,
     diag_stride: Optional[int] = None,
     tb: Optional[int] = None,
+    top_h: Optional[torch.Tensor] = None,
+    top_f: Optional[torch.Tensor] = None,
+    left_h: Optional[torch.Tensor] = None,
+    left_e: Optional[torch.Tensor] = None,
 ) -> Scan:
     """Fill the table of ``text`` (columns) against ``query`` (rows), both
     non-empty code tensors on one device, one row at a time.
@@ -198,15 +203,27 @@ def rows_scan(
         jg = j * ext  # the in-row scan's slope: ext under affine gaps
         open_jext = jg + open_
         h = torch.zeros(m + 1, dtype=torch.int64, device=dev)
-        if not zero_row:
+        if top_h is not None:
+            h.copy_(top_h)
+        elif not zero_row:
             h[1:] = open_jext[1:]
         f = h + tb
+        if top_f is not None:
+            f.copy_(top_f)
         e = torch.empty(m + 1, dtype=torch.int64, device=dev)
         e[0] = NEG
+        col_e = torch.empty(len(codes), dtype=torch.int64, device=dev) if want_col else None
+        if left_e is not None:  # the seed of each row's E chain: E(i, 0) - open
+            seed_e = left_e.to(dev, torch.int64) - open_
     else:
         g = cfg.gap
         jg = j * g
-        h = torch.zeros(m + 1, dtype=torch.int64, device=dev) if zero_row else jg.clone()
+        if top_h is not None:
+            h = top_h.to(dev, torch.int64).clone()
+        else:
+            h = torch.zeros(m + 1, dtype=torch.int64, device=dev) if zero_row else jg.clone()
+    if left_h is not None:
+        left = left_h.to(dev, torch.int64)
     ck = _DiagCheckpoints(h, len(codes), diag_stride) if diag_stride else None
     for i, b in enumerate(codes, start=1):
         if affine:
@@ -216,11 +233,21 @@ def rows_scan(
             torch.maximum(h[:-1] + table[row_of[b]], h[1:] + g, out=t[1:])
         if local:
             t.clamp_(min=0)
-        t[0] = 0 if zero_col else (tb + i * ext if affine else i * g)
+        if left_h is not None:
+            t[0] = left[i]
+        else:
+            t[0] = 0 if zero_col else (tb + i * ext if affine else i * g)
+        if affine and left_e is not None:
+            h0 = t[0].clone()
+            torch.maximum(t[:1], seed_e[i], out=t[:1])
         c = prefix_max(t, jg)
         if affine:
             torch.add(c[:-1], open_jext[1:], out=e[1:])
             h = torch.maximum(t, e)
+            if left_e is not None:
+                h[0] = h0
+            if want_col:
+                col_e[i - 1] = e[-1]
         else:
             h = c.add_(jg)
         if want_best:
@@ -246,7 +273,8 @@ def rows_scan(
     return Scan(h, None if best is None else best.max(), col,
                 caps if slot else None, cell, f if affine else None, cols,
                 None if ck is None else ck.result(),
-                (row_max, row_arg) if want_row_max else None)
+                (row_max, row_arg) if want_row_max else None,
+                col_e if affine and want_col else None)
 
 
 #: the diagonal checkpoints' value on slots outside the table
