@@ -20,7 +20,9 @@ path's shape:
   bit-parallel Hirschberg split over the capture kernel, then leaf walks
   on the host;
 - ``tpualign_torch.align_score`` under ``ScoringConfig(gap=-2)`` on that
-  pair (``bitpal_gfill``, g = 2);
+  pair (``bitpal_gfill``, g = 2), its score held to the capture kernel's
+  final column and the kernel to ``fill_g_plain`` over the text's first
+  quarter;
 - ``tpualign_torch.align_score`` under the CLI's Smith-Waterman scoring
   (2, -1, -2) on that pair (``band_fill``), and under ``impl="pallas"``
   (``diag_fill``, K8's port on the same strip pipeline), both held to one
@@ -53,7 +55,10 @@ path's shape:
   against its plain version on small ragged batches (K5: short pairs as
   segments of a warp, every segment width, and long ones as one-warp bands
   with a ring a pair, one to five bands, at the planner's blocks, one
-  block and fewer blocks than bands over rings of 2 rows);
+  block and fewer blocks than bands over rings of 2 rows; K7's batch:
+  short pairs a warp each and long pairs' strips on the pipeline with a
+  ring a pair, in one batch, at the planner's blocks, one block and two
+  blocks over rings of 2 rows);
 - ``tpualign_torch.align_score`` (this slice's main path) on the family's
   short-query and long-text routes, which follow ``tpualign``'s rule:
   20,000 x 20,000 and 1,000,000 x 10,000 at (1, 0, -1) through
@@ -132,7 +137,8 @@ path's shape:
 With ``--corpus`` naming the reference's ``bdna`` directory the 64gb pair is
 read from it and the scores must be the reference's 73888 and the JAX
 package's Smith-Waterman pin 119785; otherwise a random pair of that shape
-(seed 64) is scored and must equal the plain versions' scores on the card.
+(seed 64) is scored and must equal the plain versions' scores on the card
+(the g = 2 score the capture kernel's).
 Each phase prints lines tagged with its name; a failure raises and the exit
 code is non-zero.  The last two lines are the kernels' JSON and the device
 JSON.  Exits non-zero without a CUDA device.  Imports nothing of JAX or of
@@ -1185,8 +1191,13 @@ K6_SWEEP_20K = [(4, 128, None), (8, 64, None), (8, 128, None), (16, 128, None), 
 #: over 2 blocks and a ring of 2 rows, of 32 rows over blocks past them
 DIAG_GEOMETRIES = [((1, 32, 1), False), ((8, 128, 2), True), ((1, 32, 200), False)]
 DIAG_REPEAT = 3
-#: each of K5's small holds launches this many times against one plain run
+#: each of K5's and K7's batch's small holds launches this many times
+#: against one plain run
 K5_REPEAT = 3
+KB_REPEAT = 3
+#: K2's hold at the 64gb shape runs the plain fill over this share of the
+#: text's columns (the kernel's own run and the path's score take all)
+K2_PLAIN_SHARE = 4
 
 
 def pipeline_phase(ctx, hold_capture):
@@ -1991,23 +2002,26 @@ def main() -> None:
     cplanes, _ = bitpal.capture_fill(t, eq, n, 2, [n])
     cscore = bitpal._from_unit(cfg2, m + n, int(bitpal._reduce_score(cplanes, n, m, 2)))
     g_ms, g_runs, gplanes = cuda_ms(lambda: bitpal.fill_g(t, eq, n, 2))
-    g_plain_ms, plain = host_ms(lambda: bitpal.fill_g_plain(t, eq, n, 2))
-    g_err = hold_g("bitpal_gfill", (gplanes, None), plain, n, 2, f"{n} x {m}")
-    pscore = bitpal._from_unit(cfg2, m + n, int(bitpal._reduce_score(plain[0], n, m, 2)))
-    if not score2 == pscore == cscore:
-        raise AssertionError(f"g = 2 score {score2} != fill_g_plain's {pscore} or the "
+    kscore = bitpal._from_unit(cfg2, m + n, int(bitpal._reduce_score(gplanes, n, m, 2)))
+    if not score2 == kscore == cscore:
+        raise AssertionError(f"g = 2 score {score2} != bitpal_gfill's {kscore} or the "
                              f"capture kernel's {cscore}")
+    # the plain fill over the text's first 1 / K2_PLAIN_SHARE: over the whole
+    # text it took 93-112 s, past what the smoke's time limit affords
+    mc = m // K2_PLAIN_SHARE
+    held = bitpal.fill_g(t[:mc], eq, n, 2)
+    g_plain_ms, plain = host_ms(lambda: bitpal.fill_g_plain(t[:mc], eq, n, 2))
+    g_err = hold_g("bitpal_gfill", (held, None), plain, n, 2, f"{n} x {mc}")
     gk["bitpal_gfill"].update(ms=g_ms, plain_ms=g_plain_ms, shape=f"{n}x{m}",
-                              geometry=pipe_geometry)
-    del plain, gplanes, cplanes
-    print(f"[path: align_score g = 2] {m} x {n}: score {score2} equal to fill_g_plain's "
-          f"on the card and to the capture kernel's final column; launches {g_counts}; "
+                              plain_shape=f"{n}x{mc}", geometry=pipe_geometry)
+    del plain, held, gplanes, cplanes
+    print(f"[path: align_score g = 2] {m} x {n}: score {score2} equal to bitpal_gfill's "
+          f"and to the capture kernel's final column; launches {g_counts}; "
           f"wall {wall2:.3f} s")
     print(f"[timing] {smi}: bitpal_gfill g = 2 at {n} x {m}: median of 5 {g_ms:.3f} ms "
           f"({m * n / g_ms / 1e6:.2f} GCUPS; runs {runs_str(g_runs)} ms; {pipe_plan}); "
-          f"equal to "
-          f"fill_g_plain (planes word for word, max abs err {g_err}; plain "
-          f"{g_plain_ms:.1f} ms)")
+          f"at {n} x {mc} (the text's first {mc} columns) equal to fill_g_plain (planes "
+          f"word for word, max abs err {g_err}; plain {g_plain_ms:.1f} ms)")
 
     # phase (a): band_fill against score_plain, score for score
     asym = ((3, -1, -2, 0, 1), (-2, 2, -3, -1, 0), (0, -1, 4, -2, -1),
@@ -2649,7 +2663,13 @@ def main() -> None:
             if shallow and bands > 2 and bitpal.batch_fill.last_plan.depth != 2:
                 raise AssertionError(f"the rings were not cut to 2 rows: {plan}")
         n_k5 += 1
-    n_kb = 0
+    # K7's batch: every instantiation (the short pairs' k x affine x matrix
+    # x local) on a ragged batch of short pairs (queries of up to 32 k rows,
+    # a warp each) and long ones (up to three strips of 8 x 32 rows beyond
+    # them), at the planner's blocks, at 2 blocks over rings of 2 rows, and
+    # at one block of 64 threads, each launch KB_REPEAT times against one
+    # plain run
+    n_kb = n_kb_launch = 0
     for k, affine, mat, local in itertools.product(
             (1, 2, 4, 8, 16), (False, True), (None, matrices.dna(2, -1, -3)), (False, True)):
         if affine and local and k > band.MAX_K_LOCAL_AFFINE:
@@ -2658,11 +2678,30 @@ def main() -> None:
                 else (AlignMode.GLOBAL, AlignMode.SEMIGLOBAL, AlignMode.INFIX)[n_kb % 3])
         gaps = dict(gap_open=-5, gap_extend=-2) if affine else {}
         cfg = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=mode, matrix=mat, **gaps)
-        texts, queries = ragged(5, 100, 64 * k + 7, lo=0)  # three strips at R = 32 k
-        packed = packing.pack_pairs(texts, queries, np.arange(5)).to(dev)
+        texts, queries = ragged(9, 300, 32 * k + 3 * 8 * 32, lo=0)
+        queries[1] = queries[1][:32 * k]  # a short pair at the warp's last row
+        packed = packing.pack_pairs(texts, queries, np.arange(9)).to(dev)
         ends = band._ends_flags(cfg, False)
-        hold_band_batch(band_batch.batch_fill(packed, cfg, ends, (k, 32)),
-                        xla.score_batch(packed, cfg, ends), f"{cfg}, k = {k}")
+        want = xla.score_batch(packed, cfg, ends)
+        for geometry, shallow in (((k, 32), False), ((k, 32, 2), True), ((k, 64, 1), False)):
+            lens = packed.lengths.cpu().numpy().astype(np.int64)
+            plan = band_batch.batch_plan(lens[0], lens[1], affine, band.max_k(cfg), geometry)
+            if not 0 < plan.longs < 9:
+                raise AssertionError(f"a ragged batch of one schedule only: {plan.describe()}")
+            ring_budget = band.ring_budget
+            if shallow:  # room for 2 rows a pair
+                two = 4 * int((np.minimum(plan.depth, 2) * (2 if affine else 1)
+                               * (lens[0][plan.order[:plan.longs]] + 1)).sum())
+                band.ring_budget = lambda *a, **kw: two
+            try:
+                for _ in range(KB_REPEAT):
+                    hold_band_batch(band_batch.batch_fill(packed, cfg, ends, geometry), want,
+                                    f"{cfg}, {band_batch.batch_fill.last_plan.describe()}")
+                    n_kb_launch += 1
+            finally:
+                band.ring_budget = ring_budget
+            if shallow and band_batch.batch_fill.last_plan.depth.max() > 2:
+                raise AssertionError(f"the rings were not cut to 2 rows: {plan.describe()}")
         n_kb += 1
     n_entry = 0
     for cfg in (ScoringConfig(), ScoringConfig(gap=-3), cfg_sw, cfg_aff,
@@ -2680,9 +2719,11 @@ def main() -> None:
           f"word in {n_k5} ragged batches x 3 block counts x {K5_REPEAT} launches "
           f"({n_k5_launch}: every segment width, one to five bands, codes 0..4, 1-base pairs, "
           f"one block, fewer blocks than bands over rings of 2 rows); "
-          f"band_batch_fill equal to xla.score_batch in {n_kb} ragged batches (all 38 "
-          f"instantiations, global, semiglobal, infix and local, three strips at k x 32 "
-          f"rows); align_score_batch with empty pairs mixed in equal to align_score in "
+          f"band_batch_fill equal to xla.score_batch in {n_kb} ragged batches x 3 geometries "
+          f"x {KB_REPEAT} launches ({n_kb_launch}: all 38 instantiations, global, semiglobal, "
+          f"infix and local, short pairs a warp each and long ones of up to four strips of "
+          f"8 x 32 rows, 1-base pairs, one block, 2 blocks over rings of 2 rows); "
+          f"align_score_batch with empty pairs mixed in equal to align_score in "
           f"{n_entry} configs; {time.perf_counter() - t0:.1f} s")
 
     # the main path at full width: mix (A), the repo's serving demo, and mix
@@ -2743,18 +2784,39 @@ def main() -> None:
                      f"{plan.width} lanes a pair, {plan.bands} bands a pair, {plan.blocks} "
                      f"blocks of one warp, rings of {plan.depth} rows")
 
+    def device_ms(fn, kernel, runs=5):
+        """The median device time of ``kernel``'s launch over ``runs`` calls
+        of ``fn`` (``torch.profiler``) and each call's, in ms."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if kernel in e.name and e.device_type.name == "CUDA"]
+        if len(times) != runs:
+            raise AssertionError(f"the profiler saw {len(times)} {kernel} launches of {runs}")
+        return float(np.median(times)), times
+
     def time_band(tag, mix, cfg):
+        """The kernel's time is its device time (the wrapper reads the
+        lengths back and plans on the host, inside a call's window)."""
         packed, lens = drive_batch(tag, mix, cfg, "band_batch_fill")
         ends = band._ends_flags(cfg, False)
-        kms, kruns, got = cuda_ms(lambda: band_batch.batch_fill(packed, cfg, ends))
+        wms, wruns, got = cuda_ms(lambda: band_batch.batch_fill(packed, cfg, ends))
+        kms, kruns = device_ms(lambda: band_batch.batch_fill(packed, cfg, ends),
+                               "band_batch_kernel")
         pms, want = host_ms(lambda: xla.score_batch(packed, cfg, ends))
         hold_band_batch(got, want, f"mix {mix}, {cfg}")
         P = len(lens)
         nbytes = sum(m + n for m, n in lens) + 28 * P
         b_ms, by = bound(nbytes, band_ops(cfg, batch_phases[tag]["cells"]))
-        k, threads = band.kernel_geometry(packed.n_cap, band.max_k(cfg))
+        batch_phases[tag].update(window_ms=wms)
+        print(f"[timing] {smi}: band_batch_fill {tag}: the call's window (CUDA events, the "
+              f"wrapper's host work inside) median of 5 {wms:.3f} ms (runs {runs_str(wruns)})")
         report_batch(tag, "band_batch_fill", kms, kruns, pms, b_ms, by,
-                     f"k = {k}, {threads} threads, {P} blocks")
+                     band_batch.batch_fill.last_plan.describe())
 
     def report_batch(tag, kernel, kms, kruns, pms, b_ms, by, geometry):
         ph = batch_phases[tag]
@@ -2864,9 +2926,9 @@ def main() -> None:
         **held, "ms": batch_phases[main]["ms"], "plain_ms": batch_phases[main]["plain_ms"],
         "shape": f"mix {main}", "bound_ms": batch_phases[main]["bound_ms"],
         "bound_by": batch_phases[main]["bound_by"], "library_ms": None,
-        "phases": {tag: {key: ph[key] for key in ("launches", "ms", "plain_ms", "bound_ms",
-                                                  "wall_s", "warm_wall_s", "loop_s",
-                                                  "geometry")}
+        "phases": {tag: {key: ph[key] for key in ("launches", "ms", "window_ms", "plain_ms",
+                                                  "bound_ms", "wall_s", "warm_wall_s",
+                                                  "loop_s", "geometry") if key in ph}
                    for tag, ph in batch_phases.items() if ph["kernel"] == kernel},
     } for kernel, source, replaces, held, main in (
         ("bitpal_batch_fill", BATCH_SOURCE, BATCH_REPLACES, k5, "A (1, 0, -1)"),

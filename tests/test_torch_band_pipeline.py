@@ -228,8 +228,10 @@ def test_capture_fill_through_the_shim(shim, affine):
 
 
 def test_band_batch_fill_through_the_shim(shim):
+    """Ragged batches of both schedules, one for each of the batch kernel's
+    38 instantiations (``rehearse_kernels._band_batch_case``)."""
     rk, dll = shim
     rng = np.random.default_rng(4)
-    for c in range(16):
+    for c in range(len(rk.BATCH_KINDS)):
         ok, info = rk._band_batch_case(dll, rng, c)
         assert ok, info

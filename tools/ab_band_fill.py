@@ -18,7 +18,11 @@ A version is one source or several joined by ``+``, built into one library
 ``band_fill.cuh`` defines ``pipe_args`` takes the pipelined entries'
 arguments (geometry ``band.pipeline_plan``'s, with its ring and flags);
 an older one the single-block entries' (``band.kernel_geometry``, one
-boundary row).
+boundary row).  A ``band_batch.cu`` whose entry takes ``const void* sched``
+runs the two schedules of ``band_batch.batch_plan`` (its order, rings and
+flags made as the wrapper makes them, the flags zeroed and the output
+seeded in each run); an older one a block a pair (``band.kernel_geometry``
+of the longest query, a boundary row a pair).
 
 Times are CUDA-event medians of ``--runs`` runs after one warm-up: K6
 (``band_fill``) under SW (2, -1, -2), the DNA matrix, affine NW and affine
@@ -28,8 +32,8 @@ global fill with 31 rows at 20,000 x 20,000 and as the SW locate at the
 64gb shape, and where a version has ``band_capture_affine`` as
 Myers-Miller's half fill (10,000 rows at 20k; 63,620 at the 64gb shape,
 the last rows H and F) and the affine SW locate at 20k; where a version
-has ``band_batch_fill``, the batch of mix (A) under SW and of mix (B)
-under infix (``tpualign_torch.probe``).  With ``--out DIR`` the SASS of
+has ``band_batch_fill``, the batch of mix (A) under SW and affine gaps and
+of mix (B) under infix (``tpualign_torch.probe``).  With ``--out DIR`` the SASS of
 K6's SW kernel at 16 rows a thread goes to DIR, one file per version.
 """
 
@@ -54,7 +58,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tpualign_torch import _build, matrices  # noqa: E402
 from tpualign_torch.config import AlignMode, ScoringConfig  # noqa: E402
-from tpualign_torch.ops import band, hirschberg, pairs  # noqa: E402
+from tpualign_torch.ops import band, band_batch, hirschberg, pairs  # noqa: E402
 from tpualign_torch.probe import read_pairs, serve_pairs  # noqa: E402
 
 SW = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
@@ -118,9 +122,19 @@ def pipelined(srcs: str) -> bool:
         return "pipe_args" in f.read()
 
 
-def bind(lib: str, pipe: bool) -> ctypes.CDLL:
+def batch_sched(srcs: str) -> bool:
+    """Whether a version's band_batch.cu runs the two schedules."""
+    path = next((src for src in srcs.split("+") if src.endswith("band_batch.cu")), None)
+    if path is None:
+        return False
+    with open(path) as f:
+        return "const void* sched" in f.read()
+
+
+def bind(lib: str, pipe: bool, sched: bool = False) -> ctypes.CDLL:
     dll = ctypes.CDLL(lib)
     dll.pipe = pipe
+    dll.sched = sched
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if pipe:
         dll.band_fill.argtypes = [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp]
@@ -138,7 +152,9 @@ def bind(lib: str, pipe: bool) -> ctypes.CDLL:
             if pipe else [vp, i32, vp, i32, vp, i32] + [i32] * 8 + [vp, i32] + [vp] * 6)
         dll.band_capture_affine.restype = i32
     if hasattr(dll, "band_batch_fill"):
-        dll.band_batch_fill.argtypes = [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3
+        dll.band_batch_fill.argtypes = (
+            [vp] * 6 + [i32, vp] + [i32] * 10 + [vp, i32, i32] + [vp] * 4 if sched
+            else [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3)
         dll.band_batch_fill.restype = i32
     return dll
 
@@ -216,25 +232,45 @@ def capture_call(dll, text, query, cfg, rows, cell, tb=0):
 
 
 def batch_call(dll, packed, cfg):
-    """``band_batch_fill`` over a packed batch (the same ABI in every
-    version): one block a pair, ``band.kernel_geometry`` of the longest
-    query."""
+    """``band_batch_fill`` over a packed batch in the version's ABI: the two
+    schedules of ``band_batch.batch_plan`` (rings within
+    ``band.ring_budget``), or one block a pair at ``band.kernel_geometry``
+    of the longest query."""
     P = packed.offsets.shape[1]
-    k, threads = band.kernel_geometry(packed.n_cap, band.max_k(cfg))
-    boundary = torch.empty((P, 2, packed.m_cap + 1), dtype=torch.int32, device="cuda")
     out = torch.empty(P, dtype=torch.int32, device="cuda")
     matrix = torch.zeros(1, dtype=torch.int32, device="cuda")
     off, ln = packed.offsets, packed.lengths
     ends = band._ends_flags(cfg, False)
+    head = (packed.texts.data_ptr(), packed.queries.data_ptr(), off[0].data_ptr(),
+            off[1].data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), P)
+    scoring = (cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0, cfg.gap_extend or 0,
+               band._flags(cfg, ends))
+    if dll.sched:
+        m, n = ln.cpu().numpy()
+        plan = band_batch.batch_plan(m, n, cfg.is_affine, band.max_k(cfg), None,
+                                     band.ring_budget("cuda"))
+        sched = torch.from_numpy(plan.sched).cuda()
+        ring = torch.empty(max(plan.ring, 1), dtype=torch.int32, device="cuda")
+        sync = torch.zeros(2 + plan.strips, dtype=torch.int32, device="cuda")
+
+        def launch():
+            sync.zero_()
+            out.fill_(0 if cfg.is_local else band.NEG)
+            return dll.band_batch_fill(*head, matrix.data_ptr(), 0, *scoring, plan.k,
+                                       plan.threads, plan.blocks, sched.data_ptr(), plan.longs,
+                                       plan.strips, ring.data_ptr(), sync.data_ptr(),
+                                       out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    else:
+        k, threads = band.kernel_geometry(packed.n_cap, band.max_k(cfg))
+        boundary = torch.empty((P, 2, packed.m_cap + 1), dtype=torch.int32, device="cuda")
+
+        def launch():
+            return dll.band_batch_fill(*head, packed.m_cap, matrix.data_ptr(), 0, *scoring, k,
+                                       threads, boundary.data_ptr(), out.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream)
 
     def run():
-        err = dll.band_batch_fill(packed.texts.data_ptr(), packed.queries.data_ptr(),
-                                  off[0].data_ptr(), off[1].data_ptr(), ln[0].data_ptr(),
-                                  ln[1].data_ptr(), P, packed.m_cap, matrix.data_ptr(), 0,
-                                  cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
-                                  cfg.gap_extend or 0, band._flags(cfg, ends), k, threads,
-                                  boundary.data_ptr(), out.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
+        err = launch()
         if err:
             raise RuntimeError(f"band_batch_fill launch failed with CUDA error {err}")
         return out
@@ -309,7 +345,7 @@ def main() -> int:
         differ = sorted(set(kb) ^ set(first[1]) | (set(kb) - set(same)))
         print(f"[sass {label} vs {first[0]}] band_batch_kernel instantiations with the same "
               f"SASS: {len(same)} of {len(first[1])}; differing or missing: {differ}")
-    dlls = {label: bind(lib, pipelined(src)) for (label, src), lib in
+    dlls = {label: bind(lib, pipelined(src), batch_sched(src)) for (label, src), lib in
             zip(versions, libs.values())}
 
     rng = np.random.default_rng(20)
@@ -327,6 +363,7 @@ def main() -> int:
                   d, a, b, SCORES["affine SW"], [], True, tb=-5))]
     for tag, (texts, queries), cfg in (
             ("A SW", serve_pairs(), SW),
+            ("A affine", serve_pairs(), SCORES["affine NW"]),
             ("B infix", read_pairs(), ScoringConfig(match=2, mismatch=-1, gap=-2,
                                                     mode=AlignMode.INFIX))):
         packed = pairs.pack_pairs(texts, queries, np.arange(len(texts))).to("cuda")

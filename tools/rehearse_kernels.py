@@ -13,7 +13,8 @@ two, ``bitpal_gband.cuh``) with
 per CUDA thread of a block, the blocks of a grid one after another,
 ``__syncthreads`` as a ``std::barrier``, the warp shuffles (``up``, also
 inside segments of a width, ``down`` and indexed) through a slot array
-between two barriers,
+between two barriers of the warp's own (so the warps of a block may run
+different step counts, as the batch's short pairs do),
 ``__shared__`` as ``static``, the DPX intrinsics as plain max, the
 atomics, fences and ``cuda::atomic_ref`` (``<cuda/atomic>``) over
 ``std::atomic_ref``, ``__ldcg``/``__stcg`` as plain loads and stores,
@@ -68,7 +69,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tpualign_torch import _build, matrices  # noqa: E402
 from tpualign_torch.config import AlignMode, ScoringConfig  # noqa: E402
-from tpualign_torch.ops import band, bitpal, pairs, pallas_diag, xla  # noqa: E402
+from tpualign_torch.ops import band, band_batch, bitpal, pairs, pallas_diag, xla  # noqa: E402
 
 SHIM = r"""
 #pragma once
@@ -95,12 +96,19 @@ enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 namespace shim {
-// one block's barrier and shuffle slots; each thread points at its block's
+// one block's barrier, its warps' barriers and the shuffle slots; each
+// thread points at its block's
 struct Block {
   dim3 id;
   std::barrier<> bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<long long> slots;
-  Block(unsigned b, unsigned threads) : bar(threads), slots(threads) { id.x = b; }
+  Block(unsigned b, unsigned threads) : bar(threads), slots(threads) {
+    id.x = b;
+    for (unsigned w = 0; w < threads; w += 32) {
+      warps.push_back(std::make_unique<std::barrier<>>(std::min(32u, threads - w)));
+    }
+  }
 };
 inline thread_local dim3 tid;
 inline thread_local Block* blk = nullptr;
@@ -163,14 +171,15 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline int __vibmax_s32(int a, int b, bool* pred) { *pred = a >= b; return max(a, b); }
 
-// lane src of the warp, every thread of the block passing here together
+// lane src of the warp, every thread of the warp passing here together
 template <class T> T shuffle_from(T v, int src, bool valid) {
   const int t = threadIdx.x;
   auto& slots = shim::blk->slots;
+  auto& bar = *shim::blk->warps[t >> 5];
   slots[t] = static_cast<long long>(v);
-  __syncthreads();
+  bar.arrive_and_wait();
   const T out = valid ? static_cast<T>(slots[(t & ~31) + src]) : v;
-  __syncthreads();
+  bar.arrive_and_wait();
   return out;
 }
 template <class T> T shuffle(T v, int src_offset) {
@@ -302,7 +311,7 @@ def build(out_dir: Optional[str] = None, sources=SOURCES, src_dir: Optional[str]
                               + [vp, i32, vp, vp, vp, vp, vp, vp, i32, vp, vp, vp]),
         "band_capture_affine": ([vp, i32, vp, i32, vp] + [i32] * 10
                                 + [vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]),
-        "band_batch_fill": [vp] * 6 + [i32, i64, vp] + [i32] * 9 + [vp] * 3,
+        "band_batch_fill": [vp] * 6 + [i32, vp] + [i32] * 10 + [vp, i32, i32] + [vp] * 4,
         "diag_fill": [vp, i32, vp, i32] + [i32] * 7 + [vp, i32, vp, vp, vp],
         "diag_ckpt_fill": [vp, i32, vp, i32] + [i32] * 8 + [vp, i32, vp, vp, vp, vp, vp, vp],
         "bitpal_gfill": [vp, vp, i64] + [i32] * 3 + [vp, i32, vp, vp, vp],
@@ -516,41 +525,126 @@ def shim_fill_g_stream(dll):
     return fill_g_stream
 
 
+#: the batch kernel's instantiations: (k, affine, matrix, local), local
+#: affine at most band.MAX_K_LOCAL_AFFINE rows a lane
+BATCH_KINDS = tuple((k, affine, matrix, local) for k in band.KS for affine in (False, True)
+                    for matrix in (False, True) for local in (False, True)
+                    if not (affine and local and k > band.MAX_K_LOCAL_AFFINE))
+
+
+def band_batch_case(dll, rng, cfg, texts, queries, geometry=None, budget=None,
+                    concurrent=False):
+    """``band_batch_fill`` against ``xla.score_batch`` on the pairs
+    ``(texts[p], queries[p])``, planned by ``band_batch.batch_plan`` with
+    ``geometry`` and ``budget``: the rings seeded with a value no cell takes
+    (a slot read before it is written shows), the flags and both tickets
+    checked at the end, and every long pair's ring slots written and nothing
+    past the rings (a pair writing another's ring shows); ``concurrent`` runs
+    the grid's blocks at once (only for batches of short pairs, whose warps
+    keep no ``__shared__`` state but the matrix).  Returns ``(ok, where)``."""
+    P = len(texts)
+    packed = pairs.pack_pairs(texts, queries, np.arange(P))
+    m, n = packed.lengths.numpy().astype(np.int64)
+    plan = band_batch.batch_plan(m, n, cfg.is_affine, band.max_k(cfg), geometry, budget)
+    K = len(cfg.matrix) if cfg.has_matrix else 0
+    mat = np.ascontiguousarray(np.asarray(cfg.matrix if K else [0], np.int32).reshape(-1))
+    out = np.full(P, 0 if cfg.is_local else band.NEG, np.int32)
+    ring = np.full(plan.ring + RING_GUARD, RING_SEED, np.int32)
+    sync = np.zeros(2 + plan.strips, np.int32)
+    sched = plan.sched
+    ends = band._ends_flags(cfg, False)
+    off, ln = packed.offsets, packed.lengths
+    dll.rehearse_concurrent(int(concurrent))
+    try:
+        err = dll.band_batch_fill(
+            packed.texts.data_ptr(), packed.queries.data_ptr(), off[0].data_ptr(),
+            off[1].data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), P, mat.ctypes.data, K,
+            cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0, cfg.gap_extend or 0,
+            band._flags(cfg, ends), plan.k, plan.threads, plan.blocks, sched.ctypes.data,
+            plan.longs, plan.strips, ring.ctypes.data, sync.ctypes.data, out.ctypes.data, None)
+    finally:
+        dll.rehearse_concurrent(0)
+    want = xla.score_batch(packed, cfg, ends).tolist()
+    ok = (err == 0 and out.tolist() == want and _batch_flags_done(sync, plan, m)
+          and _rings_written(ring, plan, m, cfg.is_affine))
+    return ok, (f"{cfg}, lengths {np.stack([m, n]).tolist()}, {plan.describe()}, depths "
+                f"{plan.depth.tolist()}, concurrent {concurrent}: {out.tolist()} != {want}")
+
+
+#: the batch's rings seeded with a value no cell takes, RING_GUARD of it
+#: past their end
+RING_SEED = 0x7EDCBA98
+RING_GUARD = 64
+
+
+def _rings_written(ring, plan, m, affine):
+    """Each long pair of two strips or more wrote every ring slot its strips
+    but the last write (H and, under affine gaps, F at every column), and
+    the guard past the rings is untouched."""
+    for i in range(plan.longs):
+        strips = int(plan.first[i + 1] - plan.first[i])
+        if strips < 2:
+            continue
+        width = (2 if affine else 1) * (int(m[plan.order[i]]) + 1)
+        depth, at = int(plan.depth[i]), int(plan.ring_at[i])
+        slots = ring[at:at + depth * width].reshape(depth, width)
+        if (slots[:min(strips - 1, depth)] == RING_SEED).any():
+            return False
+    return bool((ring[plan.ring:] == RING_SEED).all())
+
+
+def _batch_flags_done(sync, plan, m):
+    """Both tickets past the strips and the short pairs, one a block and one
+    a warp past them, and every long pair's strips but its last published
+    the whole bottom row."""
+    shorts = plan.order.size - plan.longs
+    progress = []
+    for i in range(plan.longs):
+        strips = int(plan.first[i + 1] - plan.first[i])
+        progress += [int(m[plan.order[i]]) + 1] * (strips - 1) + [0]
+    return (int(sync[0]) == (plan.strips + plan.blocks if plan.strips else 0)
+            and int(sync[1]) == shorts + plan.blocks * plan.threads // band.WARP
+            and sync[2:].tolist() == progress)
+
+
+def two_row_budget(plan, m, affine):
+    """The bytes of ``plan``'s rings cut to 2 rows each."""
+    rows = (2 if affine else 1) * (m[plan.order[:plan.longs]] + 1)
+    return 4 * int((np.minimum(plan.depth, 2) * rows).sum())
+
+
 def _band_batch_case(dll, rng, c):
-    """``band_batch_fill`` against ``xla.score_batch`` on a ragged batch:
-    every (affine, matrix, local) combination in turn, each mode, 1 x 1
-    pairs, pairs past one strip at small geometries."""
-    affine, matrix, local = bool(c % 2), [None, matrices.dna(2, -1, -3)][(c // 2) % 2], \
-        bool((c // 4) % 2)
+    """``band_batch_fill`` against ``xla.score_batch`` on a ragged batch of
+    both schedules' pairs: instantiation ``c`` of :data:`BATCH_KINDS` in turn
+    (the short pairs' k forced, so queries up to ``32 k`` rows run a warp
+    each), every mode, long pairs of up to four strips of ``8 x threads``
+    rows, at times a 1 x 1 pair, one or two blocks (fewer than a pair's
+    strips) and rings cut to 2 rows."""
+    k, affine, matrix, local = BATCH_KINDS[c % len(BATCH_KINDS)]
     mode = AlignMode.LOCAL if local else list(AlignMode)[[0, 2, 3][(c // 8) % 3]]
     kw = dict(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 2)),
-              gap=int(rng.integers(-4, 0)), mode=mode, matrix=matrix)
+              gap=int(rng.integers(-4, 0)), mode=mode,
+              matrix=matrices.dna(2, -1, -3) if matrix else None)
     if affine:
         kw.update(gap_open=int(rng.integers(-6, 1)), gap_extend=int(rng.integers(-3, 0)))
     cfg = ScoringConfig(**kw)
-    P = int(rng.integers(1, 7))
-    lens = rng.integers(1, 80, (2, P))
-    lens[:, rng.integers(0, P)] = 1 if c % 3 == 0 else lens[:, 0]  # a 1 x 1 pair
-    texts = [rng.integers(0, 5, int(x)).astype(np.int8) for x in lens[0]]
-    queries = [rng.integers(0, 5, int(x)).astype(np.int8) for x in lens[1]]
-    packed = pairs.pack_pairs(texts, queries, np.arange(P))
-    k = [1, 2, 4, 8, 16][c % 5]
-    k = min(k, band.max_k(cfg))
     threads = 32 * int(rng.integers(1, 3))
-    ends = band._ends_flags(cfg, False)
-    K = len(matrix) if matrix is not None else 0
-    mat = np.ascontiguousarray(np.asarray(matrix if K else [0], np.int32).reshape(-1))
-    boundary = np.empty(P * 2 * (packed.m_cap + 1), np.int32)
-    out = np.empty(P, np.int32)
-    off, ln = packed.offsets, packed.lengths
-    err = dll.band_batch_fill(packed.texts.data_ptr(), packed.queries.data_ptr(),
-                              off[0].data_ptr(), off[1].data_ptr(), ln[0].data_ptr(),
-                              ln[1].data_ptr(), P, packed.m_cap, mat.ctypes.data, K, cfg.match,
-                              cfg.mismatch, cfg.gap, cfg.gap_open or 0, cfg.gap_extend or 0,
-                              band._flags(cfg, ends), k, threads, boundary.ctypes.data,
-                              out.ctypes.data, None)
-    want = xla.score_batch(packed, cfg, ends).tolist()
-    return err == 0 and out.tolist() == want, (cfg, lens.tolist(), k, threads, out, want)
+    strip = band_batch.LONG_K * threads
+    P = int(rng.integers(2, 8))
+    long = rng.integers(0, 2, P).astype(bool)
+    n = np.where(long, rng.integers(32 * k + 1, 32 * k + 2 * strip + 1, P),
+                 rng.integers(1, 32 * k + 1, P))
+    m = rng.integers(1, 60, P)
+    if c % 3 == 0:
+        m[0] = n[0] = 1
+    texts = [rng.integers(0, 5, int(x)).astype(np.int8) for x in m]
+    queries = [rng.integers(0, 5, int(x)).astype(np.int8) for x in n]
+    geometry = (k, threads) + ((), (1,), (2,))[c % 3]
+    budget = None
+    if c % 4 == 1:
+        plan = band_batch.batch_plan(m, n, affine, band.max_k(cfg), geometry)
+        budget = two_row_budget(plan, m, affine)
+    return band_batch_case(dll, rng, cfg, texts, queries, geometry, budget)
 
 
 def _flags_of(sync, plan, steps):
@@ -971,7 +1065,9 @@ def main() -> None:
         ok, info = _band_batch_case(dll, rng, c)
         if not ok:
             sys.exit(f"band_batch_fill differs from xla.score_batch: {info}")
-    print(f"[rehearse] band_batch_fill equal to xla.score_batch in {args.cases} batches")
+    print(f"[rehearse] band_batch_fill equal to xla.score_batch in {args.cases} batches (short "
+          f"pairs a warp each and long ones on the strip pipeline, the 38 instantiations in "
+          f"turn, one and two blocks, rings of 2 rows)")
     _gfill_cases(dll, rng, args.cases // 2)
     print(f"[rehearse] bitpal_gfill and bitpal_capture_fill equal to fill_g_plain in "
           f"{args.cases // 2} cases (one band and many, bands past the blocks, rings of 2 "

@@ -139,9 +139,8 @@ def load() -> ctypes.CDLL:
         lib.diag_ckpt_fill.restype = i32
         lib.bitpal_batch_fill.argtypes = [vp, i64, vp, vp] + [i32] * 4 + [vp, i32, vp, vp, vp]
         lib.bitpal_batch_fill.restype = i32
-        lib.band_batch_fill.argtypes = [
-            vp, vp, vp, vp, vp, vp, i32, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32,
-            i32, vp, vp, vp]
+        lib.band_batch_fill.argtypes = ([vp] * 6 + [i32, vp] + [i32] * 10 + [vp, i32, i32]
+                                        + [vp] * 4)
         lib.band_batch_fill.restype = i32
         _lib = lib
     return _lib

@@ -43,8 +43,6 @@ extern "C" int band_capture_affine(const void* text, int m, const void* query,
                  gap_open,
                  gap_extend,
                  flags,
-                 nullptr,
-                 nullptr,
                  nullptr};
   const CaptureArgs c{static_cast<const int32_t*>(cap_rows), J,
                       static_cast<int32_t*>(caps), static_cast<int32_t*>(col),

@@ -77,8 +77,6 @@ extern "C" int band_capture_edge(const void* text, int m, const void* query,
                  0,
                  0,
                  flags,
-                 nullptr,
-                 nullptr,
                  nullptr};
   const CaptureArgs c{static_cast<const int32_t*>(cap_rows), J,
                       static_cast<int32_t*>(caps), static_cast<int32_t*>(col),

@@ -33,8 +33,6 @@ extern "C" int band_fill(const void* text, int m, const void* query, int n,
                  gap_open,
                  gap_extend,
                  flags,
-                 nullptr,
-                 nullptr,
                  static_cast<int32_t*>(out)};
   const CaptureArgs c{};
   auto s = static_cast<cudaStream_t>(stream);
@@ -74,8 +72,6 @@ extern "C" int band_capture_fill(const void* text, int m, const void* query,
                  0,
                  0,
                  flags,
-                 nullptr,
-                 nullptr,
                  nullptr};
   const CaptureArgs c{static_cast<const int32_t*>(cap_rows), J,
                       static_cast<int32_t*>(caps), static_cast<int32_t*>(col),

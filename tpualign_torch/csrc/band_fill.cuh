@@ -1,14 +1,16 @@
 // General-scoring strip fills: any integer scoring, linear or affine
 // (Gotoh) gaps, pair scoring or a substitution matrix of up to 16 codes,
 // global / local (Smith-Waterman) / ends-free modes.  One strip body, here,
-// two schedules over it, and four entry points: band_fill and
+// run by a block over many blocks (the pipelined schedule, fill_pipe) or by
+// one warp alone (WARP), and the entry points over it: band_fill and
 // band_capture_fill (linear gaps) in band_fill.cu, band_capture_affine in
 // band_capture_affine.cu, a translation unit of its own so that nvcc
 // compiles its 36 kernels beside the other 80 (all in one file took 20 s
-// to build, against 12 s); band_batch.cu runs the in-place schedule;
-// diag_ckpt.cu runs K9's checkpoint contract (CKPT, stated there) and
-// diag_fill.cu K8's score (band_fill's under pair scoring and linear gaps)
-// on the pipelined schedule.
+// to build, against 12 s); diag_ckpt.cu runs K9's checkpoint contract
+// (CKPT, stated there) and diag_fill.cu K8's score (band_fill's under pair
+// scoring and linear gaps) on the pipelined schedule; band_batch.cu runs
+// K7's batch contract, its long pairs' strips on a ticket of its own and
+// its short pairs a warp each (stated there).
 //
 // band_fill (CAPTURE = false) replaces the TPU kernel
 // tpualign/ops/band.py:_band_kernel_body (K6).  Contract, cell for cell the
@@ -58,10 +60,14 @@
 // step older.  Thread 0 reads the strip's input row, the last thread
 // writes its bottom row as the next strip's input, T-1 columns behind.
 // Column 0 is injected in closed form; F at column 0 is never read.  One
-// __syncthreads() per step.
+// __syncthreads() per step.  Under WARP one warp runs the body alone on a
+// table of at most 32*K rows (T = 32, r the lane): its top row in closed
+// form, no row out, no shared memory and no barrier, the shuffles its only
+// synchronisation.
 //
 // The pipelined schedule (fill_pipe: band_fill's, the capture fills',
-// diag_fill's and diag_ckpt_fill's kernels): S = ceil(n/R) strips over G blocks of one
+// diag_fill's and diag_ckpt_fill's kernels; band_batch.cu numbers the
+// strips of many tables in one ticket): S = ceil(n/R) strips over G blocks of one
 // launch.  A block takes strip numbers in order from an atomic ticket,
 // never from blockIdx, so it only ever waits on a lower strip, which a
 // running block holds: no grid size deadlocks, and blocks need not be
@@ -87,11 +93,6 @@
 // larger value, then the smaller row: a row belongs to one strip, so the
 // row-major first maximum is kept.  Captures, the last column and F's
 // last row are written by each row's owner.
-//
-// The in-place schedule (fill_inplace: band_batch_kernel, one block a
-// pair): one block walks the strips through one boundary row in place
-// (thread 0 reads column j, the last thread writes it T-1 steps later),
-// after a pre-pass that writes strip 0's boundary.
 //
 // The captures: at a strip's start each thread finds its captured rows in
 // cap_rows by binary search (a bit mask over its K rows and the slot of the
@@ -138,9 +139,8 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;  // the in-place schedule (the batch)
-constexpr int kPipeThreads = 256;  // the pipelined fills' blocks
-constexpr int kWarps = kMaxThreads / 32;
+constexpr int kPipeThreads = 256;  // the most threads a block
+constexpr int kWarps = kPipeThreads / 32;
 constexpr int kMaxCodes = 16;
 constexpr int32_t kNeg = -(1 << 30);
 constexpr int kNoRow = 0x7fffffff;  // no located cell yet
@@ -166,8 +166,6 @@ struct Params {
   int K;
   int match, mismatch, gap, open, ext;
   int flags;
-  int32_t* bh;  // in place: boundary row H(i0, 0..m)
-  int32_t* bf;  // in place: boundary row F(i0, 0..m), affine only
   int32_t* out;
 };
 
@@ -213,10 +211,9 @@ struct Pipe {
   int depth;        // D, at least 2 when S >= 2
 };
 
-// One strip's rows in and out.  In place: in and out are one boundary row
-// and the flags are null.  Pipelined: in is the ring slot of the strip
-// above (null for strip 0: the table's top edge in closed form), out this
-// strip's slot (null for the last strip), with their progress flags
+// One strip's rows in and out: in is the ring slot of the strip above (null
+// for strip 0: the table's top edge in closed form), out this strip's slot
+// (null for the last strip), with their progress flags
 struct Link {
   const int32_t* in_h;
   const int32_t* in_f;
@@ -259,19 +256,19 @@ __device__ __forceinline__ int32_t top_h(const Params& p, int j) {
 // One strip: rows i0+1 .. min(i0 + K*blockDim.x, n), its top row from
 // l.in_h (and l.in_f), its bottom row to l.out_h (and l.out_f).  acc is
 // the score's running max, best_* the thread's located cell, both carried
-// across the block's strips.  PIPE: the progress flags and the closed-form
-// top edge (see the header).  CKPT: K9's checkpoints in place of the
-// score (linear gaps, pair scoring)
+// across the block's strips.  CKPT: K9's checkpoints in place of the score
+// (linear gaps, pair scoring).  WARP: the calling warp runs the body alone
+// (see the header; l all null, i0 = 0)
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE,
-          bool PIPE, bool CKPT, bool EDGE = false>
+          bool CKPT, bool EDGE = false, bool WARP = false>
 __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
                                       const CkptArgs& ck, const int32_t* mat, int i0,
                                       const Link& l, int32_t& acc, int32_t& best_v,
                                       int& best_i, int& best_j, const Edge& edge = Edge{}) {
   __shared__ int32_t hand_h[2][kWarps];
   __shared__ int32_t hand_f[2][kWarps];
-  const int r = threadIdx.x;
-  const int T = blockDim.x;
+  const int r = WARP ? threadIdx.x & 31 : threadIdx.x;
+  const int T = WARP ? 32 : blockDim.x;
   const int lane = r & 31;
   const int warp = r >> 5;
   const int m = p.m;
@@ -323,12 +320,12 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
       jb[q] = 0;
     }
   }
-  // PIPE: warp 0 brings the input row into in_buf a chunk of kChunk
-  // columns at a time, the next chunk's loads in flight in next_h/next_f
-  // for kChunk steps, so no step waits on L2 (each lane checks the flag
-  // with its own acquire load, keeping the last value seen)
+  // warp 0 brings the input row into in_buf a chunk of kChunk columns at
+  // a time, the next chunk's loads in flight in next_h/next_f for kChunk
+  // steps, so no step waits on L2 (each lane checks the flag with its own
+  // acquire load, keeping the last value seen)
   __shared__ int32_t in_buf[2][kChunk];
-  const bool fetch = PIPE && l.in_h != nullptr && warp == 0;
+  const bool fetch = !WARP && l.in_h != nullptr && warp == 0;
   int seen = 0;
   int32_t next_h = 0, next_f = 0;
   if (fetch) {
@@ -339,8 +336,14 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
       if (AFFINE) next_f = __ldcg(l.in_f + lane);
     }
   }
-  int free_to = 0;  // PIPE, the last thread: columns of its slot known read
-  int ch = 0;       // PIPE: the text code of this step's column
+  int free_to = 0;  // the last thread: columns of its slot known read
+  int ch = 0;       // the text code of this step's column
+  // WARP: the warp holds the text 32 codes a chunk, lane l code 32c + l of
+  // chunk c: the chunk of lane 0's column and the one before it as the two
+  // low bytes of cw, the next chunk's loads in flight in cn for 32 steps,
+  // so no step waits on L2; a lane takes its column's code by one shuffle
+  int cw = 0, cn = 0;
+  if (WARP) cn = lane < m ? p.text[lane] : 0;
   const int steps = m + t_live;
   for (int t = 0; t < steps; ++t) {
     // thread r-1's bottom row at column t - r, computed at step t - 1
@@ -348,6 +351,15 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
     int32_t in_f = AFFINE ? __shfl_up_sync(0xffffffffu, out_f, 1) : 0;
     const int j = t - r;
     const bool active = j >= 0 && j <= m && r < t_live;
+    if (WARP) {
+      if (((t - 1) & 31) == 0) {  // t = 32c + 1: chunk c is lane 0's from here
+        cw = ((cw >> 8) & 0xff) | ((cn & 0xff) << 8);
+        cn = t + 31 + lane < m ? p.text[t + 31 + lane] : 0;  // chunk c + 1
+      }
+      const int x = j - 1;  // this lane's column's code
+      const int v = __shfl_sync(0xffffffffu, cw, x & 31);
+      ch = static_cast<int8_t>(x >= ((t - 1) & ~31) ? v >> 8 : v);
+    }
     if (fetch && t % kChunk == 0 && t <= m) {
       // chunk t / kChunk lands in in_buf (lane 0 reads it over the next
       // kChunk steps, and each step ends in a barrier), the next one
@@ -369,17 +381,14 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
       if (AFFINE) in_f = hand_f[(t - 1) & 1][warp - 1];
     }
     if (r == 0 && active) {
-      if (PIPE && l.in_h == nullptr) {
+      if (WARP || l.in_h == nullptr) {
         in_h = top_h<AFFINE, LOCAL, CAPTURE>(p, j);
         if (AFFINE) in_f = CAPTURE ? in_h + c.tb : kNeg;
         if (want_col && j == m) c.col[0] = in_h;
-      } else if (PIPE) {
+      } else {
         in_h = in_buf[0][j % kChunk];
         if (AFFINE) in_f = in_buf[1][j % kChunk];
         if (EDGE && want_col && i0 == 0 && j == m) c.col[0] = in_h;
-      } else {
-        in_h = l.in_h[j];
-        if (AFFINE) in_f = l.in_f[j];
       }
     }
     int32_t fn = 0;  // affine captures, the owner of row n: F(n, j)
@@ -401,7 +410,7 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
       out_f = kNeg;
       fn = (LOCAL || zc) ? 0 : open0 + n * p.ext;  // F(n, 0) := H(n, 0)
     } else if (active) {
-      const int c = PIPE ? ch : p.text[j - 1];
+      const int c = ch;
       const int cK = MATRIX ? c * p.K : 0;
       int32_t up = in_h, upf = in_f, diag = diag_top;
       int32_t cm = kNeg;  // LOCATE: this column's max over the live rows,
@@ -477,20 +486,15 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
       ga = gb;
     }
     if (active && r == T - 1) {  // the next strip's input row
-      if (PIPE) {
-        if (l.out_h != nullptr) {
-          if (l.out_free != nullptr && free_to <= j) {
-            do {
-              free_to = load_acquire(l.out_free);
-            } while (free_to <= j);
-          }
-          __stcg(l.out_h + j, out_h);
-          if (AFFINE) __stcg(l.out_f + j, out_f);
-          if ((j + 1) % kPublish == 0 || j == m) store_release(l.out_ready, j + 1);
+      if (!WARP && l.out_h != nullptr) {
+        if (l.out_free != nullptr && free_to <= j) {
+          do {
+            free_to = load_acquire(l.out_free);
+          } while (free_to <= j);
         }
-      } else {
-        l.out_h[j] = out_h;
-        if (AFFINE) l.out_f[j] = out_f;
+        __stcg(l.out_h + j, out_h);
+        if (AFFINE) __stcg(l.out_f + j, out_f);
+        if ((j + 1) % kPublish == 0 || j == m) store_release(l.out_ready, j + 1);
       }
     }
     if (CAPTURE && active) {
@@ -509,14 +513,16 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
       }
       if (qf >= 0) c.fout[j] = fn;
     }
-    // PIPE: the next step's text code (column j + 1), a step ahead
-    if (PIPE && j + 1 >= 1 && j + 1 <= m) ch = p.text[j];
+    // the next step's text code (column j + 1), a step ahead
+    if (!WARP && j + 1 >= 1 && j + 1 <= m) ch = p.text[j];
     diag_top = in_h;
-    if (lane == 31) {
-      hand_h[t & 1][warp] = out_h;
-      if (AFFINE) hand_f[t & 1][warp] = out_f;
+    if (!WARP) {
+      if (lane == 31) {
+        hand_h[t & 1][warp] = out_h;
+        if (AFFINE) hand_f[t & 1][warp] = out_f;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   if (CKPT) {
     // the slots whose diagonal misses row i (c * every - i or c * every -
@@ -605,39 +611,6 @@ __device__ __forceinline__ void block_cell(int32_t& best_v, int& best_i, int& be
   }
 }
 
-// The in-place schedule: one block walks every strip of one table through
-// the boundary rows p.bh, p.bf (the batch kernel, one block a pair)
-template <int K, bool AFFINE, bool MATRIX, bool LOCAL>
-__device__ __forceinline__ void fill_inplace(const Params& p) {
-  __shared__ int32_t mat[kMaxCodes * kMaxCodes];
-  __shared__ int32_t red[kWarps];
-  const int r = threadIdx.x;
-  const int T = blockDim.x;
-  const int m = p.m;
-  const bool zr = p.flags & kZeroRow;
-  if (MATRIX) {
-    for (int x = r; x < p.K * p.K; x += T) mat[x] = p.matrix[x];
-  }
-  // strip 0's boundary (top_h; F(0, j) = -inf)
-  for (int j = r; j <= m; j += T) {
-    int32_t v = 0;
-    if (!(LOCAL || zr || j == 0)) v = AFFINE ? p.open + j * p.ext : j * p.gap;
-    p.bh[j] = v;
-    if (AFFINE) p.bf[j] = kNeg;
-  }
-  __syncthreads();
-  int32_t acc = LOCAL ? 0 : kNeg;
-  int32_t best_v = kNeg;
-  int best_i = kNoRow, best_j = 0;
-  const Link l{p.bh, p.bf, p.bh, p.bf, nullptr, nullptr, nullptr};
-  for (int i0 = 0; i0 < p.n; i0 += K * T) {
-    strip<K, AFFINE, MATRIX, LOCAL, false, false, false, false>(
-        p, CaptureArgs{}, CkptArgs{}, mat, i0, l, acc, best_v, best_i, best_j);
-  }
-  acc = block_max(acc, red);
-  if (r == 0) *p.out = acc;
-}
-
 // The pipelined schedule (see the header): the blocks take strips from a
 // ticket and hand rows down through the ring
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE,
@@ -683,7 +656,7 @@ __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
       l.out_ready = progress + s;
       if (s >= q.depth) l.out_free = progress + s - q.depth + 1;
     }
-    strip<K, AFFINE, MATRIX, LOCAL, CAPTURE, LOCATE, true, CKPT, EDGE>(
+    strip<K, AFFINE, MATRIX, LOCAL, CAPTURE, LOCATE, CKPT, EDGE>(
         p, c, ck, mat, s * K * T, l, acc, best_v, best_i, best_j, edge);
   }
   if (CKPT) return;  // the checkpoints are written by their rows' owners
@@ -787,7 +760,7 @@ int launch_mode(int k, int threads, int blocks, cudaStream_t s, const Params& p,
 
 bool bad_geometry(int m, int n, int K, int threads) {
   return m < 1 || n < 1 || K < 0 || K > kMaxCodes || threads < 32 ||
-         threads > kMaxThreads || threads % 32 != 0;
+         threads > kPipeThreads || threads % 32 != 0;
 }
 
 // The pipeline's arguments: a geometry of at most kPipeThreads threads, k
@@ -795,7 +768,7 @@ bool bad_geometry(int m, int n, int K, int threads) {
 // blocks' cells when locating.  Fills q, or returns false
 bool pipe_args(int m, int n, int K, int k, int threads, int blocks, void* ring,
                int depth, void* sync, void* cells, bool locate, Pipe& q) {
-  if (bad_geometry(m, n, K, threads) || threads > kPipeThreads || k < 1 || k > 16 ||
+  if (bad_geometry(m, n, K, threads) || k < 1 || k > 16 ||
       blocks < 1 || sync == nullptr || (locate && cells == nullptr)) {
     return false;
   }

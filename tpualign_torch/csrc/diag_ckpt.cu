@@ -115,8 +115,6 @@ extern "C" int diag_ckpt_fill(const void* s1, int m, const void* s2, int n,
                  0,
                  0,
                  local ? (kLocal | kZeroRow | kZeroCol) : 0,
-                 nullptr,
-                 nullptr,
                  nullptr};
   const int groups = static_cast<int>((static_cast<long long>(n) + m + K - 1) / K);
   const CkptArgs ck{static_cast<int32_t*>(cka), static_cast<int32_t*>(ckb),

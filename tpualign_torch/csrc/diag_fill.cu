@@ -87,8 +87,6 @@ extern "C" int diag_fill(const void* s1, int m, const void* s2, int n, int match
                  0,
                  0,
                  local ? (kLocal | kZeroRow | kZeroCol) : 0,
-                 nullptr,
-                 nullptr,
                  static_cast<int32_t*>(out)};
   auto s = static_cast<cudaStream_t>(stream);
   return local ? launch_diag<true>(k, threads, blocks, s, p, q)

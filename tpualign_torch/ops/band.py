@@ -51,13 +51,13 @@ from . import xla
 from .bitpal import _device
 from .pairs import int8_codes
 
-#: kernel geometry: blocks of up to MAX_THREADS threads (a multiple of
-#: WARP) in the batch, MAX_PIPE_THREADS in the pipelined fills, each thread
-#: owning k consecutive rows of a strip, k a power of two up to MAX_K
-#: (registers per thread); local affine gaps carry E and the masked running
-#: max beside H and spill 208-220 bytes at 16 rows a thread in 1,024-thread
-#: blocks, which made them slower there than at 8 on the H100 (PERF.md), so
-#: their captures stop at MAX_K_LOCAL_AFFINE
+#: kernel geometry: blocks of up to MAX_PIPE_THREADS threads (a multiple of
+#: WARP), each thread owning k consecutive rows of a strip, k a power of two
+#: up to MAX_K (registers per thread); MAX_THREADS bounds the one-block
+#: geometry of :func:`kernel_geometry`; local affine gaps carry E and the
+#: masked running max beside H and spill 208-220 bytes at 16 rows a thread
+#: in 1,024-thread blocks, which made them slower there than at 8 on the
+#: H100 (PERF.md), so their captures stop at MAX_K_LOCAL_AFFINE
 MAX_THREADS = 1024
 MAX_PIPE_THREADS = 256
 MAX_K = 16
@@ -86,8 +86,9 @@ NEG = -(1 << 30)
 
 
 def kernel_geometry(n: int, max_k: int = MAX_K) -> Tuple[int, int]:
-    """``(k, threads)`` of the in-place schedule (the batch kernel, one
-    block a pair) for ``n`` rows: as few strips as the block allows
+    """``(k, threads)`` of one block walking ``n`` rows in strips, for a
+    batch kernel that runs a block a pair (``tools/ab_band_fill.py`` times
+    such a version of ``band_batch.cu``): as few strips as the block allows
     (each at most ``MAX_THREADS * max_k`` rows), cut evenly, then the
     fewest rows per thread that fit, threads rounded up to whole warps."""
     n_strips = -(-n // (MAX_THREADS * max_k))

@@ -1,11 +1,27 @@
 """Batch scoring of many pairs under any ``ScoringConfig`` in one launch:
 the port of ``tpualign/ops/band_batch.py``.
 
-Each pair gets a thread block of its own in one launch of the batch
-kernel ``band_batch_fill`` (``csrc/band_batch.cu``, the batch contract of
-K7's port over the fill template of K6's, ``csrc/band_fill.cuh``), so the
-card's scheduler spreads the pairs over its SMs.  Its plain version is the
-batched row scan :func:`tpualign_torch.ops.xla.score_batch`.
+The batch kernel ``band_batch_fill`` (``csrc/band_batch.cu``, the batch
+contract of K7's port over the fill template of K6's,
+``csrc/band_fill.cuh``) runs the whole batch in one launch, each pair on
+one of two schedules that the host's plan (:func:`batch_plan`) picks by its
+query's length:
+
+- a short pair, a query of at most ``32 * k`` rows (``k`` rows a lane, at
+  most :func:`band.max_k`), takes a warp of its own: each lane owns ``k``
+  rows, the row above comes by a shuffle, the top row in closed form, and
+  no step waits on a block barrier, so the pairs run side by side, as many
+  as the card holds warps;
+- a long pair's rows are cut into strips of ``LONG_K * threads`` rows, and
+  the strips of every long pair, longest pair first, are numbered into one
+  ticket that the blocks take in order, each pair a pipeline of its own
+  with its own ring of rows and progress flags, as K6's fill runs one
+  table (:func:`band.pipeline_plan`).
+
+The short pairs are bounded by the instructions of their cells, the long
+ones by the step latency of their pipelines (the longest pair's steps).
+Its plain version is the batched row scan
+:func:`tpualign_torch.ops.xla.score_batch`.
 
 Orientation is fixed, as in the JAX module: texts run across the columns
 and queries down the rows, so no pair swaps and neither a matrix nor the
@@ -20,7 +36,7 @@ all of them: the port's own choice.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +46,11 @@ from ..config import ScoringConfig
 from . import band, xla
 from .bitpal import _device
 from .pairs import Pairs, batch_lengths, pack_pairs
+
+#: a long pair's rows a thread (kLongK in csrc/band_batch.cu): the strip
+#: pipeline's geometry that :func:`band.pipeline_geometry` picks for mix
+#: (A)'s pairs and the 64gb shape, at most MAX_K_LOCAL_AFFINE
+LONG_K = 8
 
 
 def _check_pairs(pairs: Pairs) -> None:
@@ -50,49 +71,181 @@ def _check_pairs(pairs: Pairs) -> None:
         raise ValueError(f"m_cap and n_cap must be at least 1, got {pairs.m_cap}, {pairs.n_cap}")
 
 
+class BatchPlan(NamedTuple):
+    """One launch of the batch fill over ``blocks`` blocks of ``threads``
+    threads.  The short pairs (queries of at most ``32 * k`` rows) run a warp
+    each at ``k`` rows a lane; the ``longs`` long pairs' strips of ``LONG_K *
+    threads`` rows run on the pipeline, long pair ``i``'s strips the tickets
+    ``first[i] .. first[i + 1] - 1``, its ring ``depth[i]`` rows (0 for one
+    strip) at int32 offset ``ring_at[i]`` of ``ring`` int32 in all.
+    ``order`` lists the pairs' indices: the long ones longest first (text
+    plus query), then the short ones in the batch's order."""
+
+    k: int
+    threads: int
+    blocks: int
+    order: np.ndarray
+    longs: int
+    first: np.ndarray
+    depth: np.ndarray
+    ring_at: np.ndarray
+    ring: int
+
+    @property
+    def strips(self) -> int:
+        """The long pairs' strips, every one."""
+        return int(self.first[-1])
+
+    @property
+    def sched(self) -> np.ndarray:
+        """The kernel's ``sched`` argument: ``order``, ``first``, ``ring_at``
+        and ``depth`` in one int64 array."""
+        return np.concatenate([self.order, self.first, self.ring_at, self.depth]).astype(np.int64)
+
+    def describe(self) -> str:
+        """The plan in one line, for logs."""
+        shorts = self.order.size - self.longs
+        rings = (f", rings of {self.depth.min()}..{self.depth.max()} rows"
+                 if self.longs else "")
+        return (f"{shorts} short pairs a warp each at k = {self.k}, {self.longs} long pairs in "
+                f"{self.strips} strips of {LONG_K} x {self.threads} rows{rings}; {self.blocks} "
+                f"blocks of {self.threads} threads")
+
+
+def batch_plan(m, n, affine: bool, max_k: int = band.MAX_K,
+               geometry: Optional[Tuple[int, ...]] = None,
+               budget: Optional[int] = None) -> BatchPlan:
+    """The launch of the batch fill of pairs of texts of ``m[p]`` columns and
+    queries of ``n[p]`` rows (each at least 1).  ``geometry`` is ``(k,
+    threads)`` or ``(k, threads, blocks)``; by default ``k`` is the fewest
+    rows a lane that hold the longest query of at most ``32 * max_k`` rows
+    (1 when there is none), ``threads`` :data:`band.PIPE_THREADS`, and
+    ``blocks`` ``min(strips + ceil(shorts / warps), SMS * BLOCKS_PER_SM)``.
+    A pair whose query has at most ``32 * k`` rows is short.  Each long pair
+    with two strips or more has a ring of ``min(strips, blocks + 1)`` rows of
+    ``m + 1`` int32 (twice under affine gaps), fewer if the rings pass
+    ``budget`` bytes (default ``band.RING_BUDGET``; the CUDA wrapper passes
+    ``band.ring_budget()``), never fewer than 2.  ValueError for a batch, a
+    geometry or a ticket count the kernel refuses; ``torch.OutOfMemoryError``
+    when rings of 2 rows do not fit the budget, which no route falls back
+    on."""
+    m = np.asarray(m, np.int64)
+    n = np.asarray(n, np.int64)
+    if m.ndim != 1 or m.shape != n.shape or not m.size:
+        raise ValueError(f"the batch fill needs one length a pair on each side, got "
+                         f"{m.shape} and {n.shape}")
+    if m.min() < 1 or n.min() < 1:
+        raise ValueError("every pair's text and query need at least one code")
+    if geometry is not None and len(geometry) not in (2, 3):
+        raise ValueError(f"geometry is (k, threads) or (k, threads, blocks), got {geometry}")
+    threads = band.PIPE_THREADS if geometry is None else int(geometry[1])
+    if threads % band.WARP or not band.WARP <= threads <= band.MAX_PIPE_THREADS:
+        raise ValueError(f"threads must be a multiple of {band.WARP} in "
+                         f"{band.WARP}..{band.MAX_PIPE_THREADS}, got {threads}")
+    if geometry is None:
+        fits = n[n <= band.WARP * max_k]
+        k = 1
+        while fits.size and band.WARP * k < fits.max():
+            k *= 2
+    else:
+        k = int(geometry[0])
+        if k not in band.KS or k > max_k:
+            raise ValueError(f"rows a lane must be one of {band.KS} up to {max_k}, got {k}")
+    short = n <= band.WARP * k
+    long_ = np.flatnonzero(~short)
+    order = np.concatenate([long_[np.argsort(-(m + n)[long_], kind="stable")],
+                            np.flatnonzero(short)])
+    longs = long_.size
+    lm, strips = m[order[:longs]], -(-n[order[:longs]] // (LONG_K * threads))
+    first = np.concatenate([[0], np.cumsum(strips)])
+    warps = threads // band.WARP
+    shorts = m.size - longs
+    tickets = int(first[-1]) + -(-shorts // warps)
+    blocks = (min(tickets, band.SMS * band.BLOCKS_PER_SM) if geometry is None or len(geometry) < 3
+              else int(geometry[2]))
+    if blocks < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    if first[-1] + blocks > 2**31 - 1 or shorts + blocks * warps > 2**31 - 1:
+        raise ValueError(f"{first[-1]} strips and {shorts} short pairs over {blocks} blocks "
+                         f"pass the int32 tickets")
+    row = (2 if affine else 1) * (lm + 1)  # int32 a ring row
+    want = np.where(strips >= 2, np.minimum(strips, blocks + 1), 0)
+    budget = band.RING_BUDGET if budget is None else int(budget)
+
+    def ring_bytes(cap: int) -> int:  # the rings' bytes at most cap rows deep
+        return 4 * int((np.minimum(want, cap) * row).sum())
+
+    cap = int(want.max(initial=0))
+    if ring_bytes(cap) > budget:
+        if ring_bytes(2) > budget:
+            raise torch.OutOfMemoryError(
+                f"rings of 2 rows for {int((want > 0).sum())} pairs take {ring_bytes(2)} bytes, "
+                f"past the budget of {budget} bytes of device memory")
+        lo, hi = 2, cap  # the deepest cap that fits
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if ring_bytes(mid) <= budget else (lo, mid - 1)
+        cap = lo
+    depth = np.minimum(want, cap)
+    sizes = depth * row
+    return BatchPlan(k, threads, blocks, order, longs, first, depth, np.cumsum(sizes) - sizes,
+                     int(sizes.sum()))
+
+
 def batch_fill(pairs: Pairs, cfg: ScoringConfig, ends,
-               geometry: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+               geometry: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """Every pair's result under the band kernel's contract (``(P,)`` int64
     on the pairs' device, ``ends`` the flags of every pair): the CUDA kernel
-    ``band_batch_fill`` for CUDA tensors, one block per pair;
+    ``band_batch_fill`` for CUDA tensors, short pairs a warp each and long
+    pairs' strips on the pipeline (:func:`batch_plan`);
     :func:`tpualign_torch.ops.xla.score_batch` for CPU tensors.
 
-    ``geometry``: ``(k, threads)`` for every block, as in
-    :func:`band.band_fill`; default :func:`band.kernel_geometry` of the
-    longest query with ``k`` at most :func:`band.max_k`.  It never changes
-    the result.  On CUDA the wrapper allocates the boundary rows and the
-    output, launches on the current stream without synchronising, and
-    counts the launch in ``batch_fill.launches``.  A launch the device
-    refuses raises; nothing falls back to the plain version."""
+    ``geometry``: :func:`batch_plan`'s, with ``k`` at most
+    :func:`band.max_k`; it never changes the result.  On CUDA the wrapper
+    reads the pairs' lengths back for the plan, allocates the output, then
+    the rings (within :func:`band.ring_budget`: ``torch.OutOfMemoryError``
+    past it) and the flags, launches on the current stream without
+    synchronising, counts the launch in ``batch_fill.launches`` and keeps
+    its plan in ``batch_fill.last_plan``.  A launch the device refuses
+    raises; nothing falls back to the plain version."""
     _check_pairs(pairs)
     dev = pairs.texts.device
     if dev.type == "cpu":
         return xla.score_batch(pairs, cfg, ends)
     if dev.type != "cuda":
         raise ValueError(f"batch_fill runs on cpu or cuda tensors, got {dev}")
-    P = pairs.offsets.shape[1]
-    k, threads = geometry or band.kernel_geometry(pairs.n_cap, band.max_k(cfg))
+    m, n = pairs.lengths.cpu().numpy()
+    P = m.size
+    # only a query past one strip of the smallest block takes a ring (the
+    # free memory costs a call into CUDA)
+    budget = band.ring_budget(dev) if pairs.n_cap > LONG_K * band.WARP else None
+    plan = batch_plan(m, n, cfg.is_affine, band.max_k(cfg), geometry, budget)
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
     matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
-    boundary = torch.empty((P, 2, pairs.m_cap + 1), dtype=torch.int32, device=dev)
-    out = torch.empty(P, dtype=torch.int32, device=dev)
+    out = torch.full((P,), 0 if cfg.is_local else band.NEG, dtype=torch.int32, device=dev)
+    sched = torch.from_numpy(plan.sched).to(dev)
+    ring = torch.empty(plan.ring, dtype=torch.int32, device=dev) if plan.ring else None
+    sync = torch.zeros(2 + plan.strips, dtype=torch.int32, device=dev)
     off, lens = pairs.offsets, pairs.lengths
     with torch.cuda.device(dev):
         err = lib.band_batch_fill(
             pairs.texts.data_ptr(), pairs.queries.data_ptr(), off[0].data_ptr(),
-            off[1].data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(), P, pairs.m_cap,
-            matrix.data_ptr(), K, cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
-            cfg.gap_extend or 0, band._flags(cfg, ends), k, threads, boundary.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            off[1].data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(), P, matrix.data_ptr(), K,
+            cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0, cfg.gap_extend or 0,
+            band._flags(cfg, ends), plan.k, plan.threads, plan.blocks, sched.data_ptr(),
+            plan.longs, plan.strips, band._ptr(ring), sync.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"band_batch_fill launch failed with CUDA error {err}")
     batch_fill.launches += 1
+    batch_fill.last_plan = plan
     return out.long()
 
 
 batch_fill.launches = 0
+batch_fill.last_plan = None
 
 
 def floors(cfg: ScoringConfig, m: np.ndarray, n: np.ndarray) -> np.ndarray:
