@@ -946,8 +946,8 @@ def cli_phase(ctx, s1, s2, score, score_sw, a20, b20, want20, kind):
             "    runpy.run_module('tpualign_torch', run_name='__main__', alter_sys=True)\n"
             "except SystemExit as e:\n"
             "    rc = e.code\n"
-            "from tpualign_torch.ops import bitpal\n"
-            "print('launches', bitpal.fill_g.launches)\n"
+            "from tpualign_torch import trace\n"
+            "print('launches', trace.counters().get('launch.bitpal_gfill', 0))\n"
             "assert not [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'tpualign') and sys.modules[k] is not None]\n"
             "sys.exit(rc)\n")
@@ -1661,27 +1661,35 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA device")
 
     import tpualign_torch
-    from tpualign_torch import _build, matrices
+    from tpualign_torch import _build, matrices, trace
     from tpualign_torch.config import AlignMode, EngineConfig, ScoringConfig
     from tpualign_torch.ops import band, band_batch, bitpal, hirschberg, oracle, pallas_diag, xla
     from tpualign_torch.ops import pairs as packing
     from tpualign_torch.probe import read_pairs, serve_pairs
     from tpualign_torch.utils import native
 
-    counted = {"fill_g": bitpal.fill_g, "capture_fill": bitpal.capture_fill,
-               "band_fill": band.band_fill, "diag_fill": pallas_diag.diag_fill,
-               "band_capture_fill": band.capture_fill,
-               "bitpal_batch_fill": bitpal.batch_fill, "band_batch_fill": band_batch.batch_fill,
-               "fill_rc": bitpal.fill_rc, "fill_rc_chunk": bitpal.fill_rc_chunk,
-               "fill_g_chunk": bitpal.fill_g_chunk, "diag_ckpt_fill": pallas_diag.ckpt_fill,
-               "fill_g_stream": bitpal.fill_g_stream, "edge_fill": band.edge_fill}
+    # each wrapper's launches, by the counters (tpualign_torch.trace) of
+    # the entries it launches
+    counted = {"fill_g": ("bitpal_gfill",), "capture_fill": ("bitpal_capture_fill",),
+               "band_fill": ("band_fill",), "diag_fill": ("diag_fill",),
+               "band_capture_fill": ("band_capture_fill", "band_capture_affine"),
+               "bitpal_batch_fill": ("bitpal_batch_fill",),
+               "band_batch_fill": ("band_batch_fill",),
+               "fill_rc": ("bitpal_rc_fill",), "fill_rc_chunk": ("bitpal_rc_chunk",),
+               "fill_g_chunk": ("bitpal_gfill_chunk",), "diag_ckpt_fill": ("diag_ckpt_fill",),
+               "fill_g_stream": ("bitpal_gfill_stream",), "edge_fill": ("band_capture_edge",)}
+    since = {}
+
+    def totals():
+        now = trace.counters()
+        return {name: sum(now.get("launch." + e, 0) for e in entries)
+                for name, entries in counted.items()}
 
     def reset_counts():
-        for fn in counted.values():
-            fn.launches = 0
+        since.update(totals())
 
     def read_counts():
-        return {name: fn.launches for name, fn in counted.items()}
+        return {name: n - since.get(name, 0) for name, n in totals().items()}
 
     def only(counts, name):
         """The run launched ``name`` exactly once and no other kernel."""

@@ -36,7 +36,7 @@ from tpualign.config import ScoringConfig as JScoring
 from tpualign.ops import oracle as joracle
 from tpualign.parallel import band_strips as jband_strips
 from tpualign.parallel.mesh import make_mesh
-from tpualign_torch import matrices
+from tpualign_torch import matrices, trace
 from tpualign_torch.config import AlignMode, ScoringConfig
 from tpualign_torch.ops import band
 from tpualign_torch.parallel import band_strips, mesh
@@ -227,9 +227,11 @@ def test_pipeline_through_the_shim(dll, monkeypatch, kw):
     monkeypatch.setattr(band, "edge_fill", shim)
     cfg, jcfg = _cfgs(**kw)
     s1, s2 = random_pair(150, 110, 19, lo=1)
+    before = trace.counters().get("launch.band_capture_edge", 0)
     got = band_strips.score(s1, s2, cfg, group=_group(3), chunk_rows=40)
     assert got == joracle.score(s1, s2, jcfg)
-    assert shim.launches == 3 * 3  # 3 chunks of the 110 rows on each shard
+    # 3 chunks of the 110 rows on each shard
+    assert trace.counters()["launch.band_capture_edge"] - before == 3 * 3
 
 
 def test_capture_plain_edges_refusals():

@@ -15,8 +15,15 @@ from tpualign.config import AlignMode as JaxMode
 from tpualign.config import ScoringConfig as JaxScoring
 from tpualign.ops import bitpal as jbp
 from tpualign.ops import oracle
+from tpualign_torch import trace
 from tpualign_torch.config import AlignMode, ScoringConfig
 from tpualign_torch.ops import bitpal as tbp
+
+
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` counted so far in this process."""
+    return trace.counters().get("launch." + kernel, 0)
+
 
 UNIT, SCALED = dict(), dict(match=2, mismatch=0, gap=-2)  # (1, 0, -1) and 2x it
 
@@ -249,7 +256,7 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     nq, mt = 150, 40
     query, text = torch.from_numpy(_codes(rng, nq)), torch.from_numpy(_codes(rng, mt))
     eq = tbp._eq_planes(query, nq)
-    counts = [tbp.fill_rc.launches, tbp.fill_rc_chunk.launches, tbp.fill_g_chunk.launches]
+    counts = [launches("bitpal_rc_fill"), launches("bitpal_rc_chunk"), launches("bitpal_gfill_chunk")]
     for rc in (2, 3, 4):
         assert all(torch.equal(a, b) for a, b in zip(tbp.fill_rc(text, eq, nq, rc),
                                                      tbp.fill_rc_plain(text, eq, nq, rc)))
@@ -264,8 +271,8 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     assert all(torch.equal(a, b) for a, b in zip(got.planes + (got.hand,),
                                                  want.planes + (want.hand,)))
     # the counts are of kernel launches
-    assert counts == [tbp.fill_rc.launches, tbp.fill_rc_chunk.launches,
-                      tbp.fill_g_chunk.launches]
+    assert counts == [launches("bitpal_rc_fill"), launches("bitpal_rc_chunk"),
+                      launches("bitpal_gfill_chunk")]
 
 
 def test_wrappers_refuse_bad_arguments():

@@ -34,7 +34,7 @@ from tpualign.io.bdna import random_pair
 from tpualign.ops import oracle as joracle
 from tpualign.parallel import bitpal_strips as jbitpal_strips
 from tpualign.parallel.mesh import make_mesh
-from tpualign_torch import matrices
+from tpualign_torch import matrices, trace
 from tpualign_torch.config import AlignMode, ScoringConfig
 from tpualign_torch.ops import bitpal
 from tpualign_torch.parallel import bitpal_strips, mesh
@@ -173,7 +173,9 @@ def test_pipeline_through_the_shim(dll, monkeypatch, g):
     shim = rk.shim_fill_g_stream(lib)
     monkeypatch.setattr(bitpal, "fill_g_stream", shim)
     s1, s2 = random_pair(200, 64 * 7 + 9, seed=g)
+    before = trace.counters().get("launch.bitpal_gfill_stream", 0)
     got = bitpal_strips.score(s1, s2, ScoringConfig(gap=-g), group=_group(3), chunk_cols=48)
     assert got == joracle.score(s1, s2, JScoring(gap=-g))
     nw, nwl, d, K = bitpal_strips.geometry(s2.size, s1.size, 3, 48)
-    assert (nw, nwl, d) == (8, 3, 2) and shim.launches == 3 * K
+    launched = trace.counters()["launch.bitpal_gfill_stream"] - before
+    assert (nw, nwl, d) == (8, 3, 2) and launched == 3 * K

@@ -24,8 +24,15 @@ import numpy as np
 import pytest
 import torch
 
+from tpualign_torch import trace
 from tpualign_torch.config import AlignMode, ScoringConfig
 from tpualign_torch.ops import pallas_diag
+
+
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` counted so far in this process."""
+    return trace.counters().get("launch." + kernel, 0)
+
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
 
@@ -112,8 +119,8 @@ def test_diag_fill_wrapper_on_cpu_takes_a_geometry_and_runs_the_plain_version():
     s1 = torch.from_numpy(rng.integers(0, 5, 90).astype(np.int8))
     s2 = torch.from_numpy(rng.integers(0, 5, 70).astype(np.int8))
     cfg = CFGS["SW (2, -1, -2)"]
-    before = pallas_diag.diag_fill.launches
+    before = launches("diag_fill")
     got = pallas_diag.diag_fill(s1, s2, cfg, geometry=(1, 32, 2))
     assert int(got) == int(pallas_diag.score_plain(s1, s2, cfg))
-    assert pallas_diag.diag_fill.launches == before
+    assert launches("diag_fill") == before
 

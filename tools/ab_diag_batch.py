@@ -181,7 +181,7 @@ def main() -> int:
     ap.add_argument("--no-full", action="store_true")
     ap.add_argument("--only", choices=("k8", "k5"), default=None,
                     help="the full shapes of one kernel only")
-    ap.add_argument("--launches", type=int, default=0,
+    ap.add_argument("--launches", type=int, default=0, dest="traced",
                     help="also trace this many launches of each version on K5's mixes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -271,8 +271,8 @@ def main() -> int:
         tpad, mt, eq, _ = batch_inputs(texts, queries)
         got, same = ab(name, lambda v: v.batch(tpad, mt, eq, g), torch.equal, args.runs)
         ok = ok and same
-        for v in built if args.launches else ():
-            calls, device = launch_spread(lambda: v.batch(tpad, mt, eq, g), args.launches)
+        for v in built if args.traced else ():
+            calls, device = launch_spread(lambda: v.batch(tpad, mt, eq, g), args.traced)
             print(f"[launches {v.label} {name}] {len(device)} kernels traced: device ms "
                   + ", ".join(f"{x:.3f}" for x in device) + "; call ms "
                   + ", ".join(f"{x:.3f}" for x in calls))

@@ -67,7 +67,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tpualign_torch import _build, matrices  # noqa: E402
+from tpualign_torch import _build, matrices, trace  # noqa: E402
 from tpualign_torch.config import AlignMode, ScoringConfig  # noqa: E402
 from tpualign_torch.ops import band, band_batch, bitpal, pairs, pallas_diag, xla  # noqa: E402
 
@@ -466,7 +466,8 @@ def edge_case(dll, rng, cfg, m, n, geometry=None, locate=False, shallow=False):
 def shim_edge_fill(dll):
     """``band.edge_fill`` on CPU tensors through the shim's
     ``band_capture_edge`` (the planner's geometry, a fresh ring and flags a
-    launch): a sharded pipeline driven through the kernel's entry."""
+    launch, counted in ``launch.band_capture_edge`` as the wrapper counts
+    it): a sharded pipeline driven through the kernel's entry."""
 
     def edge_fill(text, query, cfg, top, left, rows=(), *, cell=False):
         m, n = text.numel(), query.numel()
@@ -489,18 +490,17 @@ def shim_edge_fill(dll):
             ring.data_ptr(), plan.depth, sync.data_ptr(), cells.data_ptr(), None)
         if err:
             raise RuntimeError(f"band_capture_edge refused the launch ({err})")
-        edge_fill.launches += 1
+        trace.count("launch.band_capture_edge")
         return band.Capture(caps[-1], caps[: len(rows)] if rows else None, last_col,
                             found if cell else None, None)
 
-    edge_fill.launches = 0
     return edge_fill
 
 
 def shim_fill_g_stream(dll):
     """``bitpal.fill_g_stream`` on CPU tensors through the shim's
     ``bitpal_gfill_stream`` (the planner's blocks, a fresh ring and flags
-    a launch)."""
+    a launch, counted in ``launch.bitpal_gfill_stream``)."""
 
     def fill_g_stream(text, eq, nq, g, t0, t_steps, state, u_in, tail_word, blocks=None):
         nw, mt = eq.shape[1], text.shape[0]
@@ -518,10 +518,9 @@ def shim_fill_g_stream(dll):
             tail.data_ptr(), tail_word, None)
         if err:
             raise RuntimeError(f"bitpal_gfill_stream refused the launch ({err})")
-        fill_g_stream.launches += 1
+        trace.count("launch.bitpal_gfill_stream")
         return bitpal.WaveState(tuple(v_out.unbind(0)), h_out), tail
 
-    fill_g_stream.launches = 0
     return fill_g_stream
 
 

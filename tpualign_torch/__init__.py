@@ -16,9 +16,11 @@ Public API:
 
 ``python -m tpualign_torch score|align|generate|bench|info`` is its command
 line (:mod:`tpualign_torch.cli`); :mod:`tpualign_torch.utils.native` its host
-C++ (the leaf walks).
+C++ (the leaf walks); :mod:`tpualign_torch.trace` its one recorder of spans
+and counters.
 """
 
+from . import trace
 from .api import align, align_score, align_score_batch
 from .config import AlignMode, EngineConfig, ScoringConfig
 

@@ -9,6 +9,10 @@ build-on-first-use pattern as ``tpualign/utils/native.py``, except that a
 failed build raises with the compiler's output instead of reporting the
 library unavailable: a CUDA tensor has no other path to take.
 
+The compile is the span ``build`` (:mod:`tpualign_torch.trace`), its
+``nvcc`` runs the counter ``build.compiled``; each load of the library
+counts ``build.loaded``.
+
 Nothing here runs at import time; the CPU tests import the package without
 a CUDA toolkit.
 """
@@ -22,6 +26,8 @@ import os
 import shutil
 import subprocess
 from typing import Optional
+
+from . import trace
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -61,6 +67,14 @@ def library_path() -> str:
     out = os.path.join(BUILD_DIR, f"libtpualign_torch_{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
+    with trace.span("build"):
+        _compile(sources, out)
+    trace.count("build.compiled", len(sources))
+    return out
+
+
+def _compile(sources, out: str) -> None:
+    """Compile ``sources`` and link them into the library ``out``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     nvcc = _nvcc()
@@ -96,7 +110,6 @@ def library_path() -> str:
     with open(out + ".log", "w") as f:
         f.write("".join(logs))
     os.replace(tmp, out)
-    return out
 
 
 def load() -> ctypes.CDLL:
@@ -104,6 +117,7 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(library_path())
+        trace.count("build.loaded")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         # the pipelined bit-parallel fills (bitpal_gfill.cu, bitpal_rc.cu):
         # blocks, then the ring, its depth and the flags

@@ -32,6 +32,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from . import trace
 from .config import EngineConfig, ScoringConfig
 from .ops import (affine_align, band, band_align, band_batch, bitpal, ends_free, hirschberg,
                   oracle, pallas_diag, traceback, traceback_diag, xla)
@@ -115,10 +116,21 @@ def align_score(
     inside a pipeline propagates): ``bitpal-strips`` (``chunk_cols``
     ``engine.chunk_rows``) to ``strips``; ``band-strips`` to ``strips``, or
     for matrix and ends-free configs to ``band``; ``strips``
-    (``engine.chunk_rows``) refuses matrix and ends-free configs."""
+    (``engine.chunk_rows``) refuses matrix and ends-free configs.
+
+    The call is the root span ``align_score`` (:mod:`tpualign_torch.trace`),
+    tagged with the engine it resolved to (``impl``), which the child span
+    ``route`` resolves."""
+    with trace.span("align_score"):
+        return _align_score(s1, s2, scoring, engine)
+
+
+def _align_score(s1, s2, scoring: ScoringConfig, engine: EngineConfig) -> int:
     s1, s2 = np.asarray(s1), np.asarray(s2)
-    impl = resolve_impl(engine, scoring, (int(s1.size), int(s2.size)))
+    with trace.span("route"):
+        impl = resolve_impl(engine, scoring, (int(s1.size), int(s2.size)))
     dev = engine.device
+    trace.tag(impl=impl)
     if impl == "bitpal-strips":
         try:
             bitpal_strips.check(s1, s2, scoring)
@@ -204,10 +216,21 @@ def align(
     :func:`tpualign_torch.ops.affine_align.align_local`), and the
     checkpointed tracebacks' fill, copy and walk
     (:func:`tpualign_torch.ops.traceback_diag.align_diag`,
-    :func:`tpualign_torch.ops.traceback.align_checkpointed`)."""
+    :func:`tpualign_torch.ops.traceback.align_checkpointed`).
+
+    The call is the root span ``align`` (:mod:`tpualign_torch.trace`),
+    tagged with its ``impl`` past the full table (``"full_table"`` up to
+    it)."""
+    with trace.span("align"):
+        return _align(s1, s2, scoring, engine, stats)
+
+
+def _align(s1, s2, scoring: ScoringConfig, engine: EngineConfig,
+           stats: dict | None) -> Tuple[int, str, str]:
     s1 = np.asarray(s1, dtype=np.int8)
     s2 = np.asarray(s2, dtype=np.int8)
     if (s1.size + 1) * (s2.size + 1) <= FULL_TABLE_CELL_LIMIT:
+        trace.tag(impl="full_table")
         if native.walks(scoring) and not scoring.is_local:
             # the oracle's refusal of codes outside a matrix, a ValueError
             xla.check_codes(torch.from_numpy(s1), torch.from_numpy(s2), scoring)
@@ -215,10 +238,14 @@ def align(
         return oracle.traceback(s1, s2, scoring)
     dev = engine.device
     if scoring.has_matrix or scoring.is_ends_free:
+        trace.tag(impl="ends_free")
         return ends_free.align_large(s1, s2, scoring, device=dev, stats=stats)
     if scoring.is_affine:
+        trace.tag(impl="affine")
         return affine_align.align(s1, s2, scoring, device=dev, stats=stats)
-    impl = resolve_impl(engine, scoring)
+    with trace.span("route"):
+        impl = resolve_impl(engine, scoring)
+    trace.tag(impl=impl)
     if impl == "bitpal":
         try:
             return hirschberg.align(s1, s2, scoring, device=dev, stats=stats)
@@ -264,12 +291,23 @@ def align_score_batch(
     ends-free modes with them, masked local scoring and pairs past one
     strip, which ``tpualign`` sends to the row scan or its per-pair loop,
     with the same scores; an empty batch returns an empty array (where
-    ``tpualign`` fails an assertion)."""
+    ``tpualign`` fails an assertion).
+
+    The call is the root span ``align_score_batch``
+    (:mod:`tpualign_torch.trace`), tagged with its ``impl``."""
+    with trace.span("align_score_batch"):
+        return _align_score_batch(texts, queries, scoring, engine)
+
+
+def _align_score_batch(texts: Sequence, queries: Sequence, scoring: ScoringConfig,
+                       engine: EngineConfig) -> np.ndarray:
     if len(texts) != len(queries):
         raise ValueError(f"{len(texts)} texts but {len(queries)} queries")
     if not len(texts):
         return np.zeros(0, np.int64)
-    impl = resolve_impl(engine, scoring)
+    with trace.span("route"):
+        impl = resolve_impl(engine, scoring)
+    trace.tag(impl=impl)
     dev = engine.device
     if (engine.impl == "xla" and scoring.is_affine
             and not (scoring.has_matrix or scoring.is_ends_free)):

@@ -20,7 +20,10 @@ codes.
 - ``info``     — torch's and CUDA's versions and each device's name.
 
 The port adds ``--device`` (default ``cuda``), as ``EngineConfig`` has:
-the CLI runs on the card unless it is asked for the CPU.  ``--impl`` takes
+the CLI runs on the card unless it is asked for the CPU.  ``score`` and
+``align`` take ``--trace FILE``: the call runs inside
+:func:`tpualign_torch.trace.recording`, and FILE gets its spans and
+counters as JSON (:func:`_write_trace`).  ``--impl`` takes
 ``tpualign``'s names, the sharded engines' included (over the default
 shard group, ``--chunk-rows`` their chunk depth).
 """
@@ -28,6 +31,8 @@ shard group, ``--chunk-rows`` their chunk depth).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import os
 import sys
 import time
@@ -35,6 +40,7 @@ from typing import List
 
 import numpy as np
 
+from . import trace
 from .config import AlignMode, EngineConfig, ScoringConfig
 
 
@@ -88,6 +94,12 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
                         "runs the kernels, 'cpu' their plain versions")
 
 
+def _add_trace_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace", metavar="FILE", default=None,
+                   help="write the call's spans and counters (tpualign_torch.trace) to FILE "
+                        "as JSON")
+
+
 def _engine(args) -> EngineConfig:
     return EngineConfig(impl=args.impl, device=args.device, chunk_rows=args.chunk_rows)
 
@@ -98,16 +110,39 @@ def _load_pair(args):
     return read_bdna(args.seq1), read_bdna(args.seq2)
 
 
+def _traced(args):
+    """The recording of the command's call under ``--trace``, else
+    nothing."""
+    return trace.recording() if args.trace else contextlib.nullcontext()
+
+
+def _write_trace(path: str, counters_before: dict) -> None:
+    """``path`` gets the recorded calls (:meth:`tpualign_torch.trace.Call.as_dict`:
+    each span's name, its parent's index, its host-clock nanoseconds and
+    attributes; the call's counters) and the counters the command moved."""
+    now = trace.counters()
+    moved = {k: v - counters_before.get(k, 0) for k, v in now.items()
+             if v != counters_before.get(k, 0)}
+    with open(path, "w") as f:
+        json.dump({"calls": [c.as_dict() for c in trace.take()], "counters": moved}, f,
+                  indent=1)
+        f.write("\n")
+
+
 def cmd_score(args) -> int:
     from .api import align_score
 
     s1, s2 = _load_pair(args)
     engine = _engine(args)
-    t0 = time.perf_counter()
-    score = align_score(s1, s2, _scoring(args), engine)
-    ms = (time.perf_counter() - t0) * 1e3
+    before = trace.counters()
+    with _traced(args):
+        t0 = time.perf_counter()
+        score = align_score(s1, s2, _scoring(args), engine)
+        ms = (time.perf_counter() - t0) * 1e3
     print(f"{ms:.2f}")
     print(f"Score: {score}")
+    if args.trace:
+        _write_trace(args.trace, before)
     return 0
 
 
@@ -116,9 +151,13 @@ def cmd_align(args) -> int:
 
     s1, s2 = _load_pair(args)
     engine = _engine(args)
-    t0 = time.perf_counter()
-    score, a1, a2 = align(s1, s2, _scoring(args), engine)
-    ms = (time.perf_counter() - t0) * 1e3
+    before = trace.counters()
+    with _traced(args):
+        t0 = time.perf_counter()
+        score, a1, a2 = align(s1, s2, _scoring(args), engine)
+        ms = (time.perf_counter() - t0) * 1e3
+    if args.trace:
+        _write_trace(args.trace, before)
     print(f"{ms:.2f}")
     print(f"Score: {score}")
     if args.out:
@@ -414,6 +453,7 @@ def main(argv: List[str] | None = None) -> int:
     p = sub.add_parser("score", help="alignment score of two .bdna files")
     p.add_argument("seq1")
     p.add_argument("seq2")
+    _add_trace_arg(p)
     _add_scoring_args(p)
     _add_engine_args(p)
     p.set_defaults(fn=cmd_score)
@@ -423,6 +463,7 @@ def main(argv: List[str] | None = None) -> int:
     p.add_argument("seq2")
     p.add_argument("--out", help="write alignment to file")
     p.add_argument("--width", type=int, default=80)
+    _add_trace_arg(p)
     _add_scoring_args(p)
     _add_engine_args(p)
     p.set_defaults(fn=cmd_align)

@@ -49,6 +49,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import AlignMode, ScoringConfig
 from . import band, band_align, hirschberg, oracle
 from .bitpal import _device
@@ -152,68 +153,85 @@ def align(s1, s2, cfg: ScoringConfig, *, device,
     (until the last node's crossing is read back), ``leaf_walk`` (always
     ``"numpy"``: the flagged Gotoh walk has no C++ counterpart, ROADMAP
     item 15), ``leaf_walk_s`` (the leaf walks' own times, summed over the
-    threads) and ``wall_s``."""
+    threads) and ``wall_s``.  The spans and counters are
+    :func:`tpualign_torch.ops.hirschberg.tree`'s, a node's fills the span
+    ``node.affine`` and the counter ``nodes.affine``."""
     _check_cfg(cfg)
     if cfg.is_local:
         return align_local(s1, s2, cfg, device=device, stats=stats)
-    t_start = time.perf_counter()
-    s1, s2 = band_align._codes(s1, s2, cfg)
-    dev = _device(device)
-    q = torch.from_numpy(s2).to(dev)
-    t = torch.from_numpy(s1).to(dev)
-    seqs = (q, q.flip(0), t, t.flip(0))
-    open_ = cfg.gap_open
-    counts = dict(nodes=0, gap_nodes=0, leaves=0, leaf_cells=0)
-    pieces = []  # (ta, qa, future of (walk seconds, (score, a1, a2)) or strings)
-    pending = deque()
+    timed = stats is not None
+    with trace.span("tree", timed) as whole:
+        open_ = cfg.gap_open
+        counts = dict(nodes=0, gap_nodes=0, leaves=0, leaf_cells=0)
+        # (ta, qa, future of (queue ns, walk ns, (score, a1, a2)) or strings)
+        pieces = []
+        pending = deque()
 
-    def walk(ta, tb, qa, qb, top, bot):
-        t0 = time.perf_counter()
-        result = _base_align(s1[ta:tb], s2[qa:qb], cfg, top, bot)
-        return time.perf_counter() - t0, result
+        def walk(submitted, ta, tb, qa, qb, top, bot):
+            t0 = time.perf_counter_ns()
+            result = _base_align(s1[ta:tb], s2[qa:qb], cfg, top, bot)
+            return t0 - submitted, time.perf_counter_ns() - t0, result
 
-    def submit(ta, tb, qa, qb, top, bot):
-        m, n = tb - ta, qb - qa
-        if (m + 1) * (n + 1) <= BASE_CELLS or n < 2 or m < 1:
-            counts["leaves"] += 1
-            counts["leaf_cells"] += (m + 1) * (n + 1)
-            pieces.append((ta, qa, pool.submit(walk, ta, tb, qa, qb, top, bot)))
-            return
-        counts["nodes"] += 1
-        mid = n // 2
-        found = _crossing(seqs, ta, tb, qa, qb, mid, top, bot, cfg)
-        pending.append((ta, tb, qa, qb, top, bot, mid, found))
+        def submit(ta, tb, qa, qb, top, bot):
+            m, n = tb - ta, qb - qa
+            if (m + 1) * (n + 1) <= BASE_CELLS or n < 2 or m < 1:
+                counts["leaves"] += 1
+                counts["leaf_cells"] += (m + 1) * (n + 1)
+                trace.count("leaves")
+                trace.count("leaf_cells", (m + 1) * (n + 1))
+                pieces.append((ta, qa, pool.submit(walk, time.perf_counter_ns(), ta, tb, qa, qb,
+                                                   top, bot)))
+                return
+            counts["nodes"] += 1
+            trace.count("nodes.affine")
+            mid = n // 2
+            with trace.span("node.affine"):
+                found = _crossing(seqs, ta, tb, qa, qb, mid, top, bot, cfg)
+            pending.append((ta, tb, qa, qb, top, bot, mid, found))
 
-    score = None
-    with ThreadPoolExecutor(max_workers=hirschberg.LEAF_WORKERS) as pool:
-        submit(0, s1.size, 0, s2.size, open_, open_)
-        while pending:
-            ta, tb, qa, qb, top, bot, mid, found = pending.popleft()
-            jh, vh, jf, vf = found.tolist()
-            if score is None:
-                score = max(vh, vf)  # the root's crossing value is the score
-            if vh >= vf:  # the path meets (mid, jh) gap-free
-                submit(ta, ta + jh, qa, qa + mid, top, open_)
-                submit(ta + jh, tb, qa + mid, qb, open_, bot)
-                continue
-            # a vertical gap spans rows mid and mid + 1 at column jf
-            counts["gap_nodes"] += 1
-            submit(ta, ta + jf, qa, qa + mid - 1, top, 0)
-            pieces.append((ta + jf, qa + mid - 1, ("--", oracle.BASES[s2[qa + mid - 1]]
-                                                   + oracle.BASES[s2[qa + mid]])))
-            submit(ta + jf, tb, qa + mid + 1, qb, 0, bot)
-        bisect_s = time.perf_counter() - t_start
-        # the pieces tile the path: sorting by (column, row) restores its order
-        pieces.sort(key=lambda piece: piece[:2])
-        walked = [(0.0, (None, *p)) if isinstance(p, tuple) else p.result()
-                  for _, _, p in pieces]
-    if score is None:  # the root is a leaf
-        score = walked[0][1][0]
+        score = None
+        with ThreadPoolExecutor(max_workers=hirschberg.LEAF_WORKERS) as pool:
+            with trace.span("bisect", timed) as bisect:
+                s1, s2 = band_align._codes(s1, s2, cfg)
+                dev = _device(device)
+                with trace.span("to_device"):
+                    q = torch.from_numpy(s2).to(dev)
+                    t = torch.from_numpy(s1).to(dev)
+                seqs = (q, q.flip(0), t, t.flip(0))
+                submit(0, s1.size, 0, s2.size, open_, open_)
+                while pending:
+                    ta, tb, qa, qb, top, bot, mid, found = pending.popleft()
+                    with trace.span("read_back"):
+                        jh, vh, jf, vf = found.tolist()
+                    if score is None:
+                        score = max(vh, vf)  # the root's crossing value is the score
+                    if vh >= vf:  # the path meets (mid, jh) gap-free
+                        submit(ta, ta + jh, qa, qa + mid, top, open_)
+                        submit(ta + jh, tb, qa + mid, qb, open_, bot)
+                        continue
+                    # a vertical gap spans rows mid and mid + 1 at column jf
+                    counts["gap_nodes"] += 1
+                    submit(ta, ta + jf, qa, qa + mid - 1, top, 0)
+                    pieces.append((ta + jf, qa + mid - 1, ("--", oracle.BASES[s2[qa + mid - 1]]
+                                                           + oracle.BASES[s2[qa + mid]])))
+                    submit(ta + jf, tb, qa + mid + 1, qb, 0, bot)
+            with trace.span("leaves.wait"):
+                # the pieces tile the path: sorting by (column, row) restores its order
+                pieces.sort(key=lambda piece: piece[:2])
+                walked = [(0, 0, (None, *p)) if isinstance(p, tuple) else p.result()
+                          for _, _, p in pieces]
+        if score is None:  # the root is a leaf
+            score = walked[0][2][0]
+        with trace.span("assemble"):
+            a1 = "".join(r[1] for _, _, r in walked)
+            a2 = "".join(r[2] for _, _, r in walked)
+    walk_ns = sum(w for _, w, _ in walked)
+    trace.count("leaf_walk_ns", walk_ns)
+    trace.count("leaf_queue_ns", sum(wait for wait, _, _ in walked))
     if stats is not None:
-        stats.update(counts, bisect_s=bisect_s, leaf_walk="numpy",
-                     leaf_walk_s=sum(s for s, _ in walked),
-                     wall_s=time.perf_counter() - t_start)
-    return score, "".join(r[1] for _, r in walked), "".join(r[2] for _, r in walked)
+        stats.update(counts, bisect_s=bisect.seconds, leaf_walk="numpy",
+                     leaf_walk_s=walk_ns / 1e9, wall_s=whole.seconds)
+    return score, a1, a2
 
 
 def align_local(s1, s2, cfg: ScoringConfig, *, device,
@@ -226,34 +244,46 @@ def align_local(s1, s2, cfg: ScoringConfig, *, device,
     ``stats``, when given, gets ``end`` and ``vmax`` (the located end cell
     and the optimum), ``start`` and ``core`` (its rows and columns),
     ``core_stats`` (:func:`align`'s) and host-clock seconds ``locate_s``,
-    ``start_s`` and ``wall_s``."""
-    t_start = time.perf_counter()
-    _check_cfg(cfg)
-    if not cfg.is_local:
-        raise ValueError("align_local requires a local affine config")
-    s1, s2 = band_align._codes(s1, s2, cfg)
-    info = {} if stats is None else stats
-    if s1.size == 0 or s2.size == 0:
-        return 0, "", ""
-    dev = _device(device)
-    vmax, i_end, j_end = band_align.locate_all(torch.from_numpy(s1).to(dev),
-                                               torch.from_numpy(s2).to(dev), cfg)
-    info.update(end=(i_end, j_end), vmax=vmax, locate_s=time.perf_counter() - t_start)
+    ``start_s`` and ``wall_s``: the durations of the spans ``locate``,
+    ``start`` and ``align_local`` (:mod:`tpualign_torch.trace`)."""
+    timed = stats is not None
+    with trace.span("align_local", timed) as whole:
+        out = _align_local(s1, s2, cfg, device, stats)
+    if timed and "core" in stats:
+        stats["wall_s"] = whole.seconds
+    return out
+
+
+def _align_local(s1, s2, cfg: ScoringConfig, device, stats: dict | None):
+    timed = stats is not None
+    with trace.span("locate", timed) as locate:
+        _check_cfg(cfg)
+        if not cfg.is_local:
+            raise ValueError("align_local requires a local affine config")
+        s1, s2 = band_align._codes(s1, s2, cfg)
+        info = {} if stats is None else stats
+        if s1.size == 0 or s2.size == 0:
+            return 0, "", ""
+        dev = _device(device)
+        vmax, i_end, j_end = band_align.locate_all(*band_align._to_device(s1, s2, dev), cfg)
+    info.update(end=(i_end, j_end), vmax=vmax)
+    if timed:
+        info["locate_s"] = locate.seconds
     if vmax == 0:
         return 0, "", ""
-    t0 = time.perf_counter()
-    v0, p, qq = band_align.locate_all(torch.from_numpy(s1[:j_end][::-1].copy()).to(dev),
-                                      torch.from_numpy(s2[:i_end][::-1].copy()).to(dev), cfg,
-                                      anchored=True)
+    with trace.span("start", timed) as start:
+        v0, p, qq = band_align.locate_all(
+            *band_align._to_device(s1[:j_end][::-1].copy(), s2[:i_end][::-1].copy(), dev),
+            cfg, anchored=True)
     if v0 != vmax:  # pragma: no cover - a broken locate
         raise AssertionError(f"anchored start locate {v0} != the end locate {vmax}")
     i0, j0 = i_end - p, j_end - qq
     core_stats = {}
-    info.update(start=(i0, j0), core=(i_end - i0, j_end - j0),
-                start_s=time.perf_counter() - t0, core_stats=core_stats)
+    info.update(start=(i0, j0), core=(i_end - i0, j_end - j0), core_stats=core_stats)
+    if timed:
+        info["start_s"] = start.seconds
     sc, a1, a2 = align(s1[j0:j_end], s2[i0:i_end], cfg.with_mode(AlignMode.GLOBAL),
                        device=dev, stats=core_stats)
     if sc != vmax:  # pragma: no cover - a broken core
         raise AssertionError(f"core score {sc} != the located optimum {vmax}")
-    info["wall_s"] = time.perf_counter() - t_start
     return sc, a1, a2

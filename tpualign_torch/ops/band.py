@@ -45,7 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..config import ScoringConfig
 from . import xla
 from .bitpal import _device
@@ -196,19 +196,39 @@ def ring_budget(device=None, free_bytes: Optional[int] = None) -> int:
     every pair inside the int32 headroom (2^29 columns, 4.3 GB; 8.6 GB
     affine)."""
     if free_bytes is None:
-        free_bytes = (torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
-                      - torch.cuda.memory_allocated(device))
+        trace.count("free_memory")
+        with trace.span("free_memory"):
+            free_bytes = (torch.cuda.mem_get_info(device)[0]
+                          + torch.cuda.memory_reserved(device)
+                          - torch.cuda.memory_allocated(device))
     return int(free_bytes * RING_SHARE)
 
 
 def _pipe_scratch(plan: PipePlan, m: int, affine: bool, dev, cells: bool):
     """The ring, the zeroed ticket, done counter and progress flags, and,
-    for a located cell, each block's cell."""
-    ring = (torch.empty((plan.depth, 2 if affine else 1, m + 1), dtype=torch.int32, device=dev)
-            if plan.depth else None)
-    sync = torch.zeros(plan.strips + 2, dtype=torch.int32, device=dev)
-    block_cells = torch.empty((plan.blocks, 3), dtype=torch.int32, device=dev) if cells else None
+    for a located cell, each block's cell (the span ``alloc``)."""
+    with trace.span("alloc"):
+        ring = (torch.empty((plan.depth, 2 if affine else 1, m + 1), dtype=torch.int32,
+                            device=dev) if plan.depth else None)
+        sync = torch.zeros(plan.strips + 2, dtype=torch.int32, device=dev)
+        block_cells = (torch.empty((plan.blocks, 3), dtype=torch.int32, device=dev)
+                       if cells else None)
+    trace.count_bytes("alloc_bytes", ring, sync, block_cells)
     return ring, sync, block_cells
+
+
+def _plan(n: int, m: int, affine: bool, geometry, most_k: int, dev) -> PipePlan:
+    """:func:`pipeline_plan` within :func:`ring_budget` of ``dev`` (the span
+    ``plan``)."""
+    with trace.span("plan"):
+        return pipeline_plan(n, m, affine, geometry, most_k, ring_budget(dev))
+
+
+def _matrix(cfg: ScoringConfig, dev) -> torch.Tensor:
+    """The config's matrix, flat, as int32 on ``dev`` (``[0]`` without one;
+    the span ``to_device``)."""
+    with trace.span("to_device"):
+        return torch.tensor(cfg.matrix if cfg.has_matrix else [0], dtype=torch.int32).to(dev)
 
 
 def max_k(cfg: ScoringConfig) -> int:
@@ -304,9 +324,10 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     and the blocks that run the strips, never the result; ``blocks=1`` is
     the single-block schedule.  On CUDA the wrapper allocates the output,
     then the ring (within :func:`ring_budget`) and the flags, launches on
-    the current stream without synchronising, and counts the launch in
-    ``band_fill.launches``.  A launch the device refuses raises; nothing
-    falls back to the plain version or to fewer blocks."""
+    the current stream without synchronising, and counts the launch in the
+    counter ``launch.band_fill`` (:mod:`tpualign_torch.trace`).  A launch
+    the device refuses raises; nothing falls back to the plain version or
+    to fewer blocks."""
     xla.check_pair(text, query, ("text", "query"))
     if text.device.type == "cpu":
         return score_plain(text, query, cfg, ends)
@@ -316,12 +337,13 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     dev = text.device
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
-    matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
-    # the identity of the blocks' max
-    out = torch.full((1,), 0 if cfg.is_local else NEG, dtype=torch.int32, device=dev)
-    plan = pipeline_plan(n, m, cfg.is_affine, geometry, max_k(cfg), ring_budget(dev))
+    matrix = _matrix(cfg, dev)
+    with trace.span("alloc"):  # the identity of the blocks' max
+        out = torch.full((1,), 0 if cfg.is_local else NEG, dtype=torch.int32, device=dev)
+    trace.count_bytes("alloc_bytes", out)
+    plan = _plan(n, m, cfg.is_affine, geometry, max_k(cfg), dev)
     ring, sync, _ = _pipe_scratch(plan, m, cfg.is_affine, dev, False)
-    with torch.cuda.device(dev):
+    with trace.span("launch.band_fill"), torch.cuda.device(dev):
         err = lib.band_fill(
             text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
             cfg.match, cfg.mismatch, cfg.gap, cfg.gap_open or 0,
@@ -331,11 +353,8 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
         )
     if err != 0:
         raise RuntimeError(f"band_fill launch failed with CUDA error {err}")
-    band_fill.launches += 1
+    trace.count("launch.band_fill")
     return out[0].long()
-
-
-band_fill.launches = 0
 
 
 class Capture(NamedTuple):
@@ -448,7 +467,8 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     ``geometry`` as in :func:`band_fill`.  On CUDA the wrapper allocates the
     outputs, then the pipeline's scratch (the ring within
     :func:`ring_budget`), launches on the current stream without
-    synchronising, and counts the launch in ``capture_fill.launches``.  A
+    synchronising, and counts the launch in the counter
+    ``launch.band_capture_fill`` or ``launch.band_capture_affine``.  A
     launch the device refuses raises; nothing falls back to the plain
     version or to fewer blocks."""
     rows, tb = _check_capture(text, query, cfg, rows, tb)
@@ -461,15 +481,18 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     dev = text.device
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
-    matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
+    matrix = _matrix(cfg, dev)
     # the kernel returns the last row as a captured row
     krows = rows if rows and rows[-1] == n else rows + [n]
-    cap_rows = torch.tensor(krows, dtype=torch.int32).to(dev)
-    caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device=dev)
-    last_col = torch.empty(n + 1, dtype=torch.int32, device=dev) if col else None
-    found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
-    f_row = torch.empty(m + 1, dtype=torch.int32, device=dev) if cfg.is_affine else None
-    plan = pipeline_plan(n, m, cfg.is_affine, geometry, max_k(cfg), ring_budget(dev))
+    with trace.span("to_device"):
+        cap_rows = torch.tensor(krows, dtype=torch.int32).to(dev)
+    with trace.span("alloc"):
+        caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device=dev)
+        last_col = torch.empty(n + 1, dtype=torch.int32, device=dev) if col else None
+        found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
+        f_row = torch.empty(m + 1, dtype=torch.int32, device=dev) if cfg.is_affine else None
+    trace.count_bytes("alloc_bytes", caps, last_col, found, f_row)
+    plan = _plan(n, m, cfg.is_affine, geometry, max_k(cfg), dev)
     ring, sync, block_cells = _pipe_scratch(plan, m, cfg.is_affine, dev, cell)
     pipe = (_ptr(ring), plan.depth, sync.data_ptr(), _ptr(block_cells))
     head = (text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K, cfg.match,
@@ -477,22 +500,19 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     flags = _flags(cfg, (zero_row, zero_col, False, False))
     outs = (cap_rows.data_ptr(), len(krows), caps.data_ptr(), _ptr(last_col), _ptr(found))
     geom = (plan.k, plan.threads, plan.blocks)
-    with torch.cuda.device(dev):
+    # csrc/band_capture_affine.cu under affine gaps
+    entry = "band_capture_affine" if cfg.is_affine else "band_capture_fill"
+    with trace.span("launch." + entry), torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if cfg.is_affine:  # csrc/band_capture_affine.cu
-            entry = "band_capture_affine"
+        if cfg.is_affine:
             err = lib.band_capture_affine(*head, cfg.gap_open, cfg.gap_extend, tb, flags,
                                           *geom, *outs, f_row.data_ptr(), *pipe, stream)
         else:
-            entry = "band_capture_fill"
             err = lib.band_capture_fill(*head, cfg.gap, flags, *geom, *outs, *pipe, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
-    capture_fill.launches += 1
+    trace.count("launch." + entry)
     return Capture(caps[-1], caps[: len(rows)] if rows else None, last_col, found, f_row)
-
-
-capture_fill.launches = 0
 
 
 def edge_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
@@ -504,7 +524,7 @@ def edge_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     H(0..n, m) always out, on the device of its tensors: the CUDA kernel
     ``band_capture_edge`` (``csrc/band_capture_edge.cu``, the strip body of
     ``band_fill.cuh`` with its EDGE flag) for CUDA tensors, planned as
-    :func:`capture_fill` and counted in ``edge_fill.launches``;
+    :func:`capture_fill` and counted in ``launch.band_capture_edge``;
     :func:`capture_plain` for CPU tensors."""
     rows, _ = _check_capture(text, query, cfg, rows, None)
     _check_edges(text, query, cfg, top, left)
@@ -516,15 +536,18 @@ def edge_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     dev = text.device
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
-    matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
+    matrix = _matrix(cfg, dev)
     krows = rows if rows and rows[-1] == n else rows + [n]
-    cap_rows = torch.tensor(krows, dtype=torch.int32).to(dev)
-    caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device=dev)
-    last_col = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
-    plan = pipeline_plan(n, m, False, None, max_k(cfg), ring_budget(dev))
+    with trace.span("to_device"):
+        cap_rows = torch.tensor(krows, dtype=torch.int32).to(dev)
+    with trace.span("alloc"):
+        caps = torch.empty((len(krows), m + 1), dtype=torch.int32, device=dev)
+        last_col = torch.empty(n + 1, dtype=torch.int32, device=dev)
+        found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
+    trace.count_bytes("alloc_bytes", caps, last_col, found)
+    plan = _plan(n, m, False, None, max_k(cfg), dev)
     ring, sync, block_cells = _pipe_scratch(plan, m, False, dev, cell)
-    with torch.cuda.device(dev):
+    with trace.span("launch.band_capture_edge"), torch.cuda.device(dev):
         err = lib.band_capture_edge(
             text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K, cfg.match,
             cfg.mismatch, cfg.gap, _flags(cfg, (False,) * 4), plan.k, plan.threads,
@@ -533,11 +556,8 @@ def edge_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
             sync.data_ptr(), _ptr(block_cells), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"band_capture_edge launch failed with CUDA error {err}")
-    edge_fill.launches += 1
+    trace.count("launch.band_capture_edge")
     return Capture(caps[-1], caps[: len(rows)] if rows else None, last_col, found, None)
-
-
-edge_fill.launches = 0
 
 
 class Plan(NamedTuple):
@@ -603,9 +623,14 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     """Alignment score of two code sequences on ``device`` (``"cuda"`` runs
     the kernel, ``"cpu"`` the plain version); the counterpart of
     ``tpualign.ops.band.score``."""
-    s1, s2 = int8_codes(s1), int8_codes(s2)
-    t1, t2 = torch.from_numpy(s1), torch.from_numpy(s2)
-    xla.check_codes(t1, t2, cfg)
+    with trace.span("check"):
+        s1, s2 = int8_codes(s1), int8_codes(s2)
+        t1, t2 = torch.from_numpy(s1), torch.from_numpy(s2)
+        xla.check_codes(t1, t2, cfg)
     dev = _device(device)
     fn = score_fn(s1.size, s2.size, cfg, device=dev)
-    return int(fn(t1.to(dev), t2.to(dev)))
+    with trace.span("to_device"):
+        d1, d2 = t1.to(dev), t2.to(dev)
+    res = fn(d1, d2)
+    with trace.span("read_back"):
+        return int(res)

@@ -49,12 +49,12 @@ kernel's maximum covers live cells only.
 
 from __future__ import annotations
 
-import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import AlignMode, ScoringConfig
 from ..utils import native
 from . import band, hirschberg, xla
@@ -84,9 +84,10 @@ def _check_align_cfg(cfg: ScoringConfig) -> None:
 def _codes(s1, s2, cfg: ScoringConfig):
     """Both sequences as int8 code arrays, refused (ValueError) past the
     int32 headroom or outside a matrix's alphabet."""
-    s1, s2 = int8_codes(s1), int8_codes(s2)
-    xla.check_codes(torch.from_numpy(s1), torch.from_numpy(s2), cfg)
-    band._check_cfg(cfg, s1.size + s2.size)
+    with trace.span("check"):
+        s1, s2 = int8_codes(s1), int8_codes(s2)
+        xla.check_codes(torch.from_numpy(s1), torch.from_numpy(s2), cfg)
+        band._check_cfg(cfg, s1.size + s2.size)
     return s1, s2
 
 
@@ -146,7 +147,9 @@ def locate_all(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig, *,
     ``tpualign.ops.affine_align`` locates (``_locate``; anchored,
     ``_first_hit_fn``)."""
     fill_cfg = cfg.with_mode(AlignMode.GLOBAL) if anchored else cfg
-    v, i, j = band.capture_fill(text, query, fill_cfg, cell=True).cell.tolist()
+    found = band.capture_fill(text, query, fill_cfg, cell=True).cell
+    with trace.span("read_back"):
+        v, i, j = found.tolist()
     m, n = text.numel(), query.numel()
     zero = not anchored
     if cfg.is_affine:
@@ -175,20 +178,38 @@ def align_local(s1, s2, cfg: ScoringConfig, *, device,
     ``window`` (its rows and columns) and ``leaf_walk`` (``"native"``), for
     a core ``start`` and ``core``
     (its rows and columns) and ``core_stats`` (the tree's), and host-clock
-    seconds ``locate_s``, ``start_s`` and ``wall_s``."""
-    t_start = time.perf_counter()
-    _check_align_cfg(cfg)
-    if not cfg.is_local:
-        raise ValueError("align_local requires a local (SW) config")
-    s1, s2 = _codes(s1, s2, cfg)
-    m, n = s1.size, s2.size
-    info = {} if stats is None else stats
-    if m == 0 or n == 0:
-        return 0, "", ""
-    dev = _device(device)
-    vmax, i_end, j_end = locate_all(torch.from_numpy(s1).to(dev),
-                                    torch.from_numpy(s2).to(dev), cfg)
-    info.update(end=(i_end, j_end), vmax=vmax, locate_s=time.perf_counter() - t_start)
+    seconds ``locate_s``, ``start_s`` and ``wall_s``: the durations of the
+    spans ``locate``, ``start`` and ``align_local``
+    (:mod:`tpualign_torch.trace`)."""
+    timed = stats is not None
+    with trace.span("align_local", timed) as whole:
+        out = _align_local(s1, s2, cfg, device, stats)
+    if timed and "route" in stats:
+        stats["wall_s"] = whole.seconds
+    return out
+
+
+def _to_device(s1: np.ndarray, s2: np.ndarray, dev):
+    with trace.span("to_device"):
+        return torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
+
+
+def _align_local(s1, s2, cfg: ScoringConfig, device, stats: dict | None):
+    timed = stats is not None
+    with trace.span("locate", timed) as locate:
+        _check_align_cfg(cfg)
+        if not cfg.is_local:
+            raise ValueError("align_local requires a local (SW) config")
+        s1, s2 = _codes(s1, s2, cfg)
+        m, n = s1.size, s2.size
+        info = {} if stats is None else stats
+        if m == 0 or n == 0:
+            return 0, "", ""
+        dev = _device(device)
+        vmax, i_end, j_end = locate_all(*_to_device(s1, s2, dev), cfg)
+    info.update(end=(i_end, j_end), vmax=vmax)
+    if timed:
+        info["locate_s"] = locate.seconds
     if vmax == 0:
         return 0, "", ""
     # a hit scoring little is likely short: walk a window ending at the end
@@ -198,31 +219,32 @@ def align_local(s1, s2, cfg: ScoringConfig, *, device,
         span = SW_WINDOW_LIMIT
         while (min(span, i_end) + 1) * (min(span, j_end) + 1) <= WINDOW_MAX_CELLS:
             ia, ja = max(0, i_end - span), max(0, j_end - span)
-            sc, a1, a2 = native.traceback(s1[ja:j_end], s2[ia:i_end], cfg)
+            with trace.span("window"):
+                sc, a1, a2 = native.traceback(s1[ja:j_end], s2[ia:i_end], cfg)
             if sc == vmax:
                 info.update(route="window", window=(i_end - ia, j_end - ja),
-                            leaf_walk="native", wall_s=time.perf_counter() - t_start)
+                            leaf_walk="native")
                 return sc, a1, a2
             if ia == 0 and ja == 0:  # pragma: no cover - a broken locate
                 raise AssertionError(f"window walk found {sc}, the locate {vmax}")
             span *= 4
     # a long hit: the anchored start locate on the reversed prefixes, then
     # the global core between the start and the end
-    t0 = time.perf_counter()
-    v0, p, qq = locate_all(torch.from_numpy(s1[:j_end][::-1].copy()).to(dev),
-                           torch.from_numpy(s2[:i_end][::-1].copy()).to(dev), cfg,
-                           anchored=True)
+    with trace.span("start", timed) as start:
+        v0, p, qq = locate_all(*_to_device(s1[:j_end][::-1].copy(), s2[:i_end][::-1].copy(),
+                                           dev), cfg, anchored=True)
     if v0 != vmax:  # pragma: no cover - a broken locate
         raise AssertionError(f"anchored start locate {v0} != the end locate {vmax}")
     i0, j0 = i_end - p, j_end - qq
     core_stats = {}
     info.update(route="core", start=(i0, j0), core=(i_end - i0, j_end - j0),
-                start_s=time.perf_counter() - t0, core_stats=core_stats)
+                core_stats=core_stats)
+    if timed:
+        info["start_s"] = start.seconds
     sc, a1, a2 = align_global(s1[j0:j_end], s2[i0:i_end], cfg.with_mode(AlignMode.GLOBAL),
                               device=dev, stats=core_stats)
     if sc != vmax:  # pragma: no cover - a broken core
         raise AssertionError(f"core score {sc} != the located optimum {vmax}")
-    info["wall_s"] = time.perf_counter() - t_start
     return sc, a1, a2
 
 
@@ -244,12 +266,13 @@ def locate_flex_device(s1, s2, cfg: ScoringConfig, *, anchored: bool = False,
     m, n = s1.size, s2.size
     dev = _device(device)
     zr, zc = (False, False) if anchored else (cfg.free_start_s1, cfg.free_start_s2)
-    res = band.capture_fill(torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev),
-                            cfg, zero_row=zr, zero_col=zc, col=cfg.free_end_s2)
-    j = int(torch.argmax(res.row))
-    best = (int(res.row[j]), n, j)
-    if cfg.free_end_s2:  # semiglobal: the last column only if strictly greater
-        i = int(torch.argmax(res.col))
-        if int(res.col[i]) > best[0]:
-            best = (int(res.col[i]), i, m)
+    res = band.capture_fill(*_to_device(s1, s2, dev), cfg, zero_row=zr, zero_col=zc,
+                            col=cfg.free_end_s2)
+    with trace.span("read_back"):
+        j = int(torch.argmax(res.row))
+        best = (int(res.row[j]), n, j)
+        if cfg.free_end_s2:  # semiglobal: the last column only if strictly greater
+            i = int(torch.argmax(res.col))
+            if int(res.col[i]) > best[0]:
+                best = (int(res.col[i]), i, m)
     return best

@@ -41,7 +41,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..config import ScoringConfig
 from . import band, xla
 from .bitpal import _device
@@ -205,8 +205,8 @@ def batch_fill(pairs: Pairs, cfg: ScoringConfig, ends,
     reads the pairs' lengths back for the plan, allocates the output, then
     the rings (within :func:`band.ring_budget`: ``torch.OutOfMemoryError``
     past it) and the flags, launches on the current stream without
-    synchronising, counts the launch in ``batch_fill.launches`` and keeps
-    its plan in ``batch_fill.last_plan``.  A launch the device refuses
+    synchronising, counts the launch in ``launch.band_batch_fill`` and
+    keeps its plan in ``batch_fill.last_plan``.  A launch the device refuses
     raises; nothing falls back to the plain version."""
     _check_pairs(pairs)
     dev = pairs.texts.device
@@ -214,21 +214,26 @@ def batch_fill(pairs: Pairs, cfg: ScoringConfig, ends,
         return xla.score_batch(pairs, cfg, ends)
     if dev.type != "cuda":
         raise ValueError(f"batch_fill runs on cpu or cuda tensors, got {dev}")
-    m, n = pairs.lengths.cpu().numpy()
+    with trace.span("read_back"):
+        m, n = pairs.lengths.cpu().numpy()
     P = m.size
-    # only a query past one strip of the smallest block takes a ring (the
-    # free memory costs a call into CUDA)
-    budget = band.ring_budget(dev) if pairs.n_cap > LONG_K * band.WARP else None
-    plan = batch_plan(m, n, cfg.is_affine, band.max_k(cfg), geometry, budget)
+    with trace.span("plan"):
+        # only a query past one strip of the smallest block takes a ring
+        # (the free memory costs a call into CUDA)
+        budget = band.ring_budget(dev) if pairs.n_cap > LONG_K * band.WARP else None
+        plan = batch_plan(m, n, cfg.is_affine, band.max_k(cfg), geometry, budget)
     lib = _build.load()
     K = len(cfg.matrix) if cfg.has_matrix else 0
-    matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).to(dev)
-    out = torch.full((P,), 0 if cfg.is_local else band.NEG, dtype=torch.int32, device=dev)
-    sched = torch.from_numpy(plan.sched).to(dev)
-    ring = torch.empty(plan.ring, dtype=torch.int32, device=dev) if plan.ring else None
-    sync = torch.zeros(2 + plan.strips, dtype=torch.int32, device=dev)
+    matrix = band._matrix(cfg, dev)
+    with trace.span("to_device"):
+        sched = torch.from_numpy(plan.sched).to(dev)
+    with trace.span("alloc"):
+        out = torch.full((P,), 0 if cfg.is_local else band.NEG, dtype=torch.int32, device=dev)
+        ring = torch.empty(plan.ring, dtype=torch.int32, device=dev) if plan.ring else None
+        sync = torch.zeros(2 + plan.strips, dtype=torch.int32, device=dev)
+    trace.count_bytes("alloc_bytes", out, ring, sync)
     off, lens = pairs.offsets, pairs.lengths
-    with torch.cuda.device(dev):
+    with trace.span("launch.band_batch_fill"), torch.cuda.device(dev):
         err = lib.band_batch_fill(
             pairs.texts.data_ptr(), pairs.queries.data_ptr(), off[0].data_ptr(),
             off[1].data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(), P, matrix.data_ptr(), K,
@@ -239,12 +244,11 @@ def batch_fill(pairs: Pairs, cfg: ScoringConfig, ends,
         )
     if err != 0:
         raise RuntimeError(f"band_batch_fill launch failed with CUDA error {err}")
-    batch_fill.launches += 1
+    trace.count("launch.band_batch_fill")
     batch_fill.last_plan = plan
     return out.long()
 
 
-batch_fill.launches = 0
 batch_fill.last_plan = None
 
 
@@ -283,7 +287,11 @@ def score_batch(texts: Sequence, queries: Sequence, cfg: ScoringConfig = Scoring
         return out
     pairs = pack_pairs(texts, queries, np.flatnonzero(live))
     xla.check_codes(pairs.texts, pairs.queries, cfg)
-    raw = batch_fill(pairs.to(dev), cfg, band._ends_flags(cfg, False)).cpu().numpy()
+    with trace.span("to_device"):
+        pairs = pairs.to(dev)
+    raw = batch_fill(pairs, cfg, band._ends_flags(cfg, False))
+    with trace.span("read_back"):
+        raw = raw.cpu().numpy()
     floor = floors(cfg, m[live], n[live])
     out[live] = raw if floor is None else np.maximum(raw, floor)
     return out

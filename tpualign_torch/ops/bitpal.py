@@ -66,7 +66,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..config import ScoringConfig
 from . import pairs as packing
 
@@ -561,33 +561,41 @@ def band_edge_rows(nq: int) -> list:
 def _gfill_launch(text, eq, nq: int, g: int, rows, blocks):
     """Launch ``bitpal_gfill`` (``rows`` None) or ``bitpal_capture_fill``
     on the current stream over :func:`pipeline_plan`'s plan (the ring
-    within ``band.ring_budget``: ``torch.OutOfMemoryError`` past it);
+    within ``band.ring_budget``: ``torch.OutOfMemoryError`` past it),
+    counted in ``launch.bitpal_gfill`` or ``launch.bitpal_capture_fill``;
     returns ``(planes, caps)``."""
     if text.device.type != "cuda":
         raise ValueError(f"the fills run on cpu or cuda tensors, got {text.device}")
     from .band import ring_budget  # band imports this module
     nw, mt = eq.shape[1], text.shape[0]
     dev = text.device
-    plan = pipeline_plan(nw, mt, blocks, ring_budget(dev))
+    with trace.span("plan"):
+        plan = pipeline_plan(nw, mt, blocks, ring_budget(dev))
     lib = _build.load()
-    planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
     J = 0 if rows is None else len(rows)
-    caps = torch.empty((J, mt), dtype=torch.int8, device=dev)
-    ring = torch.empty((plan.depth, mt), dtype=torch.uint8, device=dev) if plan.depth else None
-    sync = torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
+    with trace.span("alloc"):
+        planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
+        caps = torch.empty((J, mt), dtype=torch.int8, device=dev)
+        ring = (torch.empty((plan.depth, mt), dtype=torch.uint8, device=dev)
+                if plan.depth else None)
+        sync = torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
+    trace.count_bytes("alloc_bytes", planes, caps, ring, sync)
     head = (text.data_ptr(), eq.data_ptr(), mt, nw, g, plan.blocks,
             None if ring is None else ring.data_ptr(), plan.depth, sync.data_ptr())
-    with torch.cuda.device(dev):
+    name = "bitpal_gfill" if rows is None else "bitpal_capture_fill"
+    if rows is not None:
+        with trace.span("to_device"):
+            rows_t = torch.tensor(rows, dtype=torch.int32).to(dev)
+    with trace.span("launch." + name), torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if rows is None:
             err = lib.bitpal_gfill(*head, planes.data_ptr(), stream)
         else:
-            rows_t = torch.tensor(rows, dtype=torch.int32).to(dev)
             err = lib.bitpal_capture_fill(*head, rows_t.data_ptr(), J, caps.data_ptr(),
                                           planes.data_ptr(), stream)
     if err != 0:
-        name = "bitpal_gfill" if rows is None else "bitpal_capture_fill"
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    trace.count("launch." + name)
     return planes.unbind(0), caps
 
 
@@ -602,7 +610,7 @@ def fill_g(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
     ``blocks``: the launch's blocks (:func:`pipeline_plan`'s default where
     None); it never changes the result.  On CUDA it allocates the outputs,
     then the ring and the flags, launches on the current stream without
-    synchronising, and counts the launch in ``fill_g.launches``.  A launch
+    synchronising, and counts the launch in ``launch.bitpal_gfill``.  A launch
     the device refuses raises, and so does a ring that does not fit the
     device's memory; nothing falls back to the plain version."""
     _check_fill_args(text, eq, nq)
@@ -610,11 +618,7 @@ def fill_g(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
     if text.device.type == "cpu":
         return fill_g_plain(text, eq, nq, g)[0]
     planes, _ = _gfill_launch(text, eq, nq, g, None, blocks)
-    fill_g.launches += 1
     return planes
-
-
-fill_g.launches = 0
 
 
 def capture_fill(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
@@ -626,18 +630,14 @@ def capture_fill(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int,
     CPU tensors.  Returns ``(planes, caps)`` as :func:`fill_g_plain` does.
 
     ``blocks`` as in :func:`fill_g`.  On CUDA it launches as
-    :func:`fill_g` does and counts the launch in ``capture_fill.launches``."""
+    :func:`fill_g` does and counts the launch in
+    ``launch.bitpal_capture_fill``."""
     _check_fill_args(text, eq, nq)
     _check_g(g)
     rows = _check_cap_rows(cap_rows, nq)
     if text.device.type == "cpu":
         return fill_g_plain(text, eq, nq, g, rows)
-    result = _gfill_launch(text, eq, nq, g, rows, blocks)
-    capture_fill.launches += 1
-    return result
-
-
-capture_fill.launches = 0
+    return _gfill_launch(text, eq, nq, g, rows, blocks)
 
 
 def wave_geometry(nw: int) -> Tuple[int, int]:
@@ -670,10 +670,14 @@ def wave_scratch(nw: int, steps: int, device, blocks: Optional[int] = None):
     zeroed flags."""
     from .band import ring_budget  # band imports this module
     dev = torch.device(device)
-    plan = wave_plan(nw, steps, blocks, ring_budget(dev))
-    ring = (torch.empty((plan.depth, steps), dtype=torch.uint8, device=dev)
-            if plan.depth else None)
-    return plan, ring, torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
+    with trace.span("plan"):
+        plan = wave_plan(nw, steps, blocks, ring_budget(dev))
+    with trace.span("alloc"):
+        ring = (torch.empty((plan.depth, steps), dtype=torch.uint8, device=dev)
+                if plan.depth else None)
+        sync = torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
+    trace.count_bytes("alloc_bytes", ring, sync)
+    return plan, ring, sync
 
 
 def _check_blocks(blocks) -> None:
@@ -690,7 +694,7 @@ def _wave_launch(name: str, text, eq, g: int, rc: int, blocks, t0: int = 0,
     None), the state after the chunk for a chunk entry.  The entries take
     ``rc``, or ``g`` at one column a step (``bitpal_gfill_chunk``);
     ``stream_args`` are ``bitpal_gfill_stream``'s ``(u_in, tail,
-    tail_word)``."""
+    tail_word)``.  The launch is counted in ``launch.`` + ``name``."""
     if text.device.type != "cuda":
         raise ValueError(f"the fills run on cpu or cuda tensors, got {text.device}")
     nw, mt = eq.shape[1], text.shape[0]
@@ -698,21 +702,24 @@ def _wave_launch(name: str, text, eq, g: int, rc: int, blocks, t0: int = 0,
     steps = total_steps(mt, nw, rc) if state is None else t_steps
     plan, ring, sync = wave_scratch(nw, steps, dev, blocks)
     lib = _build.load()
-    planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
+    with trace.span("alloc"):
+        planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
+        hand = None if state is None else torch.empty(nw, dtype=torch.uint8, device=dev)
+    trace.count_bytes("alloc_bytes", planes, hand)
     entry = getattr(lib, name)
     head = (text.data_ptr(), eq.data_ptr(), mt, nw, rc if rc > 1 else g, plan.blocks,
             None if ring is None else ring.data_ptr(), plan.depth, sync.data_ptr())
-    with torch.cuda.device(dev):
+    with trace.span("launch." + name), torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if state is None:
             err = entry(*head, planes.data_ptr(), stream)
         else:
             v_in = torch.stack(state.planes)
-            hand = torch.empty(nw, dtype=torch.uint8, device=dev)
             err = entry(*head, t0, t_steps, v_in.data_ptr(), state.hand.data_ptr(),
                         planes.data_ptr(), hand.data_ptr(), *stream_args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    trace.count("launch." + name)
     return (planes.unbind(0) if state is None else WaveState(planes.unbind(0), hand)), plan
 
 
@@ -726,7 +733,7 @@ def fill_rc(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int,
     ``blocks``: the launch's blocks (:func:`wave_plan`'s default where
     None); it never changes the result.  On CUDA it allocates the output,
     the ring and the flags, launches on the current stream without
-    synchronising, counts the launch in ``fill_rc.launches`` and keeps its
+    synchronising, counts the launch in ``launch.bitpal_rc_fill`` and keeps its
     plan in ``fill_rc.last_plan``.  A launch the device refuses raises,
     and so does a ring that does not fit the device's memory; nothing falls
     back to another kernel or the plain version."""
@@ -736,11 +743,9 @@ def fill_rc(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int,
     if text.device.type == "cpu":
         return fill_rc_plain(text, eq, nq, rc)
     planes, fill_rc.last_plan = _wave_launch("bitpal_rc_fill", text, eq, 1, rc, blocks)
-    fill_rc.launches += 1
     return planes
 
 
-fill_rc.launches = 0
 fill_rc.last_plan = None
 
 
@@ -751,7 +756,7 @@ def fill_rc_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int, t0: in
     kernel ``bitpal_rc_chunk`` (``csrc/bitpal_rc.cu``) for CUDA tensors,
     :func:`chunk_plain` for CPU tensors.  Returns the state after steps
     ``t0 + 1 .. t0 + t_steps``; on CUDA as :func:`fill_rc`, counted in
-    ``fill_rc_chunk.launches``, its plan in ``fill_rc_chunk.last_plan``."""
+    ``launch.bitpal_rc_chunk``, its plan in ``fill_rc_chunk.last_plan``."""
     _check_fill_args(text, eq, nq)
     _check_rc(rc)
     _check_chunk(eq, 1, rc, t0, t_steps, state)
@@ -760,11 +765,9 @@ def fill_rc_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, rc: int, t0: in
         return chunk_plain(text, eq, nq, 1, rc, t0, t_steps, state)
     out, fill_rc_chunk.last_plan = _wave_launch("bitpal_rc_chunk", text, eq, 1, rc, blocks,
                                                 t0, t_steps, state)
-    fill_rc_chunk.launches += 1
     return out
 
 
-fill_rc_chunk.launches = 0
 fill_rc_chunk.last_plan = None
 
 
@@ -775,7 +778,7 @@ def fill_g_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, t0: int,
     word 0's h_top the top boundary.  On the device of its tensors: the
     CUDA kernel ``bitpal_gfill_chunk`` (``csrc/bitpal_rc.cu``) for CUDA
     tensors, :func:`chunk_plain` for CPU tensors; on CUDA as
-    :func:`fill_rc_chunk`, counted in ``fill_g_chunk.launches``, its plan in
+    :func:`fill_rc_chunk`, counted in ``launch.bitpal_gfill_chunk``, its plan in
     ``fill_g_chunk.last_plan``."""
     _check_fill_args(text, eq, nq)
     _check_g(g)
@@ -785,11 +788,9 @@ def fill_g_chunk(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, t0: int,
         return chunk_plain(text, eq, nq, g, 1, t0, t_steps, state)
     out, fill_g_chunk.last_plan = _wave_launch("bitpal_gfill_chunk", text, eq, g, 1, blocks,
                                                t0, t_steps, state)
-    fill_g_chunk.launches += 1
     return out
 
 
-fill_g_chunk.launches = 0
 fill_g_chunk.last_plan = None
 
 
@@ -803,7 +804,7 @@ def fill_g_stream(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, t0: int
     device of its tensors: the CUDA kernel ``bitpal_gfill_stream``
     (``csrc/bitpal_rc.cu``) for CUDA tensors, :func:`chunk_plain` for CPU
     tensors; on CUDA as :func:`fill_g_chunk`, counted in
-    ``fill_g_stream.launches``, its plan in ``fill_g_stream.last_plan``."""
+    ``launch.bitpal_gfill_stream``, its plan in ``fill_g_stream.last_plan``."""
     _check_fill_args(text, eq, nq)
     _check_g(g)
     _check_chunk(eq, g, 1, t0, t_steps, state)
@@ -811,15 +812,15 @@ def fill_g_stream(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, t0: int
     _check_blocks(blocks)
     if text.device.type == "cpu":
         return chunk_plain(text, eq, nq, g, 1, t0, t_steps, state, u_in, tail_word)
-    tail = torch.empty(t_steps, dtype=torch.uint8, device=text.device)
+    with trace.span("alloc"):
+        tail = torch.empty(t_steps, dtype=torch.uint8, device=text.device)
+    trace.count_bytes("alloc_bytes", tail)
     stream_args = (None if u_in is None else u_in.data_ptr(), tail.data_ptr(), tail_word)
     out, fill_g_stream.last_plan = _wave_launch("bitpal_gfill_stream", text, eq, g, 1, blocks,
                                                 t0, t_steps, state, stream_args)
-    fill_g_stream.launches += 1
     return out, tail
 
 
-fill_g_stream.launches = 0
 fill_g_stream.last_plan = None
 
 
@@ -853,11 +854,13 @@ def fill_chunked(text: torch.Tensor, eq: torch.Tensor, nq: int, g: int, rc: int,
 
 def _eq_planes(query: torch.Tensor, nq: int) -> torch.Tensor:
     """``(5, nw)`` int64: bit ``b`` of word ``w`` of plane ``c`` set iff
-    ``query[64w + b] == c``; rows past ``nq`` are set in no plane."""
-    nw = -(-nq // WORD)
-    q = torch.full((nw * WORD,), -1, dtype=torch.int64, device=query.device)
-    q[:nq] = query
-    return _eq_planes_batch(q.view(1, -1))[0]
+    ``query[64w + b] == c``; rows past ``nq`` are set in no plane (the span
+    ``planes``)."""
+    with trace.span("planes"):
+        nw = -(-nq // WORD)
+        q = torch.full((nw * WORD,), -1, dtype=torch.int64, device=query.device)
+        q[:nq] = query
+        return _eq_planes_batch(q.view(1, -1))[0]
 
 
 def _eq_planes_batch(queries: torch.Tensor) -> torch.Tensor:
@@ -1038,7 +1041,8 @@ def score_fn(m: int, n: int, cfg: ScoringConfig = ScoringConfig(), *, device,
             planes = fill_rc(text, eq, nq, rc)
         else:
             planes = fill_chunked(text, eq, nq, g, rc, t_steps)
-        return _from_unit(cfg, mt + nq, _reduce_score(planes, nq, mt, g))
+        with trace.span("reduce"):  # on the card, its enqueue
+            return _from_unit(cfg, mt + nq, _reduce_score(planes, nq, mt, g))
 
     return fn
 
@@ -1059,11 +1063,16 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device,
     the counterpart of ``tpualign.ops.bitpal.score``."""
     if family(cfg) is None:
         raise ValueError(_NOT_FAMILY)
-    s1, s2 = _codes(s1), _codes(s2)
+    with trace.span("check"):
+        s1, s2 = _codes(s1), _codes(s2)
     dev = _device(device)
     fn = score_fn(s1.size, s2.size, cfg, device=dev, cols_per_step=cols_per_step,
                   text_cap=text_cap)
-    return int(fn(torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)))
+    with trace.span("to_device"):
+        d1, d2 = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
+    res = fn(d1, d2)
+    with trace.span("read_back"):
+        return int(res)
 
 
 def _check_batch_args(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor,
@@ -1202,8 +1211,8 @@ def batch_fill(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor, nq: in
     None); it never changes the result.  On CUDA it allocates the output,
     then the rings (within ``band.ring_budget``: ``torch.OutOfMemoryError``
     past it) and the flags, launches on the current stream without
-    synchronising, counts the launch in ``batch_fill.launches`` and keeps
-    its plan in ``batch_fill.last_plan``.  A launch the device refuses
+    synchronising, counts the launch in ``launch.bitpal_batch_fill`` and
+    keeps its plan in ``batch_fill.last_plan``.  A launch the device refuses
     raises; nothing falls back to the plain version."""
     _check_batch_args(texts, tlen, eq, nq)
     _check_g(g)
@@ -1217,14 +1226,17 @@ def batch_fill(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor, nq: in
     nw = eq.shape[2]
     dev = texts.device
     # only two bands or more take a ring (the free memory is a driver call)
-    plan = batch_plan(P, nw, m_cap, blocks, ring_budget(dev) if nw > BAND else None)
+    with trace.span("plan"):
+        plan = batch_plan(P, nw, m_cap, blocks, ring_budget(dev) if nw > BAND else None)
     lib = _build.load()
-    planes = torch.empty((P, n_planes(g), nw), dtype=torch.int64, device=dev)
-    ring = (torch.empty((P, plan.depth, m_cap), dtype=torch.uint8, device=dev)
-            if plan.depth else None)
-    sync = (torch.zeros(1 + P * plan.bands, dtype=torch.int32, device=dev)
-            if plan.width == BAND else None)
-    with torch.cuda.device(dev):
+    with trace.span("alloc"):
+        planes = torch.empty((P, n_planes(g), nw), dtype=torch.int64, device=dev)
+        ring = (torch.empty((P, plan.depth, m_cap), dtype=torch.uint8, device=dev)
+                if plan.depth else None)
+        sync = (torch.zeros(1 + P * plan.bands, dtype=torch.int32, device=dev)
+                if plan.width == BAND else None)
+    trace.count_bytes("alloc_bytes", planes, ring, sync)
+    with trace.span("launch.bitpal_batch_fill"), torch.cuda.device(dev):
         err = lib.bitpal_batch_fill(
             texts.data_ptr(), m_cap, tlen.data_ptr(), eq.data_ptr(), P, nw, g, plan.blocks,
             None if ring is None else ring.data_ptr(), plan.depth,
@@ -1233,12 +1245,11 @@ def batch_fill(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor, nq: in
         )
     if err != 0:
         raise RuntimeError(f"bitpal_batch_fill launch failed with CUDA error {err}")
-    batch_fill.launches += 1
+    trace.count("launch.bitpal_batch_fill")
     batch_fill.last_plan = plan
     return planes
 
 
-batch_fill.launches = 0
 batch_fill.last_plan = None
 
 
@@ -1291,9 +1302,14 @@ def score_batch(texts, queries, cfg: ScoringConfig = ScoringConfig(), *,
     codes = torch.cat([pairs.texts, pairs.queries])
     if int(codes.min()) < 0 or int(codes.max()) >= ALPHABET:
         raise ValueError("bitpal scores .bdna codes 0..4")
-    texts_pad, mt, eq, nq = batch_inputs(pairs.to(dev))
+    with trace.span("to_device"):
+        pairs = pairs.to(dev)
+    texts_pad, mt, eq, nq = batch_inputs(pairs)
     planes = batch_fill(texts_pad, mt, eq, pairs.n_cap, g)
-    out[live] = _batch_scores(planes, mt, nq, g, cfg).cpu().numpy()
+    with trace.span("reduce"):
+        scores = _batch_scores(planes, mt, nq, g, cfg)
+    with trace.span("read_back"):
+        out[live] = scores.cpu().numpy()
     return out
 
 
@@ -1301,9 +1317,11 @@ def batch_inputs(pairs: packing.Pairs):
     """The batch fill's arguments for packed pairs, on their device:
     ``(texts, tlen, eq, nq)``, the texts padded to ``(P, m_cap)`` int8,
     their lengths, the match planes of the queries over ``ceil(n_cap /
-    64)`` words, and the query lengths (int64)."""
-    mt, nq = pairs.lengths[0].long(), pairs.lengths[1].long()
-    texts = packing.pad_pairs(pairs.texts, pairs.offsets[0], mt, pairs.m_cap).to(torch.int8)
-    queries = packing.pad_pairs(pairs.queries, pairs.offsets[1], nq,
-                                -(-pairs.n_cap // WORD) * WORD, fill=-1)
-    return texts, mt, _eq_planes_batch(queries), nq
+    64)`` words, and the query lengths (int64) (the span ``planes``)."""
+    with trace.span("planes"):
+        mt, nq = pairs.lengths[0].long(), pairs.lengths[1].long()
+        texts = packing.pad_pairs(pairs.texts, pairs.offsets[0], mt,
+                                  pairs.m_cap).to(torch.int8)
+        queries = packing.pad_pairs(pairs.queries, pairs.offsets[1], nq,
+                                    -(-pairs.n_cap // WORD) * WORD, fill=-1)
+        return texts, mt, _eq_planes_batch(queries), nq

@@ -56,6 +56,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import ScoringConfig
 from ..utils import native
 from . import bitpal, oracle
@@ -194,72 +195,100 @@ def tree(s1: np.ndarray, s2: np.ndarray, cfg: ScoringConfig, kway_node, split_no
     ``kway_nodes``, ``binary_nodes``, ``leaves``, ``leaf_cells``,
     ``bisect_s`` (until the last node's crossings are read back),
     ``leaf_walk`` (``"native"`` or ``"numpy"``), ``leaf_walk_s`` (the leaf
-    walks' own times, summed over the threads) and ``wall_s``."""
+    walks' own times, summed over the threads) and ``wall_s``.
+
+    The spans (:mod:`tpualign_torch.trace`): ``tree`` (``wall_s``) holds
+    ``bisect`` (``bisect_s``: the sequences' ``to_device``, each node's
+    fills as ``node.kway`` or ``node.binary``, its crossings' ``read_back``,
+    and ``submit``: the node's children, leaves handed to the walkers and
+    nodes' fills), ``leaves.wait`` (the wait on the walkers after the
+    bisection) and ``assemble`` (the strings' join).  The counters:
+    ``nodes.kway``, ``nodes.binary``, ``leaves``, ``leaf_cells``, and from
+    the walkers' returns ``leaf_walk_ns`` (the walks' own time) and
+    ``leaf_queue_ns`` (from a leaf's submission to its walk's start),
+    summed over the leaves."""
     in_cpp = native.walks(cfg)
     if in_cpp:
         native.load()  # built at first use, before the clock starts
     walk_table = native.traceback if in_cpp else oracle.traceback
-    t_start = time.perf_counter()
-    dev = bitpal._device(device)
-    q = torch.from_numpy(s2).to(dev)
-    t = torch.from_numpy(s1).to(dev)
-    seqs = (q, q.flip(0), t, t.flip(0))
+    timed = stats is not None
     counts = dict(kway_nodes=0, binary_nodes=0, leaves=0, leaf_cells=0)
-    leaves = []  # (ta, qa, future of (walk seconds, (score, a1, a2)))
+    # (ta, qa, future of (queue ns, walk ns, (score, a1, a2)))
+    leaves = []
     pending = deque()
 
-    def walk(ta, tb, qa, qb):
-        t0 = time.perf_counter()
+    def walk(submitted, ta, tb, qa, qb):
+        t0 = time.perf_counter_ns()
         result = walk_table(s1[ta:tb], s2[qa:qb], cfg)
-        return time.perf_counter() - t0, result
+        return t0 - submitted, time.perf_counter_ns() - t0, result
 
     def submit(ta, tb, qa, qb, force_bin=False):
         m, n = tb - ta, qb - qa
         if (m + 1) * (n + 1) <= BASE_CELLS or m < 2 or n < 2:
             counts["leaves"] += 1
             counts["leaf_cells"] += (m + 1) * (n + 1)
-            leaves.append((ta, qa, pool.submit(walk, ta, tb, qa, qb)))
+            trace.count("leaves")
+            trace.count("leaf_cells", (m + 1) * (n + 1))
+            leaves.append((ta, qa, pool.submit(walk, time.perf_counter_ns(), ta, tb, qa, qb)))
             return
         rows = _kway_rows(n) if n >= KWAY_MIN_ROWS and not force_bin else []
         if rows:
             counts["kway_nodes"] += 1
-            xs = kway_node(seqs, ta, tb, qa, qb, rows)
+            trace.count("nodes.kway")
+            with trace.span("node.kway"):
+                xs = kway_node(seqs, ta, tb, qa, qb, rows)
             pending.append(("kway", ta, tb, qa, qb, rows, xs))
             return
         counts["binary_nodes"] += 1
+        trace.count("nodes.binary")
         mid = ta + m // 2
-        split = split_node(seqs, ta, mid, tb, qa, qb)
+        with trace.span("node.binary"):
+            split = split_node(seqs, ta, mid, tb, qa, qb)
         pending.append(("binary", ta, tb, qa, qb, mid, split))
 
-    with ThreadPoolExecutor(max_workers=NATIVE_LEAF_WORKERS if in_cpp else LEAF_WORKERS) as pool:
-        submit(0, s1.size, 0, s2.size)
-        while pending:
-            kind, ta, tb, qa, qb, at, found = pending.popleft()
-            if kind == "binary":  # `at` is mid, `found` the crossing row
-                split = qa + int(found)
-                submit(ta, at, qa, split)
-                submit(at, tb, split, qb)
-                continue
-            xs = found.tolist()  # `at` holds the rows, `found` their columns
-            if any(x0 > x1 for x0, x1 in zip(xs, xs[1:])):
-                submit(ta, tb, qa, qb, force_bin=True)
-                continue
-            bounds = [(qa, ta)] + [(qa + r, ta + x) for r, x in zip(at, xs)]
-            bounds.append((qb, tb))
-            for (r0, x0), (r1, x1) in zip(bounds, bounds[1:]):
-                submit(x0, x1, r0, r1)
-        bisect_s = time.perf_counter() - t_start
-        # leaves tile the text axis in order, and the query axis within a
-        # column: sorting by (ta, qa) restores path order
-        leaves.sort(key=lambda leaf: leaf[:2])
-        walked = [fut.result() for _, _, fut in leaves]
-    a1 = "".join(r[1] for _, r in walked)
-    a2 = "".join(r[2] for _, r in walked)
+    with trace.span("tree", timed) as whole, ThreadPoolExecutor(
+            max_workers=NATIVE_LEAF_WORKERS if in_cpp else LEAF_WORKERS) as pool:
+        with trace.span("bisect", timed) as bisect:
+            dev = bitpal._device(device)
+            with trace.span("to_device"):
+                q = torch.from_numpy(s2).to(dev)
+                t = torch.from_numpy(s1).to(dev)
+            seqs = (q, q.flip(0), t, t.flip(0))
+            submit(0, s1.size, 0, s2.size)
+            while pending:
+                kind, ta, tb, qa, qb, at, found = pending.popleft()
+                if kind == "binary":  # `at` is mid, `found` the crossing row
+                    with trace.span("read_back"):
+                        split = qa + int(found)
+                    with trace.span("submit"):
+                        submit(ta, at, qa, split)
+                        submit(at, tb, split, qb)
+                    continue
+                with trace.span("read_back"):
+                    xs = found.tolist()  # `at` holds the rows, `found` their columns
+                if any(x0 > x1 for x0, x1 in zip(xs, xs[1:])):
+                    submit(ta, tb, qa, qb, force_bin=True)
+                    continue
+                bounds = [(qa, ta)] + [(qa + r, ta + x) for r, x in zip(at, xs)]
+                bounds.append((qb, tb))
+                with trace.span("submit"):
+                    for (r0, x0), (r1, x1) in zip(bounds, bounds[1:]):
+                        submit(x0, x1, r0, r1)
+        with trace.span("leaves.wait"):
+            # leaves tile the text axis in order, and the query axis within
+            # a column: sorting by (ta, qa) restores path order
+            leaves.sort(key=lambda leaf: leaf[:2])
+            walked = [fut.result() for _, _, fut in leaves]
+        with trace.span("assemble"):
+            a1 = "".join(r[1] for _, _, r in walked)
+            a2 = "".join(r[2] for _, _, r in walked)
+    walk_ns = sum(w for _, w, _ in walked)
+    trace.count("leaf_walk_ns", walk_ns)
+    trace.count("leaf_queue_ns", sum(q for q, _, _ in walked))
     if stats is not None:
-        stats.update(counts, bisect_s=bisect_s, leaf_walk="native" if in_cpp else "numpy",
-                     leaf_walk_s=sum(s for s, _ in walked),
-                     wall_s=time.perf_counter() - t_start)
-    return sum(r[0] for _, r in walked), a1, a2
+        stats.update(counts, bisect_s=bisect.seconds, leaf_walk="native" if in_cpp else "numpy",
+                     leaf_walk_s=walk_ns / 1e9, wall_s=whole.seconds)
+    return sum(r[0] for _, _, r in walked), a1, a2
 
 
 #: the sharded bisection's leaves: ``tpualign``'s ``base_cells`` and pool

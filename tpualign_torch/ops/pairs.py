@@ -10,6 +10,8 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
+
 
 def int8_codes(seq) -> np.ndarray:
     """A 1-D code sequence as a contiguous int8 array (ValueError if a code
@@ -52,15 +54,18 @@ def batch_lengths(texts: Sequence, queries: Sequence) -> Tuple[np.ndarray, np.nd
 def pack_pairs(texts: Sequence, queries: Sequence, live: np.ndarray) -> Pairs:
     """The pairs at the indices ``live`` (each non-empty) packed on the host:
     one concatenation of the texts and one of the queries, as int8 codes
-    (ValueError if a code does not fit)."""
-    if len(live) == len(texts):
-        ts, qs = texts, queries
-    else:
-        ts, qs = [texts[i] for i in live], [queries[i] for i in live]
-    m, n = batch_lengths(ts, qs)
-    flat_t, flat_q = int8_codes(np.concatenate(ts)), int8_codes(np.concatenate(qs))
-    offsets = np.stack([np.cumsum(m) - m, np.cumsum(n) - n])
-    lengths = np.stack([m, n]).astype(np.int32)
+    (ValueError if a code does not fit).  The span ``pack``; the counter
+    ``pairs`` counts the pairs packed."""
+    with trace.span("pack"):
+        if len(live) == len(texts):
+            ts, qs = texts, queries
+        else:
+            ts, qs = [texts[i] for i in live], [queries[i] for i in live]
+        m, n = batch_lengths(ts, qs)
+        flat_t, flat_q = int8_codes(np.concatenate(ts)), int8_codes(np.concatenate(qs))
+        offsets = np.stack([np.cumsum(m) - m, np.cumsum(n) - n])
+        lengths = np.stack([m, n]).astype(np.int32)
+    trace.count("pairs", len(m))
     return Pairs(torch.from_numpy(flat_t), torch.from_numpy(flat_q),
                  torch.from_numpy(offsets), torch.from_numpy(lengths),
                  int(m.max()), int(n.max()))

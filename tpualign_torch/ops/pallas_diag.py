@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..config import ScoringConfig, ensure_pair_modes
 from . import band, xla
 from .bitpal import _device
@@ -98,7 +98,7 @@ def diag_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig,
     max's identity, then the ring (within
     :func:`tpualign_torch.ops.band.ring_budget`: a ring past it raises
     ValueError) and the flags, launches on the current stream without
-    synchronising, counts the launch in ``diag_fill.launches`` and keeps its
+    synchronising, counts the launch in ``launch.diag_fill`` and keeps its
     plan in ``diag_fill.last_plan``.  A launch the device refuses raises;
     nothing falls back to the plain version."""
     _check_fill_args(s1, s2)
@@ -109,11 +109,13 @@ def diag_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig,
     m, n = s1.numel(), s2.numel()
     dev = s1.device
     lib = _build.load()
-    out = torch.full((1,), 0 if cfg.is_local else band.NEG, dtype=torch.int32, device=dev)
+    with trace.span("alloc"):
+        out = torch.full((1,), 0 if cfg.is_local else band.NEG, dtype=torch.int32, device=dev)
+    trace.count_bytes("alloc_bytes", out)
     # K8's rows (s2) are the strips' query, its columns (s1) their text
-    plan = band.pipeline_plan(n, m, False, geometry, band.MAX_K, band.ring_budget(dev))
+    plan = band._plan(n, m, False, geometry, band.MAX_K, dev)
     ring, sync, _ = band._pipe_scratch(plan, m, False, dev, False)
-    with torch.cuda.device(dev):
+    with trace.span("launch.diag_fill"), torch.cuda.device(dev):
         err = lib.diag_fill(
             s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch, cfg.gap,
             int(cfg.is_local), plan.k, plan.threads, plan.blocks, band._ptr(ring), plan.depth,
@@ -121,12 +123,11 @@ def diag_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig,
         )
     if err != 0:
         raise RuntimeError(f"diag_fill launch failed with CUDA error {err}")
-    diag_fill.launches += 1
+    trace.count("launch.diag_fill")
     diag_fill.last_plan = plan
     return out[0].long()
 
 
-diag_fill.launches = 0
 diag_fill.last_plan = None
 
 
@@ -135,7 +136,8 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     the kernel, ``"cpu"`` the plain version); the counterpart of
     ``tpualign.ops.pallas_diag.score``.  The shorter sequence goes on the
     diagonal axis (the score is symmetric under the swap)."""
-    a, b = int8_codes(s1), int8_codes(s2)
+    with trace.span("check"):
+        a, b = int8_codes(s1), int8_codes(s2)
     ensure_pair_modes(cfg, "pallas_diag")
     dev = _device(device)
     if a.size == 0 or b.size == 0:
@@ -143,7 +145,11 @@ def score(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, device) -> int:
     _check_cfg(cfg, a.size + b.size)
     if b.size > a.size:
         a, b = b, a
-    return int(diag_fill(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), cfg))
+    with trace.span("to_device"):
+        d1, d2 = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    res = diag_fill(d1, d2, cfg)
+    with trace.span("read_back"):
+        return int(res)
 
 
 class Checkpoints(NamedTuple):
@@ -205,7 +211,7 @@ def ckpt_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int,
     result.  On CUDA the wrapper allocates the outputs, then the ring
     (within :func:`tpualign_torch.ops.band.ring_budget`) and the flags,
     launches on the current stream without synchronising, and counts the
-    launch in ``ckpt_fill.launches``.  A launch the device refuses raises;
+    launch in ``launch.diag_ckpt_fill``.  A launch the device refuses raises;
     nothing falls back to the plain version."""
     _check_ckpt_args(s1, s2, K)
     if s1.device.type == "cpu":
@@ -216,13 +222,15 @@ def ckpt_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int,
     groups = -(-(n + m) // K)
     dev = s1.device
     lib = _build.load()
-    ck = torch.empty((2, groups, n + 1), dtype=torch.int32, device=dev)
-    best = torch.empty((2, n + 1), dtype=torch.int32, device=dev) if cfg.is_local else None
+    with trace.span("alloc"):
+        ck = torch.empty((2, groups, n + 1), dtype=torch.int32, device=dev)
+        best = torch.empty((2, n + 1), dtype=torch.int32, device=dev) if cfg.is_local else None
+    trace.count_bytes("alloc_bytes", ck, best)
     # K9's rows (s2) are the strips' query, its columns (s1) their text
-    plan = band.pipeline_plan(n, m, False, geometry, band.MAX_K, band.ring_budget(dev))
+    plan = band._plan(n, m, False, geometry, band.MAX_K, dev)
     ring, sync, _ = band._pipe_scratch(plan, m, False, dev, False)
     v, dbest = (None, None) if best is None else (best[0].data_ptr(), best[1].data_ptr())
-    with torch.cuda.device(dev):
+    with trace.span("launch.diag_ckpt_fill"), torch.cuda.device(dev):
         err = lib.diag_ckpt_fill(
             s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch, cfg.gap,
             int(cfg.is_local), K, plan.k, plan.threads, plan.blocks, band._ptr(ring),
@@ -231,13 +239,10 @@ def ckpt_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int,
         )
     if err != 0:
         raise RuntimeError(f"diag_ckpt_fill launch failed with CUDA error {err}")
-    ckpt_fill.launches += 1
+    trace.count("launch.diag_ckpt_fill")
     if cfg.is_local:
         return Checkpoints(ck[0], ck[1], best[0], best[1])
     return Checkpoints(ck[0], ck[1], None, None)
-
-
-ckpt_fill.launches = 0
 
 
 def ckpt_stride(k_stride: int) -> int:
@@ -265,4 +270,6 @@ def forward_checkpoints(s1, s2, cfg: ScoringConfig = ScoringConfig(), *,
     _check_cfg(cfg, a.size + b.size)
     dev = _device(device)
     K = -(-int(k_stride) // UNROLL) * UNROLL
-    return ckpt_fill(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), cfg, K)
+    with trace.span("to_device"):
+        d1, d2 = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    return ckpt_fill(d1, d2, cfg, K)

@@ -21,12 +21,12 @@ oracle's (:func:`tpualign_torch.ops.oracle.traceback`), string for string.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import ScoringConfig, ensure_pair_modes
 from . import xla
 from .bitpal import _device
@@ -108,7 +108,9 @@ def align_checkpointed(s1, s2, scoring: ScoringConfig = ScoringConfig(), *,
 
     ``stats``, when given, gets ``k``, ``forward_s`` (the row scan, host
     clock, ending in a synchronize), ``copy_s`` (the checkpoints' copy to
-    the host), ``blocks`` (blocks refilled) and ``walk_s``."""
+    the host), ``blocks`` (blocks refilled) and ``walk_s``: the durations of
+    the spans ``fill``, ``copy`` and ``walk`` (:mod:`tpualign_torch.trace`);
+    the counter ``blocks`` counts the blocks refilled."""
     ensure_pair_modes(scoring, "traceback")
     if scoring.is_affine:
         raise ValueError(
@@ -125,24 +127,39 @@ def align_checkpointed(s1, s2, scoring: ScoringConfig = ScoringConfig(), *,
         k = default_k(M, N)
     local = scoring.is_local
     dev = _device(device)
+    timed = stats is not None
 
-    t0 = time.perf_counter()
-    scan = xla.rows_scan(torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev),
-                         scoring, zero_row=local, zero_col=local,
-                         capture_rows=range(k, N, k), want_cell=local, col_stride=k)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    forward_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    h0 = (np.zeros(M + 1, np.int64) if local
-          else np.arange(M + 1, dtype=np.int64) * scoring.gap)
-    row_ckpts = (np.concatenate([h0[None], scan.caps.cpu().numpy()])
-                 if scan.caps is not None else h0[None])
-    col_ckpts = scan.cols.cpu().numpy()
-    cell = None if scan.cell is None else [int(x) for x in scan.cell.cpu()]
-    copy_s = time.perf_counter() - t0
+    with trace.span("fill", timed) as fill:
+        with trace.span("to_device"):
+            d1, d2 = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
+        scan = xla.rows_scan(d1, d2, scoring, zero_row=local, zero_col=local,
+                             capture_rows=range(k, N, k), want_cell=local, col_stride=k)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with trace.span("copy", timed) as copy:
+        h0 = (np.zeros(M + 1, np.int64) if local
+              else np.arange(M + 1, dtype=np.int64) * scoring.gap)
+        row_ckpts = (np.concatenate([h0[None], scan.caps.cpu().numpy()])
+                     if scan.caps is not None else h0[None])
+        col_ckpts = scan.cols.cpu().numpy()
+        cell = None if scan.cell is None else [int(x) for x in scan.cell.cpu()]
 
-    t0 = time.perf_counter()
+    with trace.span("walk", timed) as walk:
+        score, a1, a2, blocks = _walk(s1, s2, scoring, k, row_ckpts, col_ckpts, cell)
+    trace.count("blocks", blocks)
+    if stats is not None:
+        stats.update(k=k, forward_s=fill.seconds, copy_s=copy.seconds, blocks=blocks,
+                     walk_s=walk.seconds)
+    return int(score), "".join(reversed(a1)), "".join(reversed(a2))
+
+
+def _walk(s1: np.ndarray, s2: np.ndarray, scoring: ScoringConfig, k: int,
+          row_ckpts: np.ndarray, col_ckpts: np.ndarray, cell):
+    """The walk back from the end cell through the blocks it crosses, each
+    refilled from its checkpoints: ``(score, a1, a2, blocks)``, the strings
+    reversed."""
+    N, M = int(s2.size), int(s1.size)
+    local = scoring.is_local
     if local:
         score, i, j = cell
         if score <= 0:
@@ -183,7 +200,4 @@ def align_checkpointed(s1, s2, scoring: ScoringConfig = ScoringConfig(), *,
         li, lj, done = _walk_block(H, s1[c0:c1], s2[r0:r1], i - r0, j - c0, scoring, a1, a2)
         i, j = r0 + li, c0 + lj
 
-    if stats is not None:
-        stats.update(k=k, forward_s=forward_s, copy_s=copy_s, blocks=blocks,
-                     walk_s=time.perf_counter() - t0)
-    return int(score), "".join(reversed(a1)), "".join(reversed(a2))
+    return score, a1, a2, blocks

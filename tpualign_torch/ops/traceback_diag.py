@@ -21,12 +21,12 @@ port's :func:`tpualign_torch.ops.oracle.traceback`.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import ScoringConfig, ensure_pair_modes
 from . import pallas_diag
 from .bitpal import _device
@@ -172,7 +172,10 @@ def align_diag(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, k_stride: int = 
 
     ``stats``, when given, gets ``fill_ms`` (the fill's time: CUDA events
     on CUDA, the host clock on the CPU), ``copy_s`` (the checkpoints' copy
-    to the host), ``groups``, ``bands`` (bands refilled) and ``walk_s``."""
+    to the host), ``groups``, ``bands`` (bands refilled) and ``walk_s``.
+    The spans (:mod:`tpualign_torch.trace`) ``fill`` (on the CPU
+    ``fill_ms``), ``copy`` (``copy_s``) and ``walk`` (``walk_s``); the
+    counter ``bands``."""
     ensure_pair_modes(cfg, "traceback_diag")
     if cfg.is_affine:
         raise ValueError(
@@ -187,38 +190,38 @@ def align_diag(s1, s2, cfg: ScoringConfig = ScoringConfig(), *, k_stride: int = 
     K = pallas_diag.ckpt_stride(k_stride)
     dev = _device(device)
     cuda = dev.type == "cuda"
-    if cuda:
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-    t0 = time.perf_counter()
-    ck = pallas_diag.forward_checkpoints(s1, s2, cfg, k_stride=K, device=dev)
-    if cuda:
-        e1.record()
-        e1.synchronize()
-        fill_ms = e0.elapsed_time(e1)
-    else:
-        fill_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    # the checkpoints stay int32 on the host; bands upcast their window
-    ck_a = ck.cka.cpu().numpy()
-    ck_b = ck.ckb.cpu().numpy()
-    best = None if ck.v is None else (ck.v.cpu().numpy().astype(np.int64),
-                                      ck.dbest.cpu().numpy().astype(np.int64))
-    copy_s = time.perf_counter() - t0
+    timed = stats is not None
+    with trace.span("fill", timed) as fill:
+        if cuda:
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            e0.record()
+        ck = pallas_diag.forward_checkpoints(s1, s2, cfg, k_stride=K, device=dev)
+        if cuda:
+            e1.record()
+            e1.synchronize()
+    with trace.span("copy", timed) as copy:
+        # the checkpoints stay int32 on the host; bands upcast their window
+        ck_a = ck.cka.cpu().numpy()
+        ck_b = ck.ckb.cpu().numpy()
+        best = None if ck.v is None else (ck.v.cpu().numpy().astype(np.int64),
+                                          ck.dbest.cpu().numpy().astype(np.int64))
     counts = dict(bands=0)
-    t0 = time.perf_counter()
-    if best is not None:
-        vf, dbest = best
-        score = int(vf.max(initial=0))
-        if score <= 0:
-            out = 0, "", ""
+    with trace.span("walk", timed) as walk:
+        if best is not None:
+            vf, dbest = best
+            score = int(vf.max(initial=0))
+            if score <= 0:
+                out = 0, "", ""
+            else:
+                k0 = int(np.argmax(vf))  # smallest slot (= row) holding the max
+                out = _walk(s1, s2, cfg, ck_a, ck_b, K, int(dbest[k0]), k0, counts)
+                assert out[0] == score
         else:
-            k0 = int(np.argmax(vf))  # smallest slot (= row) holding the max
-            out = _walk(s1, s2, cfg, ck_a, ck_b, K, int(dbest[k0]), k0, counts)
-            assert out[0] == score
-    else:
-        out = _walk(s1, s2, cfg, ck_a, ck_b, K, n + m, n, counts)
+            out = _walk(s1, s2, cfg, ck_a, ck_b, K, n + m, n, counts)
+    trace.count("bands", counts["bands"])
     if stats is not None:
-        stats.update(fill_ms=fill_ms, copy_s=copy_s, groups=ck_a.shape[0],
-                     bands=counts["bands"], walk_s=time.perf_counter() - t0)
+        fill_ms = e0.elapsed_time(e1) if cuda else fill.seconds * 1e3
+        stats.update(fill_ms=fill_ms, copy_s=copy.seconds, groups=ck_a.shape[0],
+                     bands=counts["bands"], walk_s=walk.seconds)
     return out
