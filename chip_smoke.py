@@ -87,8 +87,8 @@ path's shape:
 - the pipeline's ring budget, a share of the card's free memory
   (``band.ring_budget``): the planner's plans at 5,000 x 140,000,000
   (linear) and 5,000 x 70,000,000 (affine), and ``align_score`` under SW
-  (2, -1, -2) of a 256-base query planted whole in a text of 134,217,728
-  bases (2 ring rows past 1 GiB), one ``band_fill`` launch, score 512;
+  (2, -1, -2) of a 2,048-base query planted whole in a text of 134,217,728
+  bases (2 ring rows past 1 GiB), one ``band_fill`` launch, score 4,096;
 - the bit-parallel fill's pipeline (``bitpal_gfill``, ``bitpal_capture_fill``:
   one launch a fill, bands of words over many blocks of one warp, each
   band's bottom h_out stream handed down through a ring with progress
@@ -105,7 +105,9 @@ path's shape:
   strips, fewer blocks than strips over a ring of 2 rows, a partial last
   strip and a table whose cells all tie, 20 launches each against one
   plain run (phase (a3)); every 64gb-shape fill above runs the planner's
-  geometry (``band.pipeline_geometry``), and a small sweep of K6 SW's
+  geometry (``band.tile_geometry`` for K6's tiled fill, whose step count
+  the counter ``band_fill.steps`` must read, ``band.pipeline_geometry``
+  for the others), and a small sweep of K6 SW's
   geometry (threads x blocks, the one-block schedule beside it) prints at
   the 64gb shape and at 20,000 x 20,000;
 - the host C++ of ``tpualign_torch/native/bdna_tools.cpp`` (built with
@@ -1028,9 +1030,11 @@ def cli_phase(ctx, s1, s2, score, score_sw, a20, b20, want20, kind):
 
 
 #: the ring budget's phase: the planner's wide shapes (n, m, affine), and
-#: a query planted whole in a text whose 2 ring rows pass 1 GiB
+#: a query planted whole in a text whose 2 ring rows pass 1 GiB (2,048
+#: rows: K6's planner splits them into 2 strips of 8 x 128; it keeps 1,024
+#: or fewer in one strip)
 WIDE_PLANS = ((5000, 140_000_000, False), (5000, 70_000_000, True))
-WIDE_TEXT, WIDE_QUERY, WIDE_SEED = 1 << 27, 256, 27
+WIDE_TEXT, WIDE_QUERY, WIDE_SEED = 1 << 27, 2048, 27
 
 
 def wide_phase(ctx):
@@ -1038,7 +1042,7 @@ def wide_phase(ctx):
     planner's plans at ``WIDE_PLANS``, then ``align_score`` under SW (2, -1,
     -2) of a ``WIDE_QUERY``-base query planted whole in a seeded text of
     ``WIDE_TEXT`` bases, one ``band_fill`` launch over 2 strips and a ring
-    of 2 rows of 536,870,916 bytes each; the score must be 2 x 256, the
+    of 2 rows of 536,870,916 bytes each; the score must be 2 x WIDE_QUERY, the
     best any local alignment of the query can reach.  Returns the fill's
     numbers for the ``kernels`` line."""
     import tpualign_torch
@@ -1066,8 +1070,8 @@ def wide_phase(ctx):
     score = tpualign_torch.align_score(text, query, cfg)
     wall = time.perf_counter() - t1
     counts = ctx.read_counts()
-    plan = band.pipeline_plan(WIDE_QUERY, WIDE_TEXT, False, None, band.max_k(cfg),
-                              band.ring_budget())
+    plan = band.score_plan(WIDE_QUERY, WIDE_TEXT, False, None, band.max_k(cfg),
+                           band.ring_budget())
     if not ctx.only(counts, "band_fill") or score != 2 * WIDE_QUERY or plan.depth < 2:
         raise AssertionError(f"the planted SW score at {WIDE_QUERY} x {WIDE_TEXT}: {score} "
                              f"(want {2 * WIDE_QUERY}), launches {counts}, {plan}")
@@ -2262,10 +2266,12 @@ def main() -> None:
     # phase (c): Smith-Waterman on the 64gb-shape pair, align_score (band_fill)
     cfg_sw = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
     reset_counts()
+    steps0 = trace.counters().get("band_fill.steps", 0)
     t0 = time.perf_counter()
     score_sw = tpualign_torch.align_score(s1, s2, cfg_sw)
     sw_wall = time.perf_counter() - t0
     sw_counts = read_counts()
+    sw_steps = trace.counters().get("band_fill.steps", 0) - steps0
     if not only(sw_counts, "band_fill"):
         raise AssertionError(f"SW align_score did not run one band_fill launch: {sw_counts}")
     # one plain fill in align's orientation (s1 across the columns, s2 down
@@ -2288,12 +2294,17 @@ def main() -> None:
                             abs(as_align - plain_cell[0]))
     if bk["max_abs_err"]:
         raise AssertionError(f"band_fill differs from the plain SW score: {bk}")
-    sw_plan = band.pipeline_plan(query.size, text.size, False, None, band.max_k(cfg_sw))
+    sw_plan = band.score_plan(query.size, text.size, False, None, band.max_k(cfg_sw))
+    want_steps = band.tile_steps(query.size, text.size, sw_plan.k, sw_plan.threads,
+                                 sw_plan.blocks)
+    if sw_steps != want_steps:
+        raise AssertionError(f"band_fill.steps read {sw_steps}, the plan's {want_steps}")
     print(f"[path: align_score SW] {m} x {n} ({source}), (2, -1, -2) local: score "
           f"{score_sw} equal to capture_plain's on the card (band_fill in both "
           f"orientations); launches {sw_counts}; wall {sw_wall:.3f} s; geometry k = "
           f"{sw_plan.k}, {sw_plan.threads} threads, {sw_plan.blocks} blocks, "
-          f"{sw_plan.strips} strips, a ring of {sw_plan.depth} rows")
+          f"{sw_plan.strips} strips, a ring of {sw_plan.depth} rows; band_fill.steps "
+          f"{sw_steps}, the plan's")
     print(f"[timing] {smi}: band_fill SW at {query.size} x {text.size}: median of 3 "
           f"{sw_ms:.3f} ms ({m * n / sw_ms / 1e6:.2f} GCUPS; runs {runs_str(sw_runs)} ms); "
           f"capture_plain with the located cell {sw_plain_ms:.1f} ms "
@@ -2515,7 +2526,7 @@ def main() -> None:
             bk["max_abs_err"] = max(bk["max_abs_err"], err)
             want = max((raw,) + p.floor)
             further_ms[name] = (kms, pms)
-            gp = band.pipeline_plan(query.size, text.size, cfg.is_affine, None, band.max_k(cfg))
+            gp = band.score_plan(query.size, text.size, cfg.is_affine, None, band.max_k(cfg))
             geometry = f"k = {gp.k}, {gp.threads} threads, {gp.blocks} blocks"
         if err or got != want:
             raise AssertionError(f"{name}: align_score {got}, kernel vs plain err {err}, "

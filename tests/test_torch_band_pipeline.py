@@ -5,6 +5,8 @@ its kernels run on the CPU.
   depth, its memory budget (``RING_BUDGET`` by default, ``ring_budget``'s
   share of the card's free memory in the CUDA wrappers) and the refusals
   of geometries the kernels do not take and of rings past the budget.
+- ``tile_geometry``, ``tile_steps`` and ``TILE_W``: K6's tiled fill's
+  planner, its step count and its tile widths, the kernel's own.
 - ``band_fill``, ``band_capture_fill``, ``band_capture_affine`` and
   ``band_batch_fill`` (``tpualign_torch/csrc/band_*.cu``) compiled with
   ``g++`` through the shim of ``tools/rehearse_kernels.py`` and held
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -30,7 +33,9 @@ from tpualign_torch import matrices
 from tpualign_torch.config import AlignMode
 from tpualign_torch.ops import band
 
-TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOOLS = os.path.join(ROOT, "tools")
+CSRC = os.path.join(ROOT, "tpualign_torch", "csrc")
 
 
 @pytest.mark.parametrize("n, k, threads, want", [
@@ -86,6 +91,80 @@ def test_pipeline_geometry_cost_model(n, m):
         return steps * (band.STEP_OVERHEAD + k * -(-G // band.SMS))
 
     assert all(cost(k) <= cost(other) for other in band.KS)
+
+
+@pytest.mark.parametrize("n, m, want", [
+    (126440, 127240, (8, 128, 124)), (20000, 20000, (8, 128, 20)), (5, 1000, (1, 32, 1)),
+    (1000, 5, (16, 64, 1)),
+])
+def test_tile_geometry_pins(n, m, want):
+    """K6's tiled fill's choices at the 64gb shape's SW score, 20k, a short
+    and a narrow table (the first two the fastest of the geometries swept
+    on the H100, PERF.md)."""
+    assert band.tile_geometry(n, m) == want
+
+
+@pytest.mark.parametrize("n, m, max_k", [(126440, 127240, 16), (63620, 126440, 16),
+                                         (20000, 20000, 8), (3000, 500_000, 16),
+                                         (1_000_000, 300, 16), (300, 1_000_000, 16)])
+def test_tile_geometry_cost_model(n, m, max_k):
+    """The chosen geometry is the cheapest under the docstring's model over
+    every k up to ``max_k`` and every thread count of TILE_THREADS."""
+    k, threads, blocks = band.tile_geometry(n, m, max_k)
+
+    def cost(k, T):
+        W = band.TILE_W[k]
+        T = min(T, band.WARP * -(-(-(-n // k)) // band.WARP))
+        S = band.strips(n, k, T)
+        G = min(S, band.SMS * band.BLOCKS_PER_SM)
+        steps = -(-S // G) * (-(-m // W) + T) + (G - 1) * (T + 2 * band.PUBLISH // W)
+        warps = -(-G // band.SMS) * T // band.WARP
+        return steps * (band.TILE_STEP_NS + band.TILE_CELL_NS * k * W * -(-warps // 4))
+
+    assert k <= max_k and blocks == min(band.strips(n, k, threads), band.SMS * band.BLOCKS_PER_SM)
+    assert all(cost(k, threads) <= cost(other, T) for other in band.KS if other <= max_k
+               for T in band.TILE_THREADS)
+
+
+def test_tile_steps_at_the_64gb_shape():
+    """The step count that ``band_fill`` adds to its counter
+    ``band_fill.steps`` at the 64gb shape's SW score: 124 strips of 8 x 128
+    rows on 124 blocks, 15,905 tiles of 8 columns, each strip 128 + 8 steps
+    behind the one above."""
+    n, m = 126440, 127240
+    plan = band.score_plan(n, m, False)
+    assert tuple(plan)[:4] == (8, 128, 124, 124)
+    assert band.tile_steps(n, m, plan.k, plan.threads, plan.blocks) == (
+        (15905 + 128) + 123 * (128 + 8)) == 32761
+    # blocks past the strips run no more steps; fewer take their strips in turn
+    assert band.tile_steps(n, m, 8, 128, 500) == 32761
+    assert band.tile_steps(n, m, 8, 128, 62) == 2 * (15905 + 128) + 61 * 136
+
+
+def test_tile_w_is_the_kernels(tmp_path):
+    """TILE_W is the tile width that ``csrc/band_fill.cuh`` compiles at each
+    k (its ``tile_w``), read by g++ through the shim's headers."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ reads tile_w through the shim")
+    sys.path.insert(0, TOOLS)
+    try:
+        import rehearse_kernels
+    finally:
+        sys.path.remove(TOOLS)
+    (tmp_path / "cuda").mkdir()
+    (tmp_path / "cuda_runtime.h").write_text(rehearse_kernels.SHIM)
+    (tmp_path / "cuda" / "atomic").write_text(rehearse_kernels.CUDA_ATOMIC)
+    with open(os.path.join(CSRC, "band_fill.cuh")) as f:  # its launches as the shim's
+        head = rehearse_kernels.LAUNCH.sub(r"shim::launch(\2, \3, [&] { \1(\5); });", f.read())
+    (tmp_path / "band_fill.cuh").write_text(head)
+    src = tmp_path / "tile_w.cpp"
+    src.write_text('#include <cstdio>\n#include "band_fill.cuh"\n'
+                   'int main() { for (int k : {1, 2, 4, 8, 16}) std::printf("%d ", tile_w(k)); }\n')
+    exe = tmp_path / "tile_w"
+    subprocess.run(["g++", "-std=c++20", "-I", str(tmp_path), "-o", str(exe), str(src),
+                    "-lpthread"], check=True)
+    widths = subprocess.run([str(exe)], capture_output=True, text=True, check=True).stdout
+    assert [int(w) for w in widths.split()] == [band.TILE_W[k] for k in band.KS]
 
 
 @pytest.mark.parametrize("geometry, affine, want", [
@@ -200,15 +279,56 @@ def _shapes(rng, c):
     return (1 if c % 10 == 3 else m), (1 if c % 10 == 7 else n)  # 1-column, 1-row
 
 
-def test_band_fill_through_the_shim(shim):
+def _tile_cases(group, rng):
+    """``(m, n, geometry, shallow)`` of a group of K6 cases: ``ragged`` the
+    tile's ragged ends (m below W, m = 1, m of every residue mod W, over
+    several strips); ``strips`` one strip, several over blocks past them,
+    fewer blocks than strips, one block; ``ring2`` several strips over a
+    ring cut to 2 rows; ``ks`` every k the planner may pick, the planner's
+    own geometry among them."""
+    if group == "ragged":  # at each k, m below W, m = 1 and every residue mod its W
+        cases = []
+        for k in band.KS:
+            W = band.TILE_W[k]
+            ms = [1, W - 1] + [W * int(rng.integers(1, 6)) + x for x in range(1, W)] + [3 * W]
+            cases += [(m, int(rng.integers(1, 200)), (k, 32, 1 + i % 3), None)
+                      for i, m in enumerate(ms)]
+        return cases
+    if group == "strips":
+        return [(int(rng.integers(1, 90)), n, geometry, None)
+                for n, geometry in ((60, (2, 32)), (64, (2, 32)), (250, (2, 32)),
+                                    (250, (1, 32, 40)), (300, (2, 32, 2)), (300, (1, 64, 1)),
+                                    (129, (4, 32, 3)))]
+    if group == "ring2":
+        return [(int(rng.integers(30, 120)), int(rng.integers(200, 400)), (1, 32, blocks), True)
+                for blocks in (1, 2, 3, 40)]
+    return [(int(rng.integers(1, 120)), int(rng.integers(1, 600)), geometry, None)
+            for geometry in [(k, 32) for k in band.KS] + [(8, 64, 2), (16, 32, 1), None, None]]
+
+
+@pytest.mark.parametrize("group", ["random", "ragged", "strips", "ring2", "ks"])
+def test_band_fill_through_the_shim(shim, group):
+    """K6's tiled fill (``band_fill``) against ``band.score_plain``: random
+    shapes and geometries, one config each, and the groups of
+    :func:`_tile_cases`, each case under every ``AlignMode``, linear and
+    affine gaps and pair scoring and two matrices in turn."""
     rk, dll = shim
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(1 + ["random", "ragged", "strips", "ring2", "ks"].index(group))
     mats = [None, matrices.dna(2, -1, -3), matrices.iupac()]
-    for c in range(24):
-        m, n = _shapes(rng, c)
-        ok, info = rk._band_case(dll, rng, list(AlignMode)[c % 4], mats[(c // 4) % 3],
-                                 bool((c // 2) % 2), m, n, GEOMETRIES[c % len(GEOMETRIES)])
-        assert ok, info
+    if group == "random":
+        for c in range(24):
+            m, n = _shapes(rng, c)
+            ok, info = rk._band_case(dll, rng, list(AlignMode)[c % 4], mats[(c // 4) % 3],
+                                     bool((c // 2) % 2), m, n, GEOMETRIES[c % len(GEOMETRIES)])
+            assert ok, info
+        return
+    for c, (m, n, geometry, shallow) in enumerate(_tile_cases(group, rng)):
+        for mode in AlignMode:
+            ok, info = rk._band_case(dll, rng, mode, mats[(c // 2) % 3], bool(c % 2), m, n,
+                                     geometry, shallow)
+            assert ok, info
+            if shallow:
+                assert info[4].depth == 2 and info[4].strips > 2, info
 
 
 @pytest.mark.parametrize("affine", [False, True])

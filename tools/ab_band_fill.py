@@ -18,11 +18,19 @@ A version is one source or several joined by ``+``, built into one library
 ``band_fill.cuh`` defines ``pipe_args`` takes the pipelined entries'
 arguments (geometry ``band.pipeline_plan``'s, with its ring and flags);
 an older one the single-block entries' (``band.kernel_geometry``, one
-boundary row).  A ``band_batch.cu`` whose entry takes ``const void* sched``
+boundary row).  Where it defines ``tile_strip`` (K6's tiled score fill),
+``band_fill`` takes ``band.tile_geometry``'s plan, else
+``band.pipeline_geometry``'s; ``--geometry k,threads[,blocks]`` forces
+K6's geometry in every version.  A ``band_batch.cu`` whose entry takes ``const void* sched``
 runs the two schedules of ``band_batch.batch_plan`` (its order, rings and
 flags made as the wrapper makes them, the flags zeroed and the output
 seeded in each run); an older one a block a pair (``band.kernel_geometry``
 of the longest query, a boundary row a pair).
+
+ptxas's registers and spills are printed for every ``band_fill_kernel``
+instantiation, and the SASS of ``band_capture_kernel`` (K7's single-pair
+fills) and ``band_batch_kernel`` is held against the first version's,
+instantiation by instantiation.
 
 Times are CUDA-event medians of ``--runs`` runs after one warm-up: K6
 (``band_fill``) under SW (2, -1, -2), the DNA matrix, affine NW and affine
@@ -122,6 +130,13 @@ def pipelined(srcs: str) -> bool:
         return "pipe_args" in f.read()
 
 
+def tiled(srcs: str) -> bool:
+    """Whether a version's band_fill runs K6's tiled strip body."""
+    head = os.path.join(os.path.dirname(srcs.split("+")[0]), "band_fill.cuh")
+    with open(head) as f:
+        return "tile_strip" in f.read()
+
+
 def batch_sched(srcs: str) -> bool:
     """Whether a version's band_batch.cu runs the two schedules."""
     path = next((src for src in srcs.split("+") if src.endswith("band_batch.cu")), None)
@@ -131,10 +146,13 @@ def batch_sched(srcs: str) -> bool:
         return "const void* sched" in f.read()
 
 
-def bind(lib: str, pipe: bool, sched: bool = False) -> ctypes.CDLL:
+def bind(lib: str, pipe: bool, sched: bool = False, tile: bool = False,
+         geometry=None) -> ctypes.CDLL:
     dll = ctypes.CDLL(lib)
     dll.pipe = pipe
     dll.sched = sched
+    dll.tile = tile
+    dll.geometry = geometry
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if pipe:
         dll.band_fill.argtypes = [vp, i32, vp, i32, vp] + [i32] * 10 + [vp, i32, vp, vp, vp]
@@ -159,15 +177,21 @@ def bind(lib: str, pipe: bool, sched: bool = False) -> ctypes.CDLL:
     return dll
 
 
-def scratch(dll, n, m, cfg, cell):
+def scratch(dll, n, m, cfg, cell, score=False):
     """A version's geometry arguments and scratch: ``(k, threads, blocks)``,
-    ring, depth, flags and the blocks' cells for a pipelined version;
-    ``(k, threads)`` and one boundary buffer for an older one."""
+    ring, depth, flags and the blocks' cells for a pipelined version (K6's
+    ``score`` fill at the tiled plan where the version tiles it, or at
+    ``--geometry``); ``(k, threads)`` and one boundary buffer for an older
+    one."""
     if not dll.pipe:
         k, threads = band.kernel_geometry(n, band.max_k(cfg))
         boundary = torch.empty((2, m + 1), dtype=torch.int32, device="cuda")
         return (k, threads), (boundary,), lambda: (boundary.data_ptr(),)
-    plan = band.pipeline_plan(n, m, cfg.is_affine, None, band.max_k(cfg))
+    geometry = None
+    if score:
+        geometry = dll.geometry or (band.tile_geometry(n, m, band.max_k(cfg)) if dll.tile
+                                    else None)
+    plan = band.pipeline_plan(n, m, cfg.is_affine, geometry, band.max_k(cfg))
     ring, sync, cells = band._pipe_scratch(plan, m, cfg.is_affine, "cuda", cell)
 
     def args():
@@ -178,7 +202,7 @@ def scratch(dll, n, m, cfg, cell):
 
 def score_call(dll, text, query, cfg, ends):
     m, n = text.numel(), query.numel()
-    geom, keep, pipe_args = scratch(dll, n, m, cfg, False)
+    geom, keep, pipe_args = scratch(dll, n, m, cfg, False, score=True)
     K = len(cfg.matrix) if cfg.has_matrix else 0
     matrix = torch.tensor(cfg.matrix if K else [0], dtype=torch.int32).cuda()
     out = torch.empty(1, dtype=torch.int32, device="cuda")
@@ -298,6 +322,8 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--no-full", action="store_true", help="skip the 64gb-shape SW fill")
     ap.add_argument("--out", help="directory for the SASS of K6's SW kernel")
+    ap.add_argument("--geometry", help="K6's k,threads[,blocks] in every version")
+    ap.add_argument("--only", help="time only the cases whose name starts with this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -320,8 +346,9 @@ def main() -> int:
             print(log)
             raise RuntimeError(f"nvcc failed for {label}")
         libs[label] = os.path.join(tmp, f"{label}.so")
-        for name, regs, spill in ptxas(log, "ILi16E"):  # the 16-rows kernels
-            print(f"[ptxas {label}] {name}: {regs} registers, {spill} bytes spilled")
+        for name, regs, spill in ptxas(log):  # K6's kernels and the 16-rows kernels
+            if "band_fill_kernel" in name or "ILi16E" in name:
+                print(f"[ptxas {label}] {name}: {regs} registers, {spill} bytes spilled")
     print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
 
     first = None
@@ -334,19 +361,24 @@ def main() -> int:
             if args.out and SW_KERNEL in name:
                 with open(os.path.join(args.out, f"{label}.{name}.sass"), "w") as f:
                     f.write("\n".join(kernels[name]) + "\n")
-        # the batch kernel's instantiations by template arguments, against
-        # the first version's (K6's and K7's SASS change with the pipeline)
-        kb = {hit.group(1): instrs for name, instrs in kernels.items()
-              if (hit := re.search(r"band_batch_kernelI(Li\d+E(?:Lb[01]E){3})", name))}
+        # the batch kernel's and K7's single-pair kernel's instantiations by
+        # template arguments, against the first version's
+        kb = {(kernel, hit.group(1)): instrs for name, instrs in kernels.items()
+              for kernel in ("band_batch_kernel", "band_capture_kernel")
+              if (hit := re.search(kernel + r"I(Li\d+E(?:Lb[01]E)+)", name))}
         if first is None:
             first = label, kb
             continue
-        same = [key for key, instrs in kb.items() if first[1].get(key) == instrs]
-        differ = sorted(set(kb) ^ set(first[1]) | (set(kb) - set(same)))
-        print(f"[sass {label} vs {first[0]}] band_batch_kernel instantiations with the same "
-              f"SASS: {len(same)} of {len(first[1])}; differing or missing: {differ}")
-    dlls = {label: bind(lib, pipelined(src), batch_sched(src)) for (label, src), lib in
-            zip(versions, libs.values())}
+        for kernel in ("band_batch_kernel", "band_capture_kernel"):
+            mine = {key: v for key, v in kb.items() if key[0] == kernel}
+            theirs = {key for key in first[1] if key[0] == kernel}
+            same = [key for key, instrs in mine.items() if first[1].get(key) == instrs]
+            differ = sorted(key[1] for key in (set(mine) ^ theirs) | (set(mine) - set(same)))
+            print(f"[sass {label} vs {first[0]}] {kernel} instantiations with the same "
+                  f"SASS: {len(same)} of {len(theirs)}; differing or missing: {differ}")
+    forced = tuple(int(x) for x in args.geometry.split(",")) if args.geometry else None
+    dlls = {label: bind(lib, pipelined(src), batch_sched(src), tiled(src), forced)
+            for (label, src), lib in zip(versions, libs.values())}
 
     rng = np.random.default_rng(20)
     a = torch.from_numpy(rng.integers(1, 5, 20000).astype(np.int8)).cuda()
@@ -384,6 +416,8 @@ def main() -> int:
     order = order + order[::-1]
     results, firsts = {}, {}
     for case, make in cases:
+        if args.only and not case.startswith(args.only):
+            continue
         for label in order:
             dll = dlls[label]
             if case.startswith("K7") and not hasattr(dll, "band_capture_fill"):

@@ -85,8 +85,9 @@ SHIM = r"""
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __shared__ static
 
@@ -167,6 +168,8 @@ inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
 inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
+inline int __viaddmax_s32_relu(int a, int b, int c) { return max(max(a + b, c), 0); }
+inline int __vimax3_s32_relu(int a, int b, int c) { return max(max(max(a, b), c), 0); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline int __vibmax_s32(int a, int b, bool* pred) { *pred = a >= b; return max(a, b); }
@@ -330,12 +333,13 @@ def build(out_dir: Optional[str] = None, sources=SOURCES, src_dir: Optional[str]
     return dll
 
 
-def _pipe_scratch(rng, n, m, affine, geometry, max_k, cells):
+def _pipe_scratch(rng, n, m, affine, geometry, max_k, cells, shallow=None):
     """A pipelined launch's plan and scratch: the ring and the blocks'
     cells as garbage (a slot read before it is written shows), the flags
-    zeroed; at times the ring cut to 2 rows (the deepest backpressure)."""
+    zeroed; the ring cut to 2 rows (the deepest backpressure) where
+    ``shallow``, at times where it is None."""
     plan = band.pipeline_plan(n, m, affine, geometry, max_k)
-    if plan.depth > 2 and rng.integers(0, 3) == 0:
+    if plan.depth > 2 and (rng.integers(0, 3) == 0 if shallow is None else shallow):
         plan = plan._replace(depth=2)
     ring = rng.integers(-99, 99, (max(plan.depth, 1), 2 if affine else 1, m + 1)).astype(np.int32)
     sync = np.zeros(plan.strips + 2, np.int32)
@@ -345,7 +349,11 @@ def _pipe_scratch(rng, n, m, affine, geometry, max_k, cells):
     return plan, (ring, sync, block_cells), pipe
 
 
-def _band_case(dll, rng, mode, matrix, affine, m, n, geometry):
+def _band_case(dll, rng, mode, matrix, affine, m, n, geometry, shallow=None):
+    """``band_fill`` (K6's tiled fill) against ``band.score_plain`` on a
+    random config of ``mode``, ``matrix`` and gaps at ``geometry`` (None:
+    ``band.tile_geometry``'s), the ring cut to 2 rows as ``shallow`` says
+    (:func:`_pipe_scratch`); returns ``(ok, info)``."""
     kw = dict(match=int(rng.integers(1, 4)), mismatch=int(rng.integers(-3, 2)),
               gap=int(rng.integers(-4, 0)))
     if matrix is not None:
@@ -357,7 +365,10 @@ def _band_case(dll, rng, mode, matrix, affine, m, n, geometry):
     text = torch.from_numpy(rng.integers(0, hi, m).astype(np.int8))
     query = torch.from_numpy(rng.integers(0, hi, n).astype(np.int8))
     ends = band._ends_flags(cfg, bool(rng.integers(0, 2)))
-    plan, keep, pipe = _pipe_scratch(rng, n, m, affine, geometry, band.max_k(cfg), False)
+    if geometry is None:
+        geometry = band.tile_geometry(n, m, band.max_k(cfg))
+    plan, keep, pipe = _pipe_scratch(rng, n, m, affine, geometry, band.max_k(cfg), False,
+                                     shallow)
     K = len(matrix) if matrix is not None else 0
     mat = np.ascontiguousarray(np.asarray(matrix if K else [0], np.int32).reshape(-1))
     out = np.full(1, 0 if cfg.is_local else band.NEG, np.int32)

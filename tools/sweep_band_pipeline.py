@@ -19,10 +19,12 @@ then:
   result equal to the first geometry's: CUDA-event medians of ``--runs``
   after one warm-up.
 
-With ``--steps`` it only times one strip alone (``n = k * threads`` rows,
-127,240 columns, one block) under SW and affine NW at a few ``(k,
-threads)``, and prints the time of a step (the fill's time over its
-``m + threads`` steps): the strip body without the pipeline's hand-off.
+With ``--steps`` it only times K6 on one strip alone (``n = k * threads``
+rows, 127,240 columns, one block) under SW and affine NW at a grid of
+``(k, threads)``, and prints the time of a step (the fill's time over its
+``band.tile_steps``, ``ceil(m / W) + threads`` for a tile of W columns):
+the tiled strip body without the pipeline's hand-off, the readings that
+``band.TILE_STEP_NS`` and ``TILE_CELL_NS`` are fitted to.
 
 Prints one JSON line of every time at the end.
 """
@@ -50,10 +52,11 @@ SW = ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
 AFF = ScoringConfig(match=2, mismatch=-1, gap_open=-5, gap_extend=-2)
 #: K6 SW's grid at the 64gb shape: (k, threads) with the planner's blocks,
 #: and a few block counts below the strips
-GRID_64GB = [(16, 32), (16, 64), (16, 96), (16, 128), (16, 256), (8, 32), (8, 64), (8, 96),
-             (8, 128), (8, 256), (4, 32), (4, 64), (4, 96), (4, 128), (2, 64), (2, 128),
-             (16, 64, 66), (8, 64, 132), (4, 64, 264)]
-GRID_20K = [(k, t) for k in (1, 2, 4, 8, 16) for t in (32, 64, 96, 128)]
+GRID_64GB = [(k, t) for k in (4, 8, 16) for t in (32, 64, 128, 256)] + [
+    (2, 128), (16, 64, 66), (8, 64, 132)]
+GRID_20K = [(k, t) for k in (1, 2, 4, 8, 16) for t in (32, 64, 128, 256)]
+#: --steps: one strip at each (k, threads)
+GRID_STEPS = [(k, t) for k in (1, 4, 8, 16) for t in (32, 64, 128, 256)]
 GRID_K7 = [(16, 64), (8, 64), (8, 96), (8, 128), (4, 64), (4, 128)]
 
 
@@ -113,16 +116,15 @@ def main() -> int:
         text = torch.from_numpy(rng.integers(1, 5, m).astype(np.int8)).to(dev)
         times = {}
         for cfg in (SW, AFF):
-            for k, threads in ((1, 128), (4, 128), (8, 32), (8, 64), (8, 128), (8, 256),
-                               (16, 128)):
+            for k, threads in GRID_STEPS:
                 query = torch.from_numpy(rng.integers(1, 5, k * threads).astype(np.int8)).to(dev)
                 ends = band._ends_flags(cfg, False)
                 ms, _ = cuda_ms(lambda: band.band_fill(text, query, cfg, ends, (k, threads, 1)),
                                 args.runs)
-                ns = ms * 1e6 / (m + threads)
+                ns = ms * 1e6 / band.tile_steps(k * threads, m, k, threads, 1)
                 times[f"{'affine' if cfg.is_affine else 'SW'} {k}x{threads}"] = ns
-                print(f"[step] {smi}: one strip, {cfg}, k = {k}, {threads} threads: {ms:.3f} ms, "
-                      f"{ns:.1f} ns a step")
+                print(f"[step] {smi}: one strip, {cfg}, k = {k}, {threads} threads, a tile of "
+                      f"{k} x {band.TILE_W[k]}: {ms:.3f} ms, {ns:.1f} ns a step")
         print(json.dumps({"card": smi, "ns_a_step": times}))
         return 0
     chip_smoke.PIPE_REPEAT = args.repeat

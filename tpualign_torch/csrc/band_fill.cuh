@@ -123,13 +123,50 @@
 // planes) has no counterpart here; their strips run in order on one core,
 // here they run side by side, each a column-skew behind the strip above.
 //
-// What bounds it: the pipeline runs about m + T + (S-1)(T + 2 kChunk)
-// steps when G >= S (a block walks ceil(S/G) strips otherwise), each step
-// K cells a thread (about 8 integer instructions a cell, DPX add-max
-// where it fits, two more for the located cell) plus a block barrier;
-// the ramp of S strips, each starting about T + 2 kChunk columns behind
-// the one above, and the per-step latency of a small block set the time,
-// not the card's integer rate.
+// K6's score (band_fill) runs a tiled body of its own (tile_strip, the
+// TILE flag of fill_pipe; the other contracts keep strip): at step t
+// thread r computes a K x W tile, columns (t-r)*W + 1 .. (t-r)*W + W of its
+// rows (W = tile_w(K): 4 at K <= 4, 8 above), its H (and E) in registers
+// across the tile.  The W values of the row above (H, and F under affine
+// gaps) come from thread r-1's tile of the step before, by W shuffles
+// inside a warp and through a W-wide parity double buffer across warps;
+// the diagonal of the first column is the last value of the previous
+// hand-off.  A cell (q, w) waits only on (q-1, w) and (q, w-1), so the
+// unrolled tile holds min(K, W) chains at once.  The W text codes come in
+// aligned words a step ahead (bytes at the ragged last tile and for an
+// unaligned text); column 0 stays in closed form; a tile with rows past n
+// or columns past m, or with cells the ends-free or global score reads,
+// masks them, and every other tile feeds the local max by row.  Warp 0
+// fetches the input row a chunk of kChunk columns at a time, one chunk
+// every kChunk / W steps (chunk c: columns c*kChunk + 1 .. c*kChunk +
+// kChunk); the last thread stores its W bottom columns to the ring slot
+// behind the same backpressure, and publishes the columns of the step
+// before each kPublish boundary (its fence then finds them drained), and m
+// + 1 after its last tile.  Under linear gaps a tile holds H + gap, at
+// once the next row's up + gap and the next column's left + gap, so a cell
+// is one DPX three-way max (with the local floor) and the score comes less
+// the gap.
+//
+// What bounds it: the tiled pipeline runs ceil(S/G)(ceil(m/W) + T) + (G -
+// 1)(T + 2 kPublish / W) steps (band.py's tile_steps): 32,761 for SW at the
+// 64gb shape (K = W = 8, 128 threads, 124 blocks): 15,905 tiles of a strip
+// and the ramp of 123 strips, where strip's column a step ran ~151,000.  A
+// step costs about 455 ns plus 6.5 ns a cell of the tile on the H100
+// (band.py's TILE_STEP_NS, TILE_CELL_NS; 880 ns at K = W = 8 inside the
+// pipeline):
+// the shuffles, shared hand-offs, barrier and fetch are a fixed part that
+// the tile pays once every W columns, and the cells run at the integer
+// pipe's half rate (compare, select, the DPX max), one warp a scheduler.
+// ptxas: 130 registers at SW's K = 8, 48-254 over the 40 instantiations
+// (K = 16 up to 254), none spilled.
+//
+// What bounds the other contracts (strip): about m + T + (S-1)(T + 2
+// kChunk) steps when G >= S (a block walks ceil(S/G) strips otherwise),
+// each step K cells a thread (about 8 integer instructions a cell, DPX
+// add-max where it fits, two more for the located cell) plus a block
+// barrier; the ramp of S strips, each starting about T + 2 kChunk columns
+// behind the one above, and the per-step latency of a small block set the
+// time, not the card's integer rate.
 
 #pragma once
 
@@ -559,6 +596,267 @@ __device__ __forceinline__ void strip(const Params& p, const CaptureArgs& c,
   }
 }
 
+// K6's tile: columns a step at K rows a thread (band.py's TILE_W), the
+// fastest of 4, 8 and 16 at each K on the H100; each divides kChunk, and
+// the fetch wants two steps or more a chunk
+__host__ __device__ constexpr int tile_w(int K) { return K <= 4 ? 4 : 8; }
+
+// H(i, 0) of the table's left edge, closed form: 0 (row 0, local, zc),
+// open + i*ext (affine), i*gap
+template <bool AFFINE, bool LOCAL>
+__device__ __forceinline__ int32_t left_h(const Params& p, int i) {
+  if (LOCAL || i == 0 || (p.flags & kZeroCol)) return 0;
+  return AFFINE ? p.open + i * p.ext : i * p.gap;
+}
+
+// The text codes of one tile's W columns b*W+1 .. b*W+W, four to a word
+// (0 past m): aligned words where the tile is whole, bytes at the end
+template <int W>
+__device__ __forceinline__ void tile_codes(const int8_t* text, int m, int b, bool aligned,
+                                           uint32_t (&cw)[W / 4]) {
+  const int j0 = b * W;
+  if (aligned && j0 + W <= m) {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(text + j0);
+#pragma unroll
+    for (int x = 0; x < W / 4; ++x) cw[x] = src[x];
+    return;
+  }
+#pragma unroll
+  for (int x = 0; x < W / 4; ++x) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int j = j0 + 4 * x + y;
+      if (j < m) v |= static_cast<uint32_t>(static_cast<uint8_t>(text[j])) << (8 * y);
+    }
+    cw[x] = v;
+  }
+}
+
+// One K x W tile of K6's score: the thread's rows top+1 .. top+K at columns
+// j0+1 .. j0+W, h (and e) their left column in and their last column out, hw
+// (and fw) the top row in (row top) and the bottom row out, diag H(top,
+// j0).  Under linear gaps h, hw and diag hold H + gap, which is at once the
+// next row's up + gap and the next column's left + gap, so a cell is one
+// three-way max; a pair's or the matrix's score then comes less the gap.
+// MASK: a tile with rows past n or columns past m (live only those with
+// q < nlive and a column at most m), or one whose cells the ends-free or
+// global score reads; without it every cell is live and only the local
+// max reads them, into vmax by row
+template <int K, int W, bool AFFINE, bool MATRIX, bool LOCAL, bool MASK>
+__device__ __forceinline__ void tile(const Params& p, const int32_t* mat, const int (&rc)[K],
+                                     const uint32_t (&cw)[W / 4], int j0, int32_t diag,
+                                     int32_t (&h)[K], int32_t (&e)[K], int32_t (&hw)[W],
+                                     int32_t (&fw)[W], int32_t (&vmax)[K], int32_t& acc,
+                                     int nlive, bool owns_n, int qn) {
+  const int m = p.m;
+  const bool er = p.flags & kEndRow, ec = p.flags & kEndCol;
+  const int g0 = AFFINE ? 0 : p.gap;  // what h, hw and diag hold beyond H
+  const int32_t sm = p.match - g0, smm = p.mismatch - g0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int j = j0 + w + 1;
+    const int c = static_cast<int8_t>(cw[w / 4] >> (8 * (w % 4)));
+    const int cK = MATRIX ? c * p.K : 0;
+    int32_t up = hw[w], upf = fw[w];
+    int32_t d = diag;
+    diag = up;  // the next column's diagonal at the top row
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int32_t s = MATRIX ? mat[cK + rc[q]] : (c == rc[q] ? sm : smm);
+      int32_t hn;
+      if (AFFINE) {
+        e[q] = __viaddmax_s32(h[q], p.open, e[q]) + p.ext;
+        upf = __viaddmax_s32(up, p.open, upf) + p.ext;
+        hn = LOCAL ? __vimax3_s32_relu(d + s, e[q], upf) : __vimax3_s32(d + s, e[q], upf);
+      } else {
+        hn = LOCAL ? __vimax3_s32_relu(up, h[q], d + s) : __vimax3_s32(up, h[q], d + s);
+      }
+      if (LOCAL && (!MASK || (q < nlive && j <= m))) vmax[q] = max(vmax[q], hn);
+      d = h[q];
+      h[q] = hn + g0;
+      up = h[q];
+    }
+    hw[w] = up;
+    fw[w] = upf;
+    if (MASK && !LOCAL && j <= m) {
+      if (ec && j == m) {
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          if (q < nlive) acc = max(acc, h[q] - g0);
+        }
+      }
+      if (owns_n && (er || j == m)) acc = max(acc, pick(h, qn) - g0);
+    }
+  }
+}
+
+// K6's strip, tiled: the score contract of strip (no captures, locating,
+// checkpoints or edges) with a K x W tile a thread a step (see the header):
+// at step t thread r computes tile t - r, columns (t-r)*W + 1 .. (t-r)*W + W
+template <int K, bool AFFINE, bool MATRIX, bool LOCAL>
+__device__ __forceinline__ void tile_strip(const Params& p, const int32_t* mat, int i0,
+                                           const Link& l, int32_t& acc) {
+  constexpr int W = tile_w(K);
+  constexpr int P = kChunk / W;  // steps a chunk of the input row serves
+  static_assert(W % 4 == 0 && kChunk % W == 0 && P >= 2, "a tile's width");
+  __shared__ int32_t hand_h[2][kWarps][W];
+  __shared__ int32_t hand_f[2][kWarps][W];
+  __shared__ int32_t in_buf[2][2][kChunk];  // [chunk parity][H, F][column]
+  const int r = threadIdx.x;
+  const int T = blockDim.x;
+  const int lane = r & 31;
+  const int warp = r >> 5;
+  const int m = p.m;
+  const int n = p.n;
+  const int top = i0 + r * K;  // this thread's rows are top+1 .. top+K
+  const int nlive = max(0, min(K, n - top));
+  // every row live: from n and top, not from nlive (ptxas turned nlive == K
+  // into the predicate of the DPX min that makes nlive, and the thread that
+  // owns row n took the unmasked tile)
+  const bool full = top + K <= n;
+  const int t_live = (min(K * T, n - i0) + K - 1) / K;  // threads with a live row
+  const bool owns_n = top < n && n <= top + K;
+  const int qn = n - top - 1;
+  const bool er = p.flags & kEndRow;
+  const int tiles = (m + W - 1) / W;
+  const bool aligned = (reinterpret_cast<uintptr_t>(p.text) & 3) == 0;
+  const int g0 = AFFINE ? 0 : p.gap;  // what the tile's H values hold beyond H (see tile)
+  int rc[K];
+  int32_t h[K], e[K], vmax[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    rc[q] = q < nlive ? p.query[top + q] : 0;
+    h[q] = left_h<AFFINE, LOCAL>(p, top + q + 1) + g0;  // column 0
+    e[q] = kNeg;
+    vmax[q] = 0;
+  }
+  int32_t hw[W], fw[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    hw[w] = kNeg;
+    fw[w] = kNeg;
+  }
+  int32_t diag = left_h<AFFINE, LOCAL>(p, top) + g0;  // H(top, 0)
+  uint32_t cw[W / 4];
+  if (r == 0) tile_codes<W>(p.text, m, 0, aligned, cw);
+  // warp 0 brings the input row into in_buf a chunk of kChunk columns at a
+  // time (chunk c: columns c*kChunk + 1 .. c*kChunk + kChunk), the next
+  // chunk's loads in flight in next_h/next_f over the P steps of this one
+  const bool fetch = l.in_h != nullptr && warp == 0;
+  int seen = 0;
+  int32_t next_h = 0, next_f = 0;
+  if (fetch) {
+    while (seen < min(kChunk + 1, m + 1)) seen = load_acquire(l.in_ready);
+    if (lane < m) {
+      in_buf[0][0][lane] = __ldcg(l.in_h + lane + 1);
+      if (AFFINE) in_buf[0][1][lane] = __ldcg(l.in_f + lane + 1);
+    }
+    if (kChunk < m) {
+      while (seen < min(2 * kChunk + 1, m + 1)) seen = load_acquire(l.in_ready);
+      if (kChunk + lane < m) {
+        next_h = __ldcg(l.in_h + kChunk + lane + 1);
+        if (AFFINE) next_f = __ldcg(l.in_f + kChunk + lane + 1);
+      }
+    }
+  }
+  __syncthreads();  // chunk 0 is in
+  int free_to = 0;  // the last thread: columns of its slot known read
+  const int steps = tiles + t_live - 1;
+  for (int t = 0; t < steps; ++t) {
+    // thread r-1's bottom row of tile t - r, computed at step t - 1
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      hw[w] = __shfl_up_sync(0xffffffffu, hw[w], 1);
+      if (AFFINE) fw[w] = __shfl_up_sync(0xffffffffu, fw[w], 1);
+    }
+    const int b = t - r;
+    const bool active = b >= 0 && b < tiles && r < t_live;
+    if (fetch && t % P == P - 1 && (t / P + 1) * kChunk < m) {
+      // the last step of chunk c: chunk c + 1 lands in in_buf (thread 0
+      // reads it from the next step on, after this step's barrier), chunk
+      // c + 2 starts loading
+      const int c1 = t / P + 1;
+      in_buf[c1 & 1][0][lane] = next_h;
+      if (AFFINE) in_buf[c1 & 1][1][lane] = next_f;
+      if ((c1 + 1) * kChunk < m) {
+        while (seen < min((c1 + 2) * kChunk + 1, m + 1)) seen = load_acquire(l.in_ready);
+        const int j = (c1 + 1) * kChunk + lane + 1;
+        if (j <= m) {
+          next_h = __ldcg(l.in_h + j);
+          if (AFFINE) next_f = __ldcg(l.in_f + j);
+        }
+      }
+    }
+    if (lane == 0 && warp > 0) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        hw[w] = hand_h[(t - 1) & 1][warp - 1][w];
+        if (AFFINE) fw[w] = hand_f[(t - 1) & 1][warp - 1][w];
+      }
+    }
+    if (r == 0 && active) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (l.in_h == nullptr) {
+          hw[w] = top_h<AFFINE, LOCAL, false>(p, b * W + w + 1) + g0;
+          fw[w] = kNeg;
+        } else {
+          const int x = (b % P) * W + w;
+          hw[w] = in_buf[(b / P) & 1][0][x] + g0;
+          if (AFFINE) fw[w] = in_buf[(b / P) & 1][1][x];
+        }
+      }
+    }
+    if (active) {
+      const int j0 = b * W;
+      const int32_t d = diag;
+      diag = hw[W - 1];  // H(top, j0 + W): the next tile's diagonal
+      const bool whole = full && (LOCAL ? j0 + W <= m : j0 + W < m && !(owns_n && er));
+      if (whole) {
+        tile<K, W, AFFINE, MATRIX, LOCAL, false>(p, mat, rc, cw, j0, d, h, e, hw, fw, vmax, acc,
+                                                 nlive, owns_n, qn);
+      } else {
+        tile<K, W, AFFINE, MATRIX, LOCAL, true>(p, mat, rc, cw, j0, d, h, e, hw, fw, vmax, acc,
+                                                nlive, owns_n, qn);
+      }
+      if (r == T - 1 && l.out_h != nullptr) {  // the next strip's input row
+        // the columns up to j0, stored a step ago, are published before
+        // this tile's stores, so the release's fence finds them drained
+        if (j0 > 0 && j0 % kPublish == 0) store_release(l.out_ready, j0 + 1);
+        const int last = min(j0 + W, m);
+        if (l.out_free != nullptr && free_to <= last) {
+          do {
+            free_to = load_acquire(l.out_free);
+          } while (free_to <= last);
+        }
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          if (j0 + w < m) {
+            __stcg(l.out_h + j0 + w + 1, hw[w] - g0);
+            if (AFFINE) __stcg(l.out_f + j0 + w + 1, fw[w]);
+          }
+        }
+        if (last == m) store_release(l.out_ready, m + 1);
+      }
+    }
+    // the next tile's codes, a step ahead
+    if (b + 1 >= 0 && b + 1 < tiles && r < t_live) tile_codes<W>(p.text, m, b + 1, aligned, cw);
+    if (lane == 31) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        hand_h[t & 1][warp][w] = hw[w];
+        if (AFFINE) hand_f[t & 1][warp][w] = fw[w];
+      }
+    }
+    __syncthreads();
+  }
+  if (LOCAL) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) acc = max(acc, vmax[q]);
+  }
+}
+
 // The block's max of acc (thread 0's value is the block's)
 __device__ __forceinline__ int32_t block_max(int32_t acc, int32_t* red) {
   const int r = threadIdx.x, lane = r & 31, warp = r >> 5;
@@ -614,7 +912,7 @@ __device__ __forceinline__ void block_cell(int32_t& best_v, int& best_i, int& be
 // The pipelined schedule (see the header): the blocks take strips from a
 // ticket and hand rows down through the ring
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL, bool CAPTURE, bool LOCATE,
-          bool CKPT, bool EDGE = false>
+          bool CKPT, bool EDGE = false, bool TILE = false>
 __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
                                           const Pipe& q, const CkptArgs& ck,
                                           const Edge& edge = Edge{}) {
@@ -625,8 +923,9 @@ __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
   const int r = threadIdx.x;
   const int T = blockDim.x;
   const int m = p.m;
-  if (MATRIX) {
-    for (int x = r; x < p.K * p.K; x += T) mat[x] = p.matrix[x];
+  if (MATRIX) {  // the tiled linear fill takes the matrix less the gap (see tile)
+    const int less = TILE && !AFFINE ? p.gap : 0;
+    for (int x = r; x < p.K * p.K; x += T) mat[x] = p.matrix[x] - less;
   }
   int32_t acc = LOCAL ? 0 : kNeg;
   int32_t best_v = kNeg;  // this thread's located cell
@@ -656,8 +955,12 @@ __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
       l.out_ready = progress + s;
       if (s >= q.depth) l.out_free = progress + s - q.depth + 1;
     }
-    strip<K, AFFINE, MATRIX, LOCAL, CAPTURE, LOCATE, CKPT, EDGE>(
-        p, c, ck, mat, s * K * T, l, acc, best_v, best_i, best_j, edge);
+    if constexpr (TILE) {
+      tile_strip<K, AFFINE, MATRIX, LOCAL>(p, mat, s * K * T, l, acc);
+    } else {
+      strip<K, AFFINE, MATRIX, LOCAL, CAPTURE, LOCATE, CKPT, EDGE>(
+          p, c, ck, mat, s * K * T, l, acc, best_v, best_i, best_j, edge);
+    }
   }
   if (CKPT) return;  // the checkpoints are written by their rows' owners
   if (!CAPTURE) {
@@ -694,10 +997,14 @@ __device__ __forceinline__ void fill_pipe(const Params& p, const CaptureArgs& c,
   c.cell[2] = best_j;
 }
 
-// K6's port: the score, pipelined
+// K6's port: the score, pipelined, a tile a thread a step.  One block an SM
+// at the least lets ptxas keep a tile in registers: with the default bound
+// it stopped at 80 and spilled (k = 8 local affine with a matrix), and the
+// affine fills ran 3-9% slower on the H100
 template <int K, bool AFFINE, bool MATRIX, bool LOCAL>
-__global__ void __launch_bounds__(kPipeThreads) band_fill_kernel(Params p, Pipe q) {
-  fill_pipe<K, AFFINE, MATRIX, LOCAL, false, false, false>(p, CaptureArgs{}, q, CkptArgs{});
+__global__ void __launch_bounds__(kPipeThreads, 1) band_fill_kernel(Params p, Pipe q) {
+  fill_pipe<K, AFFINE, MATRIX, LOCAL, false, false, false, false, true>(p, CaptureArgs{}, q,
+                                                                       CkptArgs{});
 }
 
 // K7's port: the captures, under affine gaps the last row of F, and, with

@@ -11,8 +11,10 @@ take strips in order from a ticket and hand each strip's bottom row
 ``H(i0, 0..m)`` (plus the F row under affine gaps) down through a ring of
 rows in global memory with progress flags, so the strips run side by side,
 each a column-skew behind the one above (:func:`pipeline_geometry`,
-:func:`pipeline_plan`).  Its contract, shared by :func:`band_fill` and
-:func:`score_plain`:
+:func:`pipeline_plan`).  The score fill (:func:`band_fill`) computes a tile
+of ``k`` rows by ``TILE_W[k]`` columns a thread a step (:func:`tile_geometry`,
+:func:`score_plan`, :func:`tile_steps`).  Its contract, shared by
+:func:`band_fill` and :func:`score_plain`:
 
 - ``text`` (m,) int8 runs across the columns, ``query`` (n,) int8 down the
   rows; ``cfg`` is the config in kernel coordinates (its matrix transposed
@@ -69,7 +71,8 @@ KS = (1, 2, 4, 8, 16)
 #: at most BLOCKS_PER_SM blocks an SM in flight, PUBLISH columns between two
 #: progress flags (kPublish in csrc/band_fill.cuh), STEP_OVERHEAD a step's
 #: fixed cost in rows' work (a step took about 340 + 8.25 k ns for k rows a
-#: thread on the H100, tools/sweep_band_pipeline.py), the ring's
+#: thread on the H100 in the strip body the other fills keep, measured by
+#: tools/sweep_band_pipeline.py before K6's tile), the ring's
 #: RING_BUDGET bytes when no budget is given (the CUDA wrappers give
 #: ring_budget()'s, from the card's free memory)
 SMS = 132
@@ -78,6 +81,15 @@ BLOCKS_PER_SM = 4
 PUBLISH = 32
 STEP_OVERHEAD = 41
 RING_BUDGET = 1 << 30
+
+#: K6's tiled fill (band_fill_kernel's tile_strip in csrc/band_fill.cuh): a
+#: step computes TILE_W[k] columns of a thread's k rows (the kernel's
+#: tile_w), and costs about TILE_STEP_NS ns plus TILE_CELL_NS a cell of the
+#: tile on the H100 (PERF.md); :func:`tile_geometry` weighs TILE_THREADS
+TILE_W = {1: 4, 2: 4, 4: 4, 8: 8, 16: 8}
+TILE_STEP_NS = 455.0
+TILE_CELL_NS = 6.5
+TILE_THREADS = (32, 64, 128, 256)
 
 #: flag bits of the kernel's ``flags`` argument
 LOCAL, AFFINE, ZERO_ROW, ZERO_COL, END_ROW, END_COL = 1, 2, 4, 8, 16, 32
@@ -132,6 +144,43 @@ def pipeline_geometry(n: int, m: int, max_k: int = MAX_K) -> Tuple[int, int, int
     return best[1]
 
 
+def tile_steps(n: int, m: int, k: int, threads: int, blocks: int) -> int:
+    """The tiled fill's steps: ``ceil(S/G) * (ceil(m/W) + T) + (G - 1) * (T
+    + 2 * PUBLISH / W)`` for S strips of ``k * threads`` rows over G =
+    min(S, ``blocks``) blocks, W = TILE_W[k] (each strip starts about T + 2
+    * PUBLISH / W steps behind the one above; a block walks ceil(S/G)
+    strips)."""
+    W = TILE_W[k]
+    S = strips(n, k, threads)
+    G = min(S, blocks)
+    return -(-S // G) * (-(-m // W) + threads) + (G - 1) * (threads + 2 * PUBLISH // W)
+
+
+def tile_geometry(n: int, m: int, max_k: int = MAX_K) -> Tuple[int, int, int]:
+    """``(k, threads, blocks)`` of K6's tiled fill (:func:`band_fill`) of
+    ``n`` rows and ``m`` columns.  For each ``k`` up to ``max_k`` and each
+    of TILE_THREADS (fewer, whole warps, when one strip holds every row),
+    with G = min(S, SMS * BLOCKS_PER_SM) blocks, the cost model is
+    :func:`tile_steps` times a step's cost, ``TILE_STEP_NS + TILE_CELL_NS *
+    k * W * share``, where ``share`` is the warps that one of an SM's 4
+    schedulers issues for (the blocks spread evenly over the SMS SMs); the
+    cheapest wins, the larger ``k``, then the more threads, on a tie."""
+    best = None
+    for k in KS:
+        if k > max_k:
+            break
+        rows = -(-n // k)
+        for T in TILE_THREADS:
+            T = min(T, WARP * -(-rows // WARP))
+            S = strips(n, k, T)
+            G = min(S, SMS * BLOCKS_PER_SM)
+            share = -(-(-(-G // SMS) * T // WARP) // 4)
+            cost = tile_steps(n, m, k, T, G) * (TILE_STEP_NS + TILE_CELL_NS * k * TILE_W[k] * share)
+            if best is None or cost <= best[0]:
+                best = (cost, (k, T, G))
+    return best[1]
+
+
 class PipePlan(NamedTuple):
     """One pipelined launch: ``strips`` strips of ``k * threads`` rows over
     ``blocks`` blocks, a ring of ``depth`` rows (0 with one strip)."""
@@ -180,6 +229,15 @@ def pipeline_plan(n: int, m: int, affine: bool, geometry=None, max_k: int = MAX_
     return PipePlan(k, threads, blocks, S, depth)
 
 
+def score_plan(n: int, m: int, affine: bool, geometry=None, max_k: int = MAX_K,
+               budget: Optional[int] = None) -> PipePlan:
+    """:func:`pipeline_plan` of K6's tiled fill (:func:`band_fill`):
+    ``geometry`` by default :func:`tile_geometry`'s."""
+    if geometry is None:
+        geometry = tile_geometry(n, m, max_k)
+    return pipeline_plan(n, m, affine, geometry, max_k, budget)
+
+
 #: the share of a card's free memory that a fill's ring may take (the CUDA
 #: wrappers plan after allocating the fill's outputs): half, since the ring
 #: is one allocation that the caching allocator rounds up and must find in
@@ -217,11 +275,14 @@ def _pipe_scratch(plan: PipePlan, m: int, affine: bool, dev, cells: bool):
     return ring, sync, block_cells
 
 
-def _plan(n: int, m: int, affine: bool, geometry, most_k: int, dev) -> PipePlan:
-    """:func:`pipeline_plan` within :func:`ring_budget` of ``dev`` (the span
+def _plan(n: int, m: int, affine: bool, geometry, most_k: int, dev,
+          tiled: bool = False) -> PipePlan:
+    """:func:`pipeline_plan`, or where ``tiled`` (K6's fill)
+    :func:`score_plan`, within :func:`ring_budget` of ``dev`` (the span
     ``plan``)."""
     with trace.span("plan"):
-        return pipeline_plan(n, m, affine, geometry, most_k, ring_budget(dev))
+        return (score_plan if tiled else pipeline_plan)(n, m, affine, geometry, most_k,
+                                                        ring_budget(dev))
 
 
 def _matrix(cfg: ScoringConfig, dev) -> torch.Tensor:
@@ -319,15 +380,16 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
 
     ``geometry``: ``(k, threads)`` or ``(k, threads, blocks)``: rows per
     thread (1, 2, 4, 8 or 16), threads (a multiple of 32 up to 256) and
-    blocks (:func:`pipeline_plan`); default :func:`pipeline_geometry` with
+    blocks (:func:`pipeline_plan`); default :func:`tile_geometry` with
     ``k`` at most :func:`max_k`.  It sets the strip height ``k * threads``
     and the blocks that run the strips, never the result; ``blocks=1`` is
     the single-block schedule.  On CUDA the wrapper allocates the output,
     then the ring (within :func:`ring_budget`) and the flags, launches on
     the current stream without synchronising, and counts the launch in the
-    counter ``launch.band_fill`` (:mod:`tpualign_torch.trace`).  A launch
-    the device refuses raises; nothing falls back to the plain version or
-    to fewer blocks."""
+    counter ``launch.band_fill`` (:mod:`tpualign_torch.trace`) and the
+    plan's :func:`tile_steps` in ``band_fill.steps``.  A launch the device
+    refuses raises; nothing falls back to the plain version or to fewer
+    blocks."""
     xla.check_pair(text, query, ("text", "query"))
     if text.device.type == "cpu":
         return score_plain(text, query, cfg, ends)
@@ -341,7 +403,7 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     with trace.span("alloc"):  # the identity of the blocks' max
         out = torch.full((1,), 0 if cfg.is_local else NEG, dtype=torch.int32, device=dev)
     trace.count_bytes("alloc_bytes", out)
-    plan = _plan(n, m, cfg.is_affine, geometry, max_k(cfg), dev)
+    plan = _plan(n, m, cfg.is_affine, geometry, max_k(cfg), dev, tiled=True)
     ring, sync, _ = _pipe_scratch(plan, m, cfg.is_affine, dev, False)
     with trace.span("launch.band_fill"), torch.cuda.device(dev):
         err = lib.band_fill(
@@ -354,6 +416,7 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     if err != 0:
         raise RuntimeError(f"band_fill launch failed with CUDA error {err}")
     trace.count("launch.band_fill")
+    trace.count("band_fill.steps", tile_steps(n, m, plan.k, plan.threads, plan.blocks))
     return out[0].long()
 
 
