@@ -1,14 +1,16 @@
 """The plain reference against the program's CPU path, and the control:
 the reference in int16 fails where the scores or its row's ramp leave the
 16-bit range.  Each configuration names its reference by path, and the
-harness finds it there."""
+harness finds it there; every test of a configuration holds it to the
+reference it names, and gives the program its scheme by the harness's own
+rule (``harness.Port``)."""
 
 import numpy as np
 import pytest
 import torch
 
 import tpualign_torch as tt
-from benchmark import spec
+from benchmark import harness, spec
 from benchmark.reference import alignment, linear
 
 SPEC = spec.load()
@@ -21,8 +23,7 @@ def _config(name):
 
 
 def _scoring(config):
-    return tt.ScoringConfig(match=config["match"], mismatch=config["mismatch"],
-                            gap=config["gap"], mode=tt.AlignMode[config["mode"].upper()])
+    return harness.Port(tt, config, "cpu").scoring
 
 
 def _pairs(seed, count, text, query):
@@ -40,7 +41,7 @@ def test_reference_equals_the_program_on_the_cpu(config, seed):
     queries.append(queries[1][:1])
     want = [tt.align_score(t, q, _scoring(cfg), tt.EngineConfig(device="cpu"))
             for t, q in zip(texts, queries)]
-    got = linear.scores(texts, queries, cfg, device="cpu")
+    got = spec.reference(cfg).scores(texts, queries, cfg, device="cpu")
     assert got.dtype == np.int64 and got.tolist() == want
     batch = tt.align_score_batch(texts, queries, _scoring(cfg), tt.EngineConfig(device="cpu"))
     assert batch.tolist() == want
@@ -57,8 +58,9 @@ def test_the_control_fails_past_16_bits(config):
     q1, q2 = t1[20_000:20_040].copy(), t2[30_000:30_040].copy()
     q1[::9], q2[::11] = q1[::9] % 4 + 1, q2[::11] % 4 + 1
     texts, queries = [t1, t2], [q1, q2]
-    exact = linear.scores(texts, queries, cfg, device="cpu")
-    low = linear.scores(texts, queries, cfg, device="cpu", dtype=torch.int16)
+    reference = spec.reference(cfg)
+    exact = reference.scores(texts, queries, cfg, device="cpu")
+    low = reference.scores(texts, queries, cfg, device="cpu", dtype=torch.int16)
     want = [tt.align_score(t, q, _scoring(cfg), tt.EngineConfig(device="cpu"))
             for t, q in zip(texts, queries)]
     assert exact.tolist() == want
@@ -78,12 +80,15 @@ def test_the_reference_refuses_other_schemes():
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_the_configuration_names_its_reference(config):
+    """The path resolves to a module under ``benchmark/reference/`` that
+    gives the harness both functions, and every cell of the configuration
+    gets that same module."""
     cfg = _config(config)
-    assert cfg["reference"] == "benchmark/reference/linear.py"
-    assert spec.reference(cfg) is linear
-    for w in SPEC["workloads"]:
-        if w["config"] == config:
-            assert spec.workload(SPEC, w["name"]).reference is linear
+    reference = spec.reference(cfg)
+    assert reference.__name__ == "benchmark.reference." + cfg["reference"].split("/")[-1][:-3]
+    assert callable(reference.scores) and callable(reference.fault)
+    cells = [w["name"] for w in SPEC["workloads"] if w["config"] == config]
+    assert cells and all(spec.workload(SPEC, w).reference is reference for w in cells)
 
 
 @pytest.mark.parametrize("path", ["benchmark/reference/none.py", "benchmark/harness.py",
@@ -124,10 +129,11 @@ def test_alignment_check(seed, monkeypatch):
 @pytest.mark.parametrize("config", CONFIGS)
 def test_graphs_on_the_card_equal_the_cpu(config, cuda_device):
     cfg = _config(config)
+    reference = spec.reference(cfg)
     texts, queries = _pairs(9, 5, (1, 3000), (1, 700))
-    cpu = linear.scores(texts, queries, cfg, device="cpu")
-    card = linear.scores(texts, queries, cfg, device=cuda_device)
+    cpu = reference.scores(texts, queries, cfg, device="cpu")
+    card = reference.scores(texts, queries, cfg, device=cuda_device)
     assert card.tolist() == cpu.tolist()
-    low = linear.scores(texts, queries, cfg, device=cuda_device, dtype=torch.int16)
-    assert low.tolist() == linear.scores(texts, queries, cfg, device="cpu",
-                                         dtype=torch.int16).tolist()
+    low = reference.scores(texts, queries, cfg, device=cuda_device, dtype=torch.int16)
+    assert low.tolist() == reference.scores(texts, queries, cfg, device="cpu",
+                                            dtype=torch.int16).tolist()

@@ -80,7 +80,9 @@ def test_config_files(config):
         data = json.load(f)
     assert data["name"] == config and data["source"] == entry["source"]
     assert data["reduced"] == entry["reduced"] == []
-    assert data["mode"] in ("global", "local") and data["alphabet"] == [1, 4]
+    # every mode that the harness converts into the program's AlignMode
+    assert data["mode"] in ("global", "local", "semiglobal", "infix")
+    assert data["alphabet"] == [1, 4]
     assert any(w["config"] == config for w in SPEC["workloads"])
 
 
