@@ -307,3 +307,61 @@ def test_ends_free_affine_core_takes_myers_miller(large_paths, monkeypatch):
     s1, s2 = _pair(120, 80, seed=11)
     got = ends_free.align_large(s1, s2, ours, device="cpu")
     assert calls and got == tpualign.align(s1, s2, theirs)
+
+
+# -- BWA-MEM's scheme (1, -4, -6, -1), global, through the entry point --------
+
+BWA = dict(match=1, mismatch=-4, gap_open=-6, gap_extend=-1)
+
+
+def _recorded_align(s1, s2, cfg):
+    """``align`` on the CPU inside ``trace.recording``: its result, its
+    stats and the counters its call moved."""
+    trace.take()
+    stats = {}
+    with trace.recording():
+        got = align(s1, s2, cfg, CPU, stats=stats)
+    call = [c for c in trace.take() if c.name == "align"][-1]
+    return got, stats, call.counters
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_bwa_mem_scheme_past_the_full_table(large_paths, seed):
+    """BWA-MEM's default penalties on unrelated pairs past the full table,
+    with nodes split into small leaves: the full-table traceback's optimum,
+    and ``tpualign``'s strings.  Where optimal alignments tie, Myers-Miller's
+    crossings may pick another of them than the full-table walk does (seeds
+    3 and 5 here), so the strings are held to ``tpualign``'s Myers-Miller.  The
+    walker's two clock readings add up to its whole, and the vertical-gap
+    crossings are counted as ``stats`` has them."""
+    ours, theirs = _cfgs(**BWA)
+    s1, s2 = _pair(90, 80, seed=seed)
+    got, stats, counters = _recorded_align(s1, s2, ours)
+    want = toracle.traceback(s1, s2, ours)
+    assert got[0] == want[0] == oracle.score(s1, s2, theirs)
+    assert got == tpualign.align(s1, s2, theirs)
+    assert toracle.alignment_score(*got[1:], ours) == got[0]
+    assert stats["nodes"] >= 1 and counters["nodes.affine"] == stats["nodes"]
+    assert counters.get("nodes.affine_gap", 0) == stats["gap_nodes"]
+    assert counters["leaf_fill_ns"] > 0 and counters["leaf_trace_ns"] > 0
+    assert counters["leaf_fill_ns"] + counters["leaf_trace_ns"] == counters["leaf_walk_ns"]
+    assert stats["leaf_fill_s"] > 0 and stats["leaf_trace_s"] > 0
+    assert stats["leaf_fill_s"] + stats["leaf_trace_s"] == pytest.approx(stats["leaf_walk_s"])
+
+
+def test_bwa_mem_scheme_vertical_gap_crossing(large_paths):
+    """A copy of the text with substitutions and a 5-base insertion across
+    the query's middle row: the root's crossing is the F case (a vertical gap
+    over rows mid and mid + 1), and the strings are the full-table
+    traceback's."""
+    ours, theirs = _cfgs(**BWA)
+    rng = np.random.default_rng(1)
+    s1 = rng.integers(1, 5, 90).astype(np.int8)
+    s2 = s1.copy()
+    s2[::13] = s2[::13] % 4 + 1
+    s2 = np.concatenate([s2[:43], rng.integers(1, 5, 5).astype(np.int8), s2[43:]])
+    got, stats, counters = _recorded_align(s1, s2, ours)
+    assert got == toracle.traceback(s1, s2, ours) == tpualign.align(s1, s2, theirs)
+    assert stats["gap_nodes"] >= 1 and counters["nodes.affine_gap"] == stats["gap_nodes"]
+    assert counters["leaf_fill_ns"] > 0 and counters["leaf_trace_ns"] > 0
+    assert counters["leaf_fill_ns"] + counters["leaf_trace_ns"] == counters["leaf_walk_ns"]

@@ -69,20 +69,23 @@ def _check_cfg(cfg: ScoringConfig) -> None:
                          "modes reduce through ops.ends_free")
 
 
-def _base_align(s1, s2, cfg: ScoringConfig, tb: int, te: int) -> Tuple[int, str, str]:
+def _base_align(s1, s2, cfg: ScoringConfig, tb: int, te: int,
+                tables=None) -> Tuple[int, str, str]:
     """Exact Gotoh alignment of a small global block with boundary flags,
     the port of ``tpualign.ops.affine_align._base_align``.
 
     ``tb``/``te`` are the vertical-gap opens at the top and bottom edges
     (``cfg.gap_open``, or 0 where the parent carries an open gap through
     that edge).  Tie order as the oracle's: diag > up (F) > left (E);
-    closing beats extending."""
+    closing beats extending.  ``tables`` are the block's ``(H, E, F)``
+    where the caller has filled them (:func:`oracle.affine_tables` with
+    ``tb``)."""
     BASES = oracle.BASES
     s1 = np.asarray(s1, np.int64)
     s2 = np.asarray(s2, np.int64)
     N, M = s2.size, s1.size
     open_, ext = cfg.gap_open, cfg.gap_extend
-    H, E, F = oracle.affine_tables(s1, s2, cfg, tb)
+    H, E, F = oracle.affine_tables(s1, s2, cfg, tb) if tables is None else tables
     # te: the alignment may end inside a vertical gap with the open waived;
     # a vertical gap needs a row, so an empty query cannot end in one
     end_f = int(F[N, M]) + te - open_ if N > 0 else int(oracle.NEG)
@@ -153,9 +156,14 @@ def align(s1, s2, cfg: ScoringConfig, *, device,
     (until the last node's crossing is read back), ``leaf_walk`` (always
     ``"numpy"``: the flagged Gotoh walk has no C++ counterpart, ROADMAP
     item 15), ``leaf_walk_s`` (the leaf walks' own times, summed over the
-    threads) and ``wall_s``.  The spans and counters are
-    :func:`tpualign_torch.ops.hirschberg.tree`'s, a node's fills the span
-    ``node.affine`` and the counter ``nodes.affine``."""
+    threads), its two parts ``leaf_fill_s`` (the leaves' Gotoh table
+    fills) and ``leaf_trace_s`` (their walks and strings), and ``wall_s``.
+    The spans and counters are :func:`tpualign_torch.ops.hirschberg.tree`'s,
+    a node's fills the span ``node.affine`` and the counter
+    ``nodes.affine``, a vertical-gap crossing the counter
+    ``nodes.affine_gap``; the walkers' clock readings come back with their
+    results and are counted on the calling thread as ``leaf_walk_ns``,
+    ``leaf_fill_ns``, ``leaf_trace_ns`` and ``leaf_queue_ns``."""
     _check_cfg(cfg)
     if cfg.is_local:
         return align_local(s1, s2, cfg, device=device, stats=stats)
@@ -163,14 +171,18 @@ def align(s1, s2, cfg: ScoringConfig, *, device,
     with trace.span("tree", timed) as whole:
         open_ = cfg.gap_open
         counts = dict(nodes=0, gap_nodes=0, leaves=0, leaf_cells=0)
-        # (ta, qa, future of (queue ns, walk ns, (score, a1, a2)) or strings)
+        # (ta, qa, future of (queue ns, fill ns, walk ns, (score, a1, a2)) or
+        # strings)
         pieces = []
         pending = deque()
 
         def walk(submitted, ta, tb, qa, qb, top, bot):
             t0 = time.perf_counter_ns()
-            result = _base_align(s1[ta:tb], s2[qa:qb], cfg, top, bot)
-            return t0 - submitted, time.perf_counter_ns() - t0, result
+            t, q = np.asarray(s1[ta:tb], np.int64), np.asarray(s2[qa:qb], np.int64)
+            tables = oracle.affine_tables(t, q, cfg, top)
+            t1 = time.perf_counter_ns()
+            result = _base_align(t, q, cfg, top, bot, tables)
+            return t0 - submitted, t1 - t0, time.perf_counter_ns() - t1, result
 
         def submit(ta, tb, qa, qb, top, bot):
             m, n = tb - ta, qb - qa
@@ -211,6 +223,7 @@ def align(s1, s2, cfg: ScoringConfig, *, device,
                         continue
                     # a vertical gap spans rows mid and mid + 1 at column jf
                     counts["gap_nodes"] += 1
+                    trace.count("nodes.affine_gap")
                     submit(ta, ta + jf, qa, qa + mid - 1, top, 0)
                     pieces.append((ta + jf, qa + mid - 1, ("--", oracle.BASES[s2[qa + mid - 1]]
                                                            + oracle.BASES[s2[qa + mid]])))
@@ -218,19 +231,24 @@ def align(s1, s2, cfg: ScoringConfig, *, device,
             with trace.span("leaves.wait"):
                 # the pieces tile the path: sorting by (column, row) restores its order
                 pieces.sort(key=lambda piece: piece[:2])
-                walked = [(0, 0, (None, *p)) if isinstance(p, tuple) else p.result()
+                walked = [(0, 0, 0, (None, *p)) if isinstance(p, tuple) else p.result()
                           for _, _, p in pieces]
         if score is None:  # the root is a leaf
-            score = walked[0][2][0]
+            score = walked[0][3][0]
         with trace.span("assemble"):
-            a1 = "".join(r[1] for _, _, r in walked)
-            a2 = "".join(r[2] for _, _, r in walked)
-    walk_ns = sum(w for _, w, _ in walked)
+            a1 = "".join(r[1] for *_, r in walked)
+            a2 = "".join(r[2] for *_, r in walked)
+    fill_ns = sum(fill for _, fill, _, _ in walked)
+    trace_ns = sum(walk for _, _, walk, _ in walked)
+    walk_ns = fill_ns + trace_ns
     trace.count("leaf_walk_ns", walk_ns)
-    trace.count("leaf_queue_ns", sum(wait for wait, _, _ in walked))
+    trace.count("leaf_fill_ns", fill_ns)
+    trace.count("leaf_trace_ns", trace_ns)
+    trace.count("leaf_queue_ns", sum(wait for wait, *_ in walked))
     if stats is not None:
         stats.update(counts, bisect_s=bisect.seconds, leaf_walk="numpy",
-                     leaf_walk_s=walk_ns / 1e9, wall_s=whole.seconds)
+                     leaf_walk_s=walk_ns / 1e9, leaf_fill_s=fill_ns / 1e9,
+                     leaf_trace_s=trace_ns / 1e9, wall_s=whole.seconds)
     return score, a1, a2
 
 
