@@ -5,6 +5,12 @@ its kernels run on the CPU.
   depth, its memory budget (``RING_BUDGET`` by default, ``ring_budget``'s
   share of the card's free memory in the CUDA wrappers) and the refusals
   of geometries the kernels do not take and of rings past the budget.
+- ``ring_budget``'s cache of a card's usable bytes and ``ringed``, the
+  wrappers' one way to plan and allocate: the driver and PyTorch's caching
+  allocator monkeypatched (``FakeCard``), the budgets and the four cells'
+  plans held to the per-call formula ``RING_SHARE * (free + reserved -
+  allocated)``, one query a device, and a fresh query after an
+  ``OutOfMemoryError``.
 - ``tile_geometry``, ``tile_steps`` and ``TILE_W``: K6's tiled fill's
   planner, its step count and its tile widths, the kernel's own.
 - ``band_fill``, ``band_capture_fill``, ``band_capture_affine`` and
@@ -28,10 +34,11 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
-from tpualign_torch import matrices
-from tpualign_torch.config import AlignMode
-from tpualign_torch.ops import band
+from tpualign_torch import matrices, trace
+from tpualign_torch.config import AlignMode, ScoringConfig
+from tpualign_torch.ops import band, bitpal
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(ROOT, "tools")
@@ -241,6 +248,183 @@ def test_ring_budget_of_a_full_card_plans_the_wide_fills():
     for m, affine in ((140_000_000, False), (70_000_000, True), (2**29 - 5000, False),
                       (2**29 - 5000, True)):
         assert band.pipeline_plan(5000, m, affine, budget=budget).depth >= 2
+
+
+class FakeCard:
+    """Cards as ``band.ring_budget`` reads them: per device index, the
+    driver's free bytes and the caching allocator's reserved and allocated
+    bytes, moved as a cudaMalloc, a tensor's release and ``empty_cache``
+    move them; counts the driver's queries."""
+
+    def __init__(self, monkeypatch, free=(79 << 30, 79 << 30)):
+        self.free, self.reserved, self.allocated = list(free), [0] * len(free), [0] * len(free)
+        self.queries = 0
+        self.current = 0
+        monkeypatch.setattr(band, "_usable", {})
+        monkeypatch.setattr(torch.cuda, "mem_get_info", self.mem_get_info)
+        monkeypatch.setattr(torch.cuda, "memory_reserved", lambda i: self.reserved[i])
+        monkeypatch.setattr(torch.cuda, "memory_allocated", lambda i: self.allocated[i])
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: self.current)
+
+    def mem_get_info(self, i):
+        self.queries += 1
+        return self.free[i], self.free[i] + self.reserved[i]
+
+    def allocate(self, i, nbytes):
+        """A tensor of ``nbytes``: from what the allocator holds unused,
+        else a cudaMalloc of the rest."""
+        short = nbytes - (self.reserved[i] - self.allocated[i])
+        if short > 0:
+            self.free[i] -= short
+            self.reserved[i] += short
+        self.allocated[i] += nbytes
+
+    def release(self, i, nbytes):
+        """A tensor freed: the allocator keeps its bytes."""
+        self.allocated[i] -= nbytes
+
+    def empty_cache(self, i):
+        self.free[i] += self.reserved[i] - self.allocated[i]
+        self.reserved[i] = self.allocated[i]
+
+    def per_call(self, i):
+        """The budget asked of the driver on every call."""
+        return int((self.free[i] + self.reserved[i] - self.allocated[i]) * band.RING_SHARE)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    return FakeCard(monkeypatch)
+
+
+def _counts():
+    c = trace.counters()
+    return c.get("free_memory", 0), c.get("free_memory.cached", 0)
+
+
+CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7])
+def test_ring_budget_asks_the_driver_once_a_device(card, n):
+    before = _counts()
+    budgets = [band.ring_budget(CUDA0) for _ in range(n)]
+    assert budgets == [card.per_call(0)] * n
+    assert card.queries == 1
+    after = _counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, n - 1)
+
+
+#: the allocator's moves between two budgets, in turn: an output from what
+#: it holds, a ring past it (a cudaMalloc), their release, its cache
+#: emptied, a fill's outputs again
+MOVES = [("allocate", 1 << 20), ("allocate", 40 << 30), ("release", 40 << 30),
+         ("empty_cache", None), ("allocate", 3 << 29), ("release", 1 << 20),
+         ("allocate", 7 << 20)]
+
+
+@pytest.mark.parametrize("moves", range(1, len(MOVES) + 1))
+def test_ring_budget_from_the_cache_is_the_per_call_budget(card, moves):
+    card.allocate(0, 5 << 20)  # the context's first tensors, reserved before the query
+    assert band.ring_budget(CUDA0) == card.per_call(0)
+    for name, nbytes in MOVES[:moves]:
+        getattr(card, name)(0, *(() if nbytes is None else (nbytes,)))
+        assert band.ring_budget(CUDA0) == card.per_call(0)
+    assert card.queries == 1
+
+
+def test_ring_budget_keeps_a_cache_a_device(monkeypatch):
+    card = FakeCard(monkeypatch, free=(79 << 30, 31 << 30))
+    card.allocate(1, 3 << 30)
+    assert band.ring_budget(CUDA0) == card.per_call(0)
+    assert band.ring_budget(CUDA1) == card.per_call(1) != card.per_call(0)
+    card.allocate(0, 1 << 30)
+    card.current = 1  # no index: the current device
+    assert band.ring_budget() == band.ring_budget("cuda:1") == card.per_call(1)
+    assert band.ring_budget("cuda:0") == card.per_call(0)
+    assert card.queries == 2 and sorted(band._usable) == [0, 1]
+
+
+def _raising(times):
+    """A callable that raises ``torch.OutOfMemoryError`` on its first
+    ``times`` calls and then returns its argument."""
+    calls = []
+
+    def fn(x):
+        calls.append(x)
+        if len(calls) <= times:
+            raise torch.OutOfMemoryError("CUDA out of memory")
+        return x
+    fn.calls = calls
+    return fn
+
+
+@pytest.mark.parametrize("where", ["plan", "scratch"])
+def test_ringed_plans_again_from_a_fresh_query_after_out_of_memory(card, where):
+    assert band.ringed(CUDA0, lambda b: b, lambda p: "s") == (card.per_call(0), "s")
+    card.free[0] -= 9 << 30  # another process took memory: the cache is stale
+    plan, scratch = (_raising(1), lambda p: p) if where == "plan" else (lambda b: b, _raising(1))
+    before = _counts()
+    assert band.ringed(CUDA0, plan, scratch) == (card.per_call(0),) * 2
+    assert card.queries == 2 and _counts()[0] - before[0] == 1
+    # the budget asked again is the fresh one, and the next plan reads it from the cache
+    assert band.ringed(CUDA0, lambda b: b, lambda p: None)[0] == card.per_call(0)
+    assert card.queries == 2
+
+
+@pytest.mark.parametrize("where", ["plan", "scratch"])
+def test_ringed_lets_a_second_out_of_memory_through(card, where):
+    fails = _raising(2)
+    plan, scratch = (fails, lambda p: p) if where == "plan" else (lambda b: b, fails)
+    with pytest.raises(torch.OutOfMemoryError):
+        band.ringed(CUDA0, plan, scratch)
+    assert len(fails.calls) == 2 and card.queries == 2
+
+
+def test_ringed_without_a_ring_asks_nothing(card):
+    assert band.ringed(CUDA0, lambda b: b, lambda p: p, ring=False) == (None, None)
+    fails = _raising(1)
+    with pytest.raises(torch.OutOfMemoryError):
+        band.ringed(CUDA0, lambda b: b, fails, ring=False)
+    assert card.queries == 0 and len(fails.calls) == 1
+
+
+_NW, _SW = ScoringConfig(), ScoringConfig(match=2, mismatch=-1, gap=-2, mode=AlignMode.LOCAL)
+_AFFINE = ScoringConfig(match=1, mismatch=-4, gap_open=-6, gap_extend=-1)
+#: each cell's plan as its wrapper makes it from a budget: K1 (nw-unit) at
+#: 126,440 x 127,240, K6 (sw-2-1-2) there, the affine root fill (bwa-mem-1-4-6-1)
+#: of half the query, and the planted SW fill of 2,048 x 134,217,728
+CELL_PLANS = {
+    "nw.pair64gb.score": lambda b: bitpal.pipeline_plan(-(-126440 // bitpal.WORD), 127240,
+                                                        None, b),
+    "sw.pair64gb.score": lambda b: band.score_plan(126440, 127240, False, None,
+                                                   band.max_k(_SW), b),
+    "affine.pair64gb.align": lambda b: band.pipeline_plan(63620, 126440, True, None,
+                                                          band.max_k(_AFFINE), b),
+    "planted SW": lambda b: band.score_plan(2048, 1 << 27, False, None, band.max_k(_SW), b),
+}
+
+
+@pytest.mark.parametrize("free", [79 << 30, 5 << 29])
+@pytest.mark.parametrize("cell", list(CELL_PLANS))
+def test_the_cells_plans_are_the_per_call_plans(monkeypatch, cell, free):
+    """Call after call of a cell, the allocator holding and freeing its
+    outputs and rings, the plans from the cache are the plans from a query
+    a call, on a full card and on one where the planted fill's ring is
+    2 rows of its budget."""
+    card = FakeCard(monkeypatch, free=(free,))
+    planner = CELL_PLANS[cell]
+    plans = []
+    for call in range(4):
+        want = planner(card.per_call(0))
+        plan, ring = band.ringed(CUDA0, planner, lambda p: p.depth * 8 * 127241)
+        assert plan == want
+        card.allocate(0, ring + (1 << 20))
+        card.release(0, ring + (1 << 20))
+        if call == 2:
+            card.empty_cache(0)
+        plans.append(plan)
+    assert card.queries == 1 and len(set(plans)) == 1
 
 
 @pytest.mark.parametrize("geometry, match", [

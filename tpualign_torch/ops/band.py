@@ -43,7 +43,7 @@ TPU kernel refuses, run here.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -246,20 +246,65 @@ def score_plan(n: int, m: int, affine: bool, geometry=None, max_k: int = MAX_K,
 RING_SHARE = 0.5
 
 
+#: per CUDA device index, the bytes the card holds for this process's
+#: tensors: the driver's free bytes plus what PyTorch's caching allocator
+#: reserves, at the device's first budget.  A cudaMalloc or an empty_cache
+#: moves bytes between the two, so the sum holds until something outside
+#: this process's allocator moves the card's memory; :func:`ringed` drops
+#: a device's entry when a plan or an allocation after it runs out of memory
+_usable: Dict[int, int] = {}
+
+
+def _index(device) -> int:
+    """The index of a CUDA device, the current one where none is given."""
+    dev = torch.device("cuda" if device is None else device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
 def ring_budget(device=None, free_bytes: Optional[int] = None) -> int:
     """The ring's budget in bytes on a CUDA device: RING_SHARE of its free
     bytes, ``free_bytes`` where given, else ``torch.cuda.mem_get_info``'s
     free bytes plus what PyTorch's caching allocator holds and does not
-    use (it hands that out first).  On an 80 GB card a ring of 2 rows fits
-    every pair inside the int32 headroom (2^29 columns, 4.3 GB; 8.6 GB
-    affine)."""
+    use (it hands that out first).  The driver is asked once per device and
+    process (the counter and span ``free_memory``; :data:`_usable` keeps
+    its free bytes plus what the allocator reserved then): later budgets
+    take that sum less what the allocator hands out now
+    (``torch.cuda.memory_allocated``; the counter ``free_memory.cached``):
+    the same bytes while nothing outside the allocator moves the card's
+    memory.  On an 80 GB card a ring of 2 rows fits every pair inside the
+    int32 headroom (2^29 columns, 4.3 GB; 8.6 GB affine)."""
     if free_bytes is None:
-        trace.count("free_memory")
-        with trace.span("free_memory"):
-            free_bytes = (torch.cuda.mem_get_info(device)[0]
-                          + torch.cuda.memory_reserved(device)
-                          - torch.cuda.memory_allocated(device))
+        i = _index(device)
+        usable = _usable.get(i)
+        if usable is None:
+            trace.count("free_memory")
+            with trace.span("free_memory"):
+                usable = _usable[i] = (torch.cuda.mem_get_info(i)[0]
+                                       + torch.cuda.memory_reserved(i))
+        else:
+            trace.count("free_memory.cached")
+        free_bytes = usable - torch.cuda.memory_allocated(i)
     return int(free_bytes * RING_SHARE)
+
+
+def ringed(device, plan: Callable, scratch: Callable, ring: bool = True):
+    """``(p, s)`` of a CUDA wrapper's launch on ``device``: ``p =
+    plan(budget)`` under the span ``plan``, ``budget`` :func:`ring_budget`'s
+    of ``device`` (None where not ``ring``), then ``s = scratch(p)``, what
+    the wrapper allocates after planning (the ring among it).  A
+    ``torch.OutOfMemoryError`` from either, where a budget was asked, drops
+    the device's cached bytes and plans once more from a fresh query of the
+    driver; a second one propagates.  Every wrapper plans through it, after
+    ``_build.load()``, so the kernels' module is in the driver's count."""
+    for retry in (False, True):
+        try:
+            with trace.span("plan"):
+                p = plan(ring_budget(device) if ring else None)
+            return p, scratch(p)
+        except torch.OutOfMemoryError:
+            if retry or not ring:
+                raise
+        _usable.pop(_index(device), None)
 
 
 def _pipe_scratch(plan: PipePlan, m: int, affine: bool, dev, cells: bool):
@@ -275,14 +320,16 @@ def _pipe_scratch(plan: PipePlan, m: int, affine: bool, dev, cells: bool):
     return ring, sync, block_cells
 
 
-def _plan(n: int, m: int, affine: bool, geometry, most_k: int, dev,
-          tiled: bool = False) -> PipePlan:
+def _pipe(n: int, m: int, affine: bool, geometry, most_k: int, dev, cells: bool = False,
+          tiled: bool = False):
     """:func:`pipeline_plan`, or where ``tiled`` (K6's fill)
-    :func:`score_plan`, within :func:`ring_budget` of ``dev`` (the span
-    ``plan``)."""
-    with trace.span("plan"):
-        return (score_plan if tiled else pipeline_plan)(n, m, affine, geometry, most_k,
-                                                        ring_budget(dev))
+    :func:`score_plan`, within :func:`ring_budget` of ``dev``, and its
+    :func:`_pipe_scratch`, through :func:`ringed`: ``(plan, ring, sync,
+    block_cells)``."""
+    planner = score_plan if tiled else pipeline_plan
+    plan, scratch = ringed(dev, lambda budget: planner(n, m, affine, geometry, most_k, budget),
+                           lambda p: _pipe_scratch(p, m, affine, dev, cells))
+    return (plan, *scratch)
 
 
 def _matrix(cfg: ScoringConfig, dev) -> torch.Tensor:
@@ -403,8 +450,7 @@ def band_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
     with trace.span("alloc"):  # the identity of the blocks' max
         out = torch.full((1,), 0 if cfg.is_local else NEG, dtype=torch.int32, device=dev)
     trace.count_bytes("alloc_bytes", out)
-    plan = _plan(n, m, cfg.is_affine, geometry, max_k(cfg), dev, tiled=True)
-    ring, sync, _ = _pipe_scratch(plan, m, cfg.is_affine, dev, False)
+    plan, ring, sync, _ = _pipe(n, m, cfg.is_affine, geometry, max_k(cfg), dev, tiled=True)
     with trace.span("launch.band_fill"), torch.cuda.device(dev):
         err = lib.band_fill(
             text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K,
@@ -555,8 +601,7 @@ def capture_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
         found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
         f_row = torch.empty(m + 1, dtype=torch.int32, device=dev) if cfg.is_affine else None
     trace.count_bytes("alloc_bytes", caps, last_col, found, f_row)
-    plan = _plan(n, m, cfg.is_affine, geometry, max_k(cfg), dev)
-    ring, sync, block_cells = _pipe_scratch(plan, m, cfg.is_affine, dev, cell)
+    plan, ring, sync, block_cells = _pipe(n, m, cfg.is_affine, geometry, max_k(cfg), dev, cell)
     pipe = (_ptr(ring), plan.depth, sync.data_ptr(), _ptr(block_cells))
     head = (text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K, cfg.match,
             cfg.mismatch)
@@ -608,8 +653,7 @@ def edge_fill(text: torch.Tensor, query: torch.Tensor, cfg: ScoringConfig,
         last_col = torch.empty(n + 1, dtype=torch.int32, device=dev)
         found = torch.empty(3, dtype=torch.int32, device=dev) if cell else None
     trace.count_bytes("alloc_bytes", caps, last_col, found)
-    plan = _plan(n, m, False, None, max_k(cfg), dev)
-    ring, sync, block_cells = _pipe_scratch(plan, m, False, dev, cell)
+    plan, ring, sync, block_cells = _pipe(n, m, False, None, max_k(cfg), dev, cell)
     with trace.span("launch.band_capture_edge"), torch.cuda.device(dev):
         err = lib.band_capture_edge(
             text.data_ptr(), m, query.data_ptr(), n, matrix.data_ptr(), K, cfg.match,

@@ -217,21 +217,25 @@ def batch_fill(pairs: Pairs, cfg: ScoringConfig, ends,
     with trace.span("read_back"):
         m, n = pairs.lengths.cpu().numpy()
     P = m.size
-    with trace.span("plan"):
-        # only a query past one strip of the smallest block takes a ring
-        # (the free memory costs a call into CUDA)
-        budget = band.ring_budget(dev) if pairs.n_cap > LONG_K * band.WARP else None
-        plan = batch_plan(m, n, cfg.is_affine, band.max_k(cfg), geometry, budget)
     lib = _build.load()
+
+    def scratch(plan):
+        with trace.span("alloc"):
+            out = torch.full((P,), 0 if cfg.is_local else band.NEG, dtype=torch.int32,
+                             device=dev)
+            ring = torch.empty(plan.ring, dtype=torch.int32, device=dev) if plan.ring else None
+            sync = torch.zeros(2 + plan.strips, dtype=torch.int32, device=dev)
+        trace.count_bytes("alloc_bytes", out, ring, sync)
+        return out, ring, sync
+
+    # only a query past one strip of the smallest block takes a ring
+    plan, (out, ring, sync) = band.ringed(
+        dev, lambda budget: batch_plan(m, n, cfg.is_affine, band.max_k(cfg), geometry, budget),
+        scratch, pairs.n_cap > LONG_K * band.WARP)
     K = len(cfg.matrix) if cfg.has_matrix else 0
     matrix = band._matrix(cfg, dev)
     with trace.span("to_device"):
         sched = torch.from_numpy(plan.sched).to(dev)
-    with trace.span("alloc"):
-        out = torch.full((P,), 0 if cfg.is_local else band.NEG, dtype=torch.int32, device=dev)
-        ring = torch.empty(plan.ring, dtype=torch.int32, device=dev) if plan.ring else None
-        sync = torch.zeros(2 + plan.strips, dtype=torch.int32, device=dev)
-    trace.count_bytes("alloc_bytes", out, ring, sync)
     off, lens = pairs.offsets, pairs.lengths
     with trace.span("launch.band_batch_fill"), torch.cuda.device(dev):
         err = lib.band_batch_fill(

@@ -566,20 +566,24 @@ def _gfill_launch(text, eq, nq: int, g: int, rows, blocks):
     returns ``(planes, caps)``."""
     if text.device.type != "cuda":
         raise ValueError(f"the fills run on cpu or cuda tensors, got {text.device}")
-    from .band import ring_budget  # band imports this module
+    from .band import ringed  # band imports this module
     nw, mt = eq.shape[1], text.shape[0]
     dev = text.device
-    with trace.span("plan"):
-        plan = pipeline_plan(nw, mt, blocks, ring_budget(dev))
     lib = _build.load()
     J = 0 if rows is None else len(rows)
-    with trace.span("alloc"):
-        planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
-        caps = torch.empty((J, mt), dtype=torch.int8, device=dev)
-        ring = (torch.empty((plan.depth, mt), dtype=torch.uint8, device=dev)
-                if plan.depth else None)
-        sync = torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
-    trace.count_bytes("alloc_bytes", planes, caps, ring, sync)
+
+    def scratch(plan):
+        with trace.span("alloc"):
+            planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
+            caps = torch.empty((J, mt), dtype=torch.int8, device=dev)
+            ring = (torch.empty((plan.depth, mt), dtype=torch.uint8, device=dev)
+                    if plan.depth else None)
+            sync = torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
+        trace.count_bytes("alloc_bytes", planes, caps, ring, sync)
+        return planes, caps, ring, sync
+
+    plan, (planes, caps, ring, sync) = ringed(
+        dev, lambda budget: pipeline_plan(nw, mt, blocks, budget), scratch)
     head = (text.data_ptr(), eq.data_ptr(), mt, nw, g, plan.blocks,
             None if ring is None else ring.data_ptr(), plan.depth, sync.data_ptr())
     name = "bitpal_gfill" if rows is None else "bitpal_capture_fill"
@@ -668,15 +672,19 @@ def wave_scratch(nw: int, steps: int, device, blocks: Optional[int] = None):
     :func:`wave_plan`'s plan within ``band.ring_budget`` of ``device``, its
     ring (uninitialised: every byte is written before it is read) and its
     zeroed flags."""
-    from .band import ring_budget  # band imports this module
+    from .band import ringed  # band imports this module
     dev = torch.device(device)
-    with trace.span("plan"):
-        plan = wave_plan(nw, steps, blocks, ring_budget(dev))
-    with trace.span("alloc"):
-        ring = (torch.empty((plan.depth, steps), dtype=torch.uint8, device=dev)
-                if plan.depth else None)
-        sync = torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
-    trace.count_bytes("alloc_bytes", ring, sync)
+
+    def scratch(plan):
+        with trace.span("alloc"):
+            ring = (torch.empty((plan.depth, steps), dtype=torch.uint8, device=dev)
+                    if plan.depth else None)
+            sync = torch.zeros(plan.bands + 1, dtype=torch.int32, device=dev)
+        trace.count_bytes("alloc_bytes", ring, sync)
+        return ring, sync
+
+    plan, (ring, sync) = ringed(dev, lambda budget: wave_plan(nw, steps, blocks, budget),
+                                scratch)
     return plan, ring, sync
 
 
@@ -700,8 +708,8 @@ def _wave_launch(name: str, text, eq, g: int, rc: int, blocks, t0: int = 0,
     nw, mt = eq.shape[1], text.shape[0]
     dev = text.device
     steps = total_steps(mt, nw, rc) if state is None else t_steps
-    plan, ring, sync = wave_scratch(nw, steps, dev, blocks)
     lib = _build.load()
+    plan, ring, sync = wave_scratch(nw, steps, dev, blocks)
     with trace.span("alloc"):
         planes = torch.empty((n_planes(g), nw), dtype=torch.int64, device=dev)
         hand = None if state is None else torch.empty(nw, dtype=torch.uint8, device=dev)
@@ -1221,21 +1229,25 @@ def batch_fill(texts: torch.Tensor, tlen: torch.Tensor, eq: torch.Tensor, nq: in
         return batch_fill_plain(texts, tlen, eq, nq, g)
     if texts.device.type != "cuda":
         raise ValueError(f"the fills run on cpu or cuda tensors, got {texts.device}")
-    from .band import ring_budget  # band imports this module
+    from .band import ringed  # band imports this module
     P, m_cap = texts.shape
     nw = eq.shape[2]
     dev = texts.device
-    # only two bands or more take a ring (the free memory is a driver call)
-    with trace.span("plan"):
-        plan = batch_plan(P, nw, m_cap, blocks, ring_budget(dev) if nw > BAND else None)
     lib = _build.load()
-    with trace.span("alloc"):
-        planes = torch.empty((P, n_planes(g), nw), dtype=torch.int64, device=dev)
-        ring = (torch.empty((P, plan.depth, m_cap), dtype=torch.uint8, device=dev)
-                if plan.depth else None)
-        sync = (torch.zeros(1 + P * plan.bands, dtype=torch.int32, device=dev)
-                if plan.width == BAND else None)
-    trace.count_bytes("alloc_bytes", planes, ring, sync)
+
+    def scratch(plan):
+        with trace.span("alloc"):
+            planes = torch.empty((P, n_planes(g), nw), dtype=torch.int64, device=dev)
+            ring = (torch.empty((P, plan.depth, m_cap), dtype=torch.uint8, device=dev)
+                    if plan.depth else None)
+            sync = (torch.zeros(1 + P * plan.bands, dtype=torch.int32, device=dev)
+                    if plan.width == BAND else None)
+        trace.count_bytes("alloc_bytes", planes, ring, sync)
+        return planes, ring, sync
+
+    # only two bands or more take a ring
+    plan, (planes, ring, sync) = ringed(
+        dev, lambda budget: batch_plan(P, nw, m_cap, blocks, budget), scratch, nw > BAND)
     with trace.span("launch.bitpal_batch_fill"), torch.cuda.device(dev):
         err = lib.bitpal_batch_fill(
             texts.data_ptr(), m_cap, tlen.data_ptr(), eq.data_ptr(), P, nw, g, plan.blocks,

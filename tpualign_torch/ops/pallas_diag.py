@@ -113,8 +113,7 @@ def diag_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig,
         out = torch.full((1,), 0 if cfg.is_local else band.NEG, dtype=torch.int32, device=dev)
     trace.count_bytes("alloc_bytes", out)
     # K8's rows (s2) are the strips' query, its columns (s1) their text
-    plan = band._plan(n, m, False, geometry, band.MAX_K, dev)
-    ring, sync, _ = band._pipe_scratch(plan, m, False, dev, False)
+    plan, ring, sync, _ = band._pipe(n, m, False, geometry, band.MAX_K, dev)
     with trace.span("launch.diag_fill"), torch.cuda.device(dev):
         err = lib.diag_fill(
             s1.data_ptr(), m, s2.data_ptr(), n, cfg.match, cfg.mismatch, cfg.gap,
@@ -227,8 +226,7 @@ def ckpt_fill(s1: torch.Tensor, s2: torch.Tensor, cfg: ScoringConfig, K: int,
         best = torch.empty((2, n + 1), dtype=torch.int32, device=dev) if cfg.is_local else None
     trace.count_bytes("alloc_bytes", ck, best)
     # K9's rows (s2) are the strips' query, its columns (s1) their text
-    plan = band._plan(n, m, False, geometry, band.MAX_K, dev)
-    ring, sync, _ = band._pipe_scratch(plan, m, False, dev, False)
+    plan, ring, sync, _ = band._pipe(n, m, False, geometry, band.MAX_K, dev)
     v, dbest = (None, None) if best is None else (best[0].data_ptr(), best[1].data_ptr())
     with trace.span("launch.diag_ckpt_fill"), torch.cuda.device(dev):
         err = lib.diag_ckpt_fill(
